@@ -1,0 +1,320 @@
+"""Low-overhead span tracer: the host-event half of the reference's
+profiler (platform/profiler.h RecordEvent / Event table, profiler.cc's
+per-thread event lists), rebuilt as a first-class subsystem.
+
+Design constraints, in order:
+
+* **Disabled is a near-no-op.** `trace_span()` on a disabled tracer
+  returns a shared singleton context manager — no allocation, no clock
+  read, no lock. The serving decode loop and the executor wrap every
+  dispatch in a span, so the disabled path IS the production path.
+* **Thread-safe by construction.** Spans complete into a ring buffer
+  under one small lock (the reference kept per-thread event lists and
+  merged at report time; a single deque + lock is simpler and the
+  ~100 ns lock cost only exists while tracing is ON). Nesting depth is
+  tracked per thread in a `threading.local` stack, so concurrent
+  serving requests never corrupt each other's nesting.
+* **Bounded memory.** The ring holds the most recent `capacity` spans;
+  older spans fall off and are counted in `dropped` instead of growing
+  without bound in a long-running service.
+* **Monotonic clocks.** Timestamps are `time.monotonic_ns` relative to
+  the tracer's epoch, exported as microseconds — the unit Chrome's
+  trace viewer expects — immune to wall-clock steps.
+
+The process-wide tracer (`get_tracer()`) is what the executor and the
+inference predictor record into (a copy of `paddle_tpu`'s tracer; the
+port keeps its own so it never imports the JAX package).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, Dict, List, NamedTuple, Optional
+
+from collections import deque
+
+__all__ = ["Span", "Tracer", "get_tracer", "trace_span", "enable_tracing",
+           "disable_tracing", "tracing_enabled", "request_scope",
+           "current_request_id"]
+
+
+class Span(NamedTuple):
+    """One completed trace range (chrome "X" event)."""
+    name: str
+    cat: str
+    ts_us: float        # start, microseconds since the tracer's epoch
+    dur_us: float
+    tid: int            # recording thread's ident (chrome track id)
+    thread: str         # recording thread's name (track label)
+    depth: int          # nesting depth within the thread at begin time
+    args: Optional[Dict[str, Any]]
+
+
+class _NullSpan:
+    """Shared do-nothing context manager: the disabled fast path. One
+    instance for the whole process — entering/exiting allocates nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+# Ambient request id, per thread. Spans recorded while a request scope is
+# active pick up a "request_id" arg automatically (unless the caller passed
+# one explicitly), so every layer under ServingEngine.submit/step — the
+# scheduler's prefill/decode dispatches, executor runs issued on behalf of
+# a request, streamed-token callbacks — lands on the same /tracez timeline
+# without threading an id argument through every signature.
+_REQ_LOCAL = threading.local()
+
+
+def current_request_id() -> Optional[str]:
+    """The thread's ambient request id (None outside a request_scope)."""
+    return getattr(_REQ_LOCAL, "rid", None)
+
+
+class _RequestScope:
+    """Sets the thread's ambient request id for the body; restores the
+    previous id on exit (scopes nest: a sub-request shadows its parent)."""
+
+    __slots__ = ("_rid", "_prev")
+
+    def __init__(self, rid: str):
+        self._rid = rid
+
+    def __enter__(self):
+        self._prev = getattr(_REQ_LOCAL, "rid", None)
+        _REQ_LOCAL.rid = self._rid
+        return self
+
+    def __exit__(self, *exc):
+        _REQ_LOCAL.rid = self._prev
+        return False
+
+
+def request_scope(request_id: str):
+    """`with request_scope(rid): ...` — tag every span recorded in the
+    body (this thread) with the request id. When the global tracer is
+    disabled this returns the shared no-op span: no allocation on the
+    production hot path."""
+    if not _GLOBAL._enabled:
+        return _NULL_SPAN
+    return _RequestScope(str(request_id))
+
+
+def _attach_request_id(args: Optional[Dict[str, Any]]
+                       ) -> Optional[Dict[str, Any]]:
+    """Merge the ambient request id into span args (explicit id wins)."""
+    rid = getattr(_REQ_LOCAL, "rid", None)
+    if rid is None or (args is not None and "request_id" in args):
+        return args
+    merged = dict(args) if args else {}
+    merged["request_id"] = rid
+    return merged
+
+
+class _LiveSpan:
+    """Open span: stamps begin on __enter__, records on __exit__."""
+
+    __slots__ = ("_tracer", "name", "cat", "args", "_begin_ns", "_depth")
+
+    def __init__(self, tracer: "Tracer", name: str, cat: str,
+                 args: Optional[Dict[str, Any]]):
+        self._tracer = tracer
+        self.name = name
+        self.cat = cat
+        self.args = args
+
+    def __enter__(self):
+        stack = self._tracer._stack()
+        self._depth = len(stack)
+        stack.append(self)
+        self._begin_ns = time.monotonic_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end_ns = time.monotonic_ns()
+        tr = self._tracer
+        stack = tr._stack()
+        if stack and stack[-1] is self:
+            stack.pop()
+        else:  # exited out of order (generator teardown): best effort
+            try:
+                stack.remove(self)
+            except ValueError:
+                pass
+        if tr._enabled:  # may have been disabled while the span was open
+            t = threading.current_thread()
+            tr._record(Span(self.name, self.cat,
+                            (self._begin_ns - tr._epoch_ns) / 1e3,
+                            (end_ns - self._begin_ns) / 1e3,
+                            t.ident, t.name, self._depth,
+                            _attach_request_id(self.args)))
+        return False
+
+
+class Tracer:
+    """Thread-safe ring-buffer span recorder with a disabled fast path."""
+
+    def __init__(self, capacity: int = 65536):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self._lock = threading.Lock()
+        self._capacity = int(capacity)
+        self._spans: "deque[Span]" = deque(maxlen=self._capacity)
+        self._recorded = 0          # total spans ever recorded since clear()
+        self._enabled = False
+        self._local = threading.local()
+        self._epoch_ns = time.monotonic_ns()
+
+    # -- switch --------------------------------------------------------------
+
+    @property
+    def enabled(self) -> bool:
+        return self._enabled
+
+    def enable(self, capacity: Optional[int] = None) -> "Tracer":
+        """Turn recording on (optionally resizing the ring). Idempotent."""
+        with self._lock:
+            if capacity is not None and int(capacity) != self._capacity:
+                self._capacity = int(capacity)
+                self._spans = deque(self._spans, maxlen=self._capacity)
+            self._enabled = True
+        return self
+
+    def disable(self) -> None:
+        """Turn recording off; already-recorded spans stay available."""
+        self._enabled = False
+
+    def clear(self) -> None:
+        with self._lock:
+            self._spans.clear()
+            self._recorded = 0
+
+    # -- recording -----------------------------------------------------------
+
+    def span(self, name: str, cat: str = "",
+             args: Optional[Dict[str, Any]] = None):
+        """Context manager recording one complete span. When the tracer is
+        disabled this returns the shared no-op span — callers can wrap hot
+        paths unconditionally."""
+        if not self._enabled:
+            return _NULL_SPAN
+        return _LiveSpan(self, name, cat, args)
+
+    def instant(self, name: str, cat: str = "",
+                args: Optional[Dict[str, Any]] = None) -> None:
+        """Record a zero-duration marker at 'now'."""
+        if not self._enabled:
+            return
+        t = threading.current_thread()
+        self._record(Span(name, cat,
+                          (time.monotonic_ns() - self._epoch_ns) / 1e3,
+                          0.0, t.ident, t.name, len(self._stack()),
+                          _attach_request_id(args)))
+
+    def record_complete(self, name: str, begin_ns: int, end_ns: int,
+                        cat: str = "",
+                        args: Optional[Dict[str, Any]] = None) -> None:
+        """Record an externally-timed span (monotonic_ns endpoints). The
+        retroactive path: the serving engine stamps submit time and only
+        materializes the queue-wait span at admission, and the scheduler
+        fans one batched decode dispatch out into per-request
+        decode-iteration spans after the fact."""
+        if not self._enabled:
+            return
+        t = threading.current_thread()
+        self._record(Span(name, cat, (begin_ns - self._epoch_ns) / 1e3,
+                          (end_ns - begin_ns) / 1e3, t.ident, t.name, 0,
+                          _attach_request_id(args)))
+
+    def record_partition(self, prefix: str, end_ns: int,
+                         parts, cat: str = "",
+                         args: Optional[Dict[str, Any]] = None) -> None:
+        """Record a just-closed window as CONSECUTIVE named sub-spans
+        scaled to measured durations: `parts` is [(name, seconds), ...]
+        in execution order, the window ends at `end_ns` (monotonic_ns)
+        and begins sum(seconds) earlier. The retroactive-partition
+        idiom the engine's tick profiler uses to land its per-phase
+        attribution on the trace timeline (`<prefix>/<name>` spans);
+        zero-duration parts are skipped — an idle phase must not spam
+        the ring."""
+        if not self._enabled:
+            return
+        begin_ns = end_ns - int(sum(s for _, s in parts) * 1e9)
+        cursor = begin_ns
+        for name, seconds in parts:
+            if seconds <= 0:
+                continue
+            nxt = cursor + int(seconds * 1e9)
+            self.record_complete(f"{prefix}/{name}", cursor, nxt,
+                                 cat, args)
+            cursor = nxt
+
+    # -- inspection ----------------------------------------------------------
+
+    def snapshot(self) -> List[Span]:
+        """Consistent copy of the ring (oldest first)."""
+        with self._lock:
+            return list(self._spans)
+
+    @property
+    def span_count(self) -> int:
+        with self._lock:
+            return len(self._spans)
+
+    @property
+    def dropped(self) -> int:
+        """Spans pushed off the ring since the last clear()."""
+        with self._lock:
+            return self._recorded - len(self._spans)
+
+    @property
+    def capacity(self) -> int:
+        return self._capacity
+
+    # -- internals -----------------------------------------------------------
+
+    def _stack(self) -> list:
+        st = getattr(self._local, "stack", None)
+        if st is None:
+            st = self._local.stack = []
+        return st
+
+    def _record(self, span: Span) -> None:
+        with self._lock:
+            self._recorded += 1
+            self._spans.append(span)
+
+
+_GLOBAL = Tracer()
+
+
+def get_tracer() -> Tracer:
+    """The process-wide tracer every instrumented layer records into."""
+    return _GLOBAL
+
+
+def trace_span(name: str, cat: str = "",
+               args: Optional[Dict[str, Any]] = None):
+    """`with trace_span("executor/run"): ...` on the global tracer."""
+    return _GLOBAL.span(name, cat, args)
+
+
+def enable_tracing(capacity: Optional[int] = None) -> Tracer:
+    return _GLOBAL.enable(capacity)
+
+
+def disable_tracing() -> None:
+    _GLOBAL.disable()
+
+
+def tracing_enabled() -> bool:
+    return _GLOBAL._enabled

@@ -1,0 +1,113 @@
+"""Build and load the hand-written CUDA kernels under `ops/csrc/`.
+
+Each `csrc/<name>.cu` is compiled by `nvcc` for Hopper
+(`-gencode arch=compute_90a,code=sm_90a`) into a shared library with a
+plain C interface and loaded with `ctypes` — no PyTorch headers, so a
+build takes seconds. Libraries go to `paddle_tpu_torch/ops/_build/`
+(listed in `.gitignore`), named by a hash of the source and flags, so an
+edited source rebuilds and an unchanged one is reused. Nothing here runs
+at import time: the first launch of a kernel builds it, and
+`build_all()` starts one `nvcc` per source at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, List
+
+__all__ = ["KERNEL_SOURCES", "build_all", "load_library", "nvcc_path"]
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+_BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+
+# kernel library name -> source file under csrc/
+KERNEL_SOURCES = {
+    "flash_fwd": "flash_fwd.cu",
+    "flash_small_fwd": "flash_small_fwd.cu",
+}
+
+_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+build_logs: Dict[str, str] = {}   # name -> nvcc's output (ptxas -v lines)
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.isfile(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels of "
+                           "paddle_tpu_torch build on a machine with the "
+                           "CUDA toolkit")
+    return found
+
+
+def _target(name: str) -> str:
+    """Library path keyed by the source, every shared header and the
+    flags."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for fname in [KERNEL_SOURCES[name]] + headers:
+        with open(os.path.join(_CSRC, fname), "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(_FLAGS).encode())
+    return os.path.join(_BUILD, f"{name}-{h.hexdigest()[:16]}.so")
+
+
+def _command(name: str, out: str) -> List[str]:
+    return [nvcc_path()] + _FLAGS + ["-o", out,
+                                     os.path.join(_CSRC,
+                                                  KERNEL_SOURCES[name])]
+
+
+def build_all(names=None) -> Dict[str, float]:
+    """Compile every missing kernel library, one nvcc per source, all
+    started together. Returns {name: seconds} for the ones built."""
+    names = list(names or KERNEL_SOURCES)
+    os.makedirs(_BUILD, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _target(name)
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        procs[name] = (subprocess.Popen(_command(name, tmp),
+                                        stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    took = {}
+    failed = []
+    for name, (p, tmp, out, t0) in procs.items():
+        log, _ = p.communicate()
+        build_logs[name] = log
+        took[name] = time.perf_counter() - t0
+        if p.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return took
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library `name`, built first if missing."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            out = _target(name)
+            if not os.path.exists(out):
+                build_all([name])
+            lib = ctypes.CDLL(out)
+            _libs[name] = lib
+        return lib

@@ -1,0 +1,64 @@
+"""Math ops of the inference slice: elementwise_add, matmul, mul, mean.
+
+Port of the matching rules in `paddle_tpu/ops/math_ops.py` (_broadcast_y:21,
+matmul:64, mul:79, mean:148). Large products go to `torch.matmul`, as the
+JAX package leaves them to XLA.
+"""
+
+import math
+
+import torch
+
+from ..framework.registry import register_op
+
+
+def _broadcast_y(x, y, axis):
+    """Fluid's `axis` broadcasting (reference: operators/elementwise/
+    elementwise_op_function.h): y's dims align with x's starting at
+    `axis` (-1 = trailing)."""
+    if x.ndim == y.ndim:
+        return y
+    if y.ndim > x.ndim:
+        return y  # torch broadcasting handles leading-dim expansion of x
+    if axis == -1:
+        axis = x.ndim - y.ndim
+    new_shape = (1,) * axis + tuple(y.shape) + (1,) * (x.ndim - axis - y.ndim)
+    return torch.reshape(y, new_shape)
+
+
+@register_op("elementwise_add")
+def _elementwise_add(ctx, ins, attrs):
+    x, y = ins["X"][0], ins["Y"][0]
+    return {"Out": [x + _broadcast_y(x, y, attrs.get("axis", -1))]}
+
+
+@register_op("matmul")
+def _matmul(ctx, ins, attrs):
+    """reference: operators/matmul_op.cc — batched matmul w/ transpose flags."""
+    x, y = ins["X"][0], ins["Y"][0]
+    if attrs.get("transpose_X", False) and x.ndim > 1:
+        x = torch.transpose(x, -1, -2)
+    if attrs.get("transpose_Y", False) and y.ndim > 1:
+        y = torch.transpose(y, -1, -2)
+    out = torch.matmul(x, y)
+    alpha = attrs.get("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    return {"Out": [out]}
+
+
+@register_op("mul")
+def _mul(ctx, ins, attrs):
+    """reference: operators/mul_op.cc — flatten-to-2D matmul used by fc."""
+    x, y = ins["X"][0], ins["Y"][0]
+    xn = attrs.get("x_num_col_dims", 1)
+    yn = attrs.get("y_num_col_dims", 1)
+    x2 = x.reshape((math.prod(x.shape[:xn]), math.prod(x.shape[xn:])))
+    y2 = y.reshape((math.prod(y.shape[:yn]), math.prod(y.shape[yn:])))
+    out = x2 @ y2
+    return {"Out": [out.reshape(tuple(x.shape[:xn]) + tuple(y.shape[yn:]))]}
+
+
+@register_op("mean")
+def _mean(ctx, ins, attrs):
+    return {"Out": [torch.mean(ins["X"][0]).reshape((1,))]}
