@@ -14,7 +14,10 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 multiple of 16), sq != sk and ragged lengths; one JSON line
                 per case. Then attention_fwd_lse with the default dispatch
                 at head dims 24, 40 and 96 must launch a kernel, and at 264
-                (no kernel build) must raise, not run the plain path;
+                (no kernel build) must raise, not run the plain path. Then
+                the three backward kernels over the same kinds of cases
+                (dQ, dK, dV and the bias grad db), each case launched twice
+                and required to give the same bits;
   3. serve   -- GPT-2 small (GPTConfig(): vocab 50257, hidden 768, 12
                 layers, 12 heads) built with the port's DSL, initialized on
                 CUDAPlace(0) from --seed, saved with save_inference_model at
@@ -26,9 +29,19 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 times. Each request's logits are held against the same
                 program built with attn_impl="xla" (plain attention on the
                 card) on the same scope: max abs difference <= 1e-3;
-  4. times   -- each kernel at its main-path shape: CUDA-event time, the
+  4. train   -- GPT-2 small (dropout 0.1) train programs with Adam through
+                Executor.run on CUDAPlace(0): 3 steps at s=1024 b=2
+                (flash_fwd, flash_bwd_dkv, flash_bwd_dq) and 3 at s=512
+                b=4 (flash_small_fwd, flash_small_bwd). Counts are zeroed
+                just before the steps and read just after: each kernel of
+                the shape 12 times a step, the others never. Held against
+                the attn_impl="xla" program run from a copy of the same
+                scope: losses, step-1 gradients and the parameters after 3
+                steps, to the tolerances stated below;
+  5. times   -- each kernel at its main-path shape: CUDA-event time, the
                 plain version's time, F.scaled_dot_product_attention's time
-                as a yardstick only (the port never calls it), and the bound
+                (forward, or its backward alone through autograd) as a
+                yardstick only (the port never calls it), and the bound
                 max(FLOPs / 67 TFLOP/s fp32 non-tensor, bytes / 3.35 TB/s)
                 of an H100 SXM (NVIDIA's data sheet).
 
@@ -64,16 +77,42 @@ FP32_TOL = 2e-5
 BF16_ULP = 2.0 ** -7
 LOGIT_TOL = 1e-3    # GPT-2 logits, flash program vs plain-attention program
 
+# Backward kernels vs their plain versions: dQ, dK, dV are sums over up to
+# 2048 keys or query rows, taken in another order than the plain version's
+# matmuls; held to BWD_TOL (atol and rtol) in fp32, and a bf16 output may
+# round to the neighbouring bf16 value (one ulp, 2^-7 of |x|). db is f32.
+BWD_TOL = 1e-4
+
+# kernel -> its source, the TPU kernel it replaces, and whether the serving
+# path (forward only) launches it; the train path launches all five
 KERNELS = {
     "flash_fwd": {
         "source": "paddle_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "paddle_tpu/ops/flash_attention.py:84",
+        "serve": True,
     },
     "flash_small_fwd": {
         "source": "paddle_tpu_torch/ops/csrc/flash_small_fwd.cu",
         "replaces": "paddle_tpu/ops/flash_attention.py:266",
+        "serve": True,
+    },
+    "flash_bwd_dkv": {
+        "source": "paddle_tpu_torch/ops/csrc/flash_bwd_dkv.cu",
+        "replaces": "paddle_tpu/ops/flash_attention.py:134",
+        "serve": False,
+    },
+    "flash_bwd_dq": {
+        "source": "paddle_tpu_torch/ops/csrc/flash_bwd_dq.cu",
+        "replaces": "paddle_tpu/ops/flash_attention.py:188",
+        "serve": False,
+    },
+    "flash_small_bwd": {
+        "source": "paddle_tpu_torch/ops/csrc/flash_small_bwd.cu",
+        "replaces": "paddle_tpu/ops/flash_attention.py:279",
+        "serve": False,
     },
 }
+FWD_KERNELS = [n for n, k in KERNELS.items() if k["serve"]]
 
 
 def emit(obj):
@@ -238,7 +277,108 @@ def phase_kernels(seed):
         worst[key] = max(worst.get(key, 0.0), err_o, err_l)
     emit({"phase": "kernels", "cases": len(results),
           "worst": {f"{n}/{dt}": e for (n, dt), e in worst.items()}})
-    return results + _dispatch_checks(seed)
+    return results + _dispatch_checks(seed) + phase_bwd_kernels(seed)
+
+
+def _bwd_inputs(bn, sq, sk, d, dtype, with_bias, causal, seed):
+    """q, k, v, bias as `_inputs`, plus dO and the saved o, lse and delta
+    from the plain forward (so a backward case does not rest on a forward
+    kernel)."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, bias = _inputs(bn, sq, sk, d, dtype, with_bias, seed)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 7919)
+    do = torch.randn((bn, sq, d), generator=g, device="cuda").to(dtype)
+    o, lse = fa.flash_small_fwd_plain(q, k, v, bias, causal, d ** -0.5)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    return q, k, v, bias, do, lse, delta
+
+
+def _compare_bwd(name, args, causal, sm):
+    """Kernel vs plain version on the same inputs, and a second launch that
+    must give the same bits. Returns (ok, max_abs_err, bitwise)."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    kernel, plain = getattr(fa, name), getattr(fa, name + "_plain")
+    got = kernel(*args, causal, sm)
+    again = kernel(*args, causal, sm)
+    torch.cuda.synchronize()
+    ref = plain(*args, causal, sm)
+    if name == "flash_bwd_dq":
+        got, again, ref = (got,), (again,), (ref,)
+    ok, err, bitwise = True, 0.0, True
+    for a, a2, b in zip(got, again, ref):
+        if b is None:
+            ok = ok and a is None
+            continue
+        rtol = BWD_TOL if a.dtype == torch.float32 else BF16_ULP
+        a, a2, b = a.float(), a2.float(), b.float()
+        err = max(err, (a - b).abs().max().item())
+        bitwise = bitwise and torch.equal(a, a2)
+        ok = ok and bool(torch.isfinite(a).all()) and bool(
+            ((a - b).abs() <= BWD_TOL + rtol * b.abs()).all())
+    return ok and bitwise, err, bitwise
+
+
+def phase_bwd_kernels(seed):
+    """The three backward kernels against their plain versions: the shapes
+    of the forward cases, and each case launched twice for bitwise
+    reproducibility (no float atomics)."""
+    import torch
+    cases = []
+    for names, sizes in ((("flash_small_bwd",), (256, 512)),
+                         (("flash_bwd_dkv", "flash_bwd_dq"),
+                          (640, 1024, 2048))):
+        for name in names:
+            for s in sizes:
+                for d in (64, 128):
+                    for dtype in (torch.float32, torch.bfloat16):
+                        for causal in (False, True):
+                            for bias in (False, True):
+                                cases.append((name, 8, s, s, d, dtype,
+                                              causal, bias))
+    for names, s in ((("flash_small_bwd",), 256),
+                     (("flash_bwd_dkv", "flash_bwd_dq"), 640)):
+        for name in names:
+            for d in (4, 16, 24, 40, 80, 96, 200, 256):
+                for dtype in (torch.float32, torch.bfloat16):
+                    for causal, bias in ((False, False), (True, True)):
+                        cases.append((name, 4, s, s, d, dtype, causal, bias))
+    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        cases += [(name, 8, 512, 1024, 64, torch.float32, True, False),
+                  (name, 8, 1024, 512, 64, torch.float32, True, True),
+                  (name, 4, 1000, 1000, 64, torch.float32, True, True),
+                  (name, 4, 1000, 1000, 64, torch.bfloat16, False, True)]
+    cases += [("flash_small_bwd", 8, 256, 512, 64, torch.float32, True,
+               True),
+              ("flash_small_bwd", 8, 512, 256, 64, torch.float32, False,
+               False),
+              ("flash_small_bwd", 4, 200, 333, 128, torch.bfloat16, True,
+               True),
+              ("flash_small_bwd", 4, 200, 333, 64, torch.float32, False,
+               True)]
+    results, worst = [], {}
+    for i, (name, bn, sq, sk, d, dtype, causal, with_bias) in \
+            enumerate(cases):
+        args = _bwd_inputs(bn, sq, sk, d, dtype, with_bias, causal,
+                           seed + 1000 + i)
+        ok, err, bitwise = _compare_bwd(name, args, causal, d ** -0.5)
+        rec = {"phase": "bwd_kernel", "kernel": name, "bn": bn, "sq": sq,
+               "sk": sk, "d": d, "dtype": str(dtype).split(".")[-1],
+               "causal": causal, "bias": with_bias, "max_abs_err": err,
+               "atol": BWD_TOL, "rtol": BWD_TOL if dtype == torch.float32
+               else BF16_ULP, "bitwise_rerun": bitwise, "ok": ok}
+        emit(rec)
+        results.append(rec)
+        if not ok:
+            fail(f"{name} disagrees with its plain version or is not "
+                 f"reproducible: {rec}")
+        key = (name, rec["dtype"])
+        worst[key] = max(worst.get(key, 0.0), err)
+    emit({"phase": "bwd_kernels", "cases": len(results),
+          "worst": {f"{n}/{dt}": e for (n, dt), e in worst.items()}})
+    return results
 
 
 def _dispatch_checks(seed):
@@ -332,7 +472,7 @@ def phase_serve(seed):
         preds[seq].run({"tokens": requests[0][3][:1, :seq].repeat(batch, 0)})
     torch.cuda.synchronize()
 
-    names = list(KERNELS)
+    names = FWD_KERNELS
     outs = []
     for name in names:
         getattr(fa, name).launches = 0
@@ -398,52 +538,243 @@ def phase_serve(seed):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: times at the main-path shapes
+# phase 4: GPT-2 small training steps
 # ---------------------------------------------------------------------------
 
-def _bound(bn, sq, sk, d, causal, elem):
-    """Least time (ms) for the work: FLOPs of the score and P.V products
-    over the (query, key) pairs this mask keeps, against bytes of q, k, v
-    and o read or written once plus the f32 lse."""
-    if causal:   # top-left aligned: row r sees keys 0..r
-        pairs = sum(min(r + 1, sk) for r in range(sq))
-    else:
-        pairs = sq * sk
-    flops = 4.0 * bn * pairs * d
-    nbytes = (2 * bn * sq * d + 2 * bn * sk * d) * elem + 4 * bn * sq
+TRAIN_STEPS = 3
+TRAIN_LR = 1e-4
+LOSS_RTOL = 1e-4    # each step's loss, flash program vs plain-attention one
+# Step-1 gradients, per tensor: max |g - g_ref| <= GRAD_RTOL * max |g_ref|
+# + GRAD_ATOL. The atol covers tensors whose gradient is rounding noise:
+# every l*/k.b (key bias) has an exact gradient of 0, since softmax is
+# invariant to a per-row constant.
+GRAD_RTOL = 1e-3
+GRAD_ATOL = 1e-6
+# Parameters after TRAIN_STEPS Adam steps. Adam normalises each gradient,
+# so where the gradient is rounding noise (the k.b above) two correct
+# programs may step about lr apart in opposite directions: up to 2 * lr a
+# step.
+PARAM_TOL = 2 * TRAIN_LR * TRAIN_STEPS + 1e-6
+
+
+def _clone_scope(scope):
+    import paddle_tpu_torch as ptt
+    out = ptt.Scope()
+    for n in scope.var_names():
+        v = scope.find_var(n)
+        out.set_var(n, v.clone() if hasattr(v, "clone") else v)
+    return out
+
+
+def phase_train(seed):
+    """GPT-2 small train steps through Executor.run: 3 Adam steps at
+    s=1024 b=2 (flash_fwd + flash_bwd_dkv + flash_bwd_dq) and at s=512 b=4
+    (flash_small_fwd + flash_small_bwd), each against the same program
+    built with attn_impl="xla" from a copy of the same scope."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models.gpt import GPTConfig, gpt_lm_program
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    cfg = GPTConfig()                      # GPT-2 small, dropout 0.1
+    shapes = ((1024, 2, ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")),
+              (512, 4, ("flash_small_fwd", "flash_small_bwd")))
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    rng = np.random.RandomState(seed)
+    names = list(KERNELS)
+    launches = {n: 0 for n in names}
+    summaries = []
+    for seq, batch, knames in shapes:
+        t0 = time.perf_counter()
+        progs = {}
+        for impl in ("fused", "xla"):
+            with ptt.unique_name_guard():
+                progs[impl] = gpt_lm_program(
+                    GPTConfig(attn_impl=impl), seq, learning_rate=TRAIN_LR)
+            progs[impl][0].random_seed = seed
+        main, startup, fetch = progs["fused"]
+        startup.random_seed = seed
+        scope = ptt.Scope()
+        exe.run(startup, scope=scope)
+        ref_scope = _clone_scope(scope)
+        params = [p.name for p in main.global_block.all_parameters()]
+        grads = [p + "@GRAD" for p in params]
+        toks = [rng.randint(0, cfg.vocab_size, (batch, seq)).astype("int64")
+                for _ in range(TRAIN_STEPS)]
+        setup_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        for n in names:
+            getattr(fa, n).launches = 0
+        # ---- the main path: counts zeroed just before, read just after ----
+        losses, step_ms, g1 = [], [], None
+        for i in range(TRAIN_STEPS):
+            t = time.perf_counter()
+            out = exe.run(main, feed={"tokens": toks[i]},
+                          fetch_list=[fetch["loss"]] + (grads if i == 0
+                                                         else []),
+                          scope=scope, return_numpy=False)
+            losses.append(float(out[0].item()))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            if i == 0:
+                g1 = dict(zip(grads, out[1:]))
+        delta = {n: getattr(fa, n).launches for n in names}
+        # -------------------------------------------------------------------
+        peak = torch.cuda.max_memory_allocated()
+        want = {n: TRAIN_STEPS * cfg.layers if n in knames else 0
+                for n in names}
+        if delta != want:
+            fail(f"train s={seq} b={batch} launched {delta}, expected "
+                 f"{want}")
+        for n in names:
+            launches[n] += delta[n]
+
+        rmain, _, rfetch = progs["xla"]
+        ref_losses = []
+        for i in range(TRAIN_STEPS):
+            out = exe.run(rmain, feed={"tokens": toks[i]},
+                          fetch_list=[rfetch["loss"]] + (grads if i == 0
+                                                          else []),
+                          scope=ref_scope, return_numpy=False)
+            ref_losses.append(float(out[0].item()))
+            if i == 0:
+                rg1 = dict(zip(grads, out[1:]))
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+        grad_ratio, grad_worst = -1.0, None
+        for n in grads:
+            diff = (g1[n] - rg1[n]).abs().max().item()
+            tol = GRAD_RTOL * rg1[n].abs().max().item() + GRAD_ATOL
+            if diff / tol > grad_ratio:
+                grad_ratio, grad_worst = diff / tol, (n, diff, tol)
+        param_diff, param_worst = 0.0, None
+        for n in params:
+            diff = (scope.find_var(n) - ref_scope.find_var(n)).abs().max() \
+                .item()
+            if diff > param_diff:
+                param_diff, param_worst = diff, n
+        med = sorted(step_ms)[len(step_ms) // 2]
+        rec = {"phase": "train", "model": "gpt2-small", "seq": seq,
+               "batch": batch, "optimizer": "adam", "lr": TRAIN_LR,
+               "dropout": cfg.dropout, "steps": TRAIN_STEPS,
+               "setup_s": setup_s, "step_ms": step_ms, "median_step_ms": med,
+               "tokens_per_s": batch * seq / (med / 1e3),
+               "max_memory_allocated": peak, "launches": delta,
+               "losses": losses, "ref_losses": ref_losses,
+               "loss_rel_diff": loss_rel, "loss_rtol": LOSS_RTOL,
+               "grad_worst": {"var": grad_worst[0], "max_abs_diff":
+                              grad_worst[1], "tol": grad_worst[2]},
+               "param_max_abs_diff": param_diff, "param_worst": param_worst,
+               "param_tol": PARAM_TOL}
+        emit(rec)
+        summaries.append(rec)
+        if not all(np.isfinite(losses)) or max(loss_rel) > LOSS_RTOL:
+            fail(f"train s={seq}: losses {losses} vs the plain-attention "
+                 f"program's {ref_losses}")
+        if grad_ratio > 1.0:
+            fail(f"train s={seq}: step-1 gradient {grad_worst[0]} differs "
+                 f"by {grad_worst[1]} > {grad_worst[2]}")
+        if param_diff > PARAM_TOL:
+            fail(f"train s={seq}: parameter {param_worst} differs by "
+                 f"{param_diff} > {PARAM_TOL} after {TRAIN_STEPS} steps")
+        del g1, rg1, scope, ref_scope
+        torch.cuda.empty_cache()
+    for n in names:
+        if launches[n] == 0:
+            fail(f"kernel {n} was not launched on the train path")
+    return {"summaries": summaries, "launches": launches,
+            "shapes": {n: (batch * cfg.heads, seq)
+                       for seq, batch, knames in shapes for n in knames}}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: times at the main-path shapes
+# ---------------------------------------------------------------------------
+
+def _pairs(sq, sk, causal):
+    """(query, key) pairs the mask keeps; causal is top-left aligned (row
+    r sees keys 0..r)."""
+    return sum(min(r + 1, sk) for r in range(sq)) if causal else sq * sk
+
+
+def _bound(name, bn, sq, sk, d, causal, elem):
+    """Least time (ms) for a kernel's work: its FLOPs over the kept pairs
+    (4 per pair and head-dim column forward: S and P.V; 8 for dkv: S, dP,
+    dV, dK; 6 for dq: S, dP, dQ; 10 for the single pass: S, dP, dV, dK, dQ)
+    against its inputs read once and outputs written once."""
+    flop_mult, q_io, k_io = {
+        # (FLOPs per pair and column, (b*n, sq, d) tensors moved,
+        #  (b*n, sk, d) tensors moved); every kernel also reads or writes
+        #  lse (and the backward kernels delta), f32 (b*n, sq)
+        "flash_fwd": (4, 2, 2), "flash_small_fwd": (4, 2, 2),
+        "flash_bwd_dkv": (8, 2, 4), "flash_bwd_dq": (6, 3, 2),
+        "flash_small_bwd": (10, 3, 4)}[name]
+    rows = 1 if name.endswith("fwd") else 2
+    flops = float(flop_mult) * bn * _pairs(sq, sk, causal) * d
+    nbytes = (q_io * bn * sq * d + k_io * bn * sk * d) * elem \
+        + 4 * rows * bn * sq
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes"), flops, nbytes
 
 
-def phase_times(serve, seed):
+def _sdpa_bwd_ms(q, k, v, do, n):
+    """The backward alone of F.scaled_dot_product_attention (causal) on
+    the same (b*n, s, d) inputs, through torch.autograd.grad: a yardstick
+    only, the port never calls it. It computes dQ, dK and dV together."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.tools.profile_gpt import time_ms
+    bn, s, d = q.shape
+    q4, k4, v4 = (t.detach().view(bn // n, n, s, d).requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    do4 = do.view(bn // n, n, s, d)
+    return time_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), do4,
+                                               retain_graph=True))
+
+
+def phase_times(serve, train, seed):
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.tools.profile_gpt import time_ms
     n, d = serve["heads"], serve["head_dim"]
+    sm = d ** -0.5
     rows = []
-    for name, (bn, s) in serve["shapes"].items():
+    for name in KERNELS:
+        bn, s = train["shapes"][name]
         kernel = getattr(fa, name)
         plain = getattr(fa, name + "_plain")
-        q, k, v, _ = _inputs(bn, s, s, d, torch.float32, False, seed)
-        sm = d ** -0.5
-        ok, err_o, err_l, _ = _compare(kernel, plain, q, k, v, None, True, sm)
+        if KERNELS[name]["serve"]:
+            q, k, v, _ = _inputs(bn, s, s, d, torch.float32, False, seed)
+            ok, err_o, err_l, _ = _compare(kernel, plain, q, k, v, None,
+                                           True, sm)
+            err = max(err_o, err_l)
+            args = (q, k, v, None)
+            b = bn // n
+            q4, k4, v4 = (t.view(b, n, s, d) for t in (q, k, v))
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True))
+        else:
+            args = _bwd_inputs(bn, s, s, d, torch.float32, False, True,
+                               seed)
+            ok, err, _ = _compare_bwd(name, args, True, sm)
+            lib_ms = _sdpa_bwd_ms(args[0], args[1], args[2], args[4], n)
         if not ok:
             fail(f"{name} disagrees with its plain version at the main-path "
                  "shape")
-        ms = time_ms(lambda: kernel(q, k, v, None, True, sm))
-        plain_ms = time_ms(lambda: plain(q, k, v, None, True, sm), iters=5)
-        b = bn // n
-        q4, k4, v4 = (t.view(b, n, s, d) for t in (q, k, v))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True))
-        bound_ms, bound_by, flops, nbytes = _bound(bn, s, s, d, True, 4)
+        ms = time_ms(lambda: kernel(*args, True, sm))
+        plain_ms = time_ms(lambda: plain(*args, True, sm), iters=5)
+        bound_ms, bound_by, flops, nbytes = _bound(name, bn, s, s, d, True,
+                                                   4)
+        launches = train["launches"][name] + serve["launches"].get(name, 0)
         row = {"name": name, "route": "cuda",
                "source": KERNELS[name]["source"],
                "replaces": KERNELS[name]["replaces"],
-               "launches": serve["launches"][name],
-               "max_abs_err": max(err_o, err_l), "ms": ms,
+               "launches": launches, "max_abs_err": err, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": lib_ms}
         emit({"phase": "time", "kernel": name, "bn": bn, "sq": s, "sk": s,
@@ -451,6 +782,8 @@ def phase_times(serve, seed):
               "bytes": nbytes, "ms": ms, "plain_ms": plain_ms,
               "library_ms": lib_ms, "bound_ms": bound_ms,
               "bound_by": bound_by,
+              "launches_serve": serve["launches"].get(name, 0),
+              "launches_train": train["launches"][name],
               "tflops_per_s": flops / (ms * 1e-3) / 1e12})
         rows.append(row)
     return rows
@@ -479,13 +812,15 @@ def main():
         build = phase_build()
         kernels = phase_kernels(args.seed)
         serve = phase_serve(args.seed)
-        rows = phase_times(serve, args.seed)
+        train = phase_train(args.seed)
+        rows = phase_times(serve, train, args.seed)
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "seed": args.seed,
                    "wall_s": time.perf_counter() - t0, "build": build,
                    "kernel_cases": kernels, "serve": serve["summary"],
+                   "train": train["summaries"],
                    "requests": serve["requests"], "kernels": rows}, f,
                   indent=1)
     print(card, flush=True)

@@ -3,8 +3,10 @@
 The same Program IR, layers DSL and on-disk model format as the JAX
 package, executed eagerly op by op on torch tensors; attention runs on
 hand-written Hopper (sm_90a) CUDA kernels. It imports torch and never jax
-nor paddle_tpu. This slice covers GPT-2 inference: Program -> Executor ->
-fused_attention, the native io format and the inference Predictor.
+nor paddle_tpu. It covers GPT-2 inference (Program -> Executor ->
+fused_attention, the native io format and the inference Predictor) and the
+GPT-2 training step (append_backward, SGD/Adam, the attention backward on
+three Hopper kernels).
 
 Places are real: `Executor()` runs on `CUDAPlace(0)` and raises when no GPU
 is present; `Executor(CPUPlace())` runs on the CPU.
@@ -16,8 +18,10 @@ from .framework import (Program, Block, Operator, Variable, Parameter,
                         default_startup_program, unique_name,
                         unique_name_guard, name_scope,
                         Executor, Scope, global_scope, scope_guard,
-                        CPUPlace, CUDAPlace, LayerHelper, ParamAttr)
+                        CPUPlace, CUDAPlace, append_backward, gradients,
+                        LayerHelper, ParamAttr)
 from . import layers
+from . import optimizer
 from . import initializer
 from . import io
 from . import observability
@@ -29,5 +33,6 @@ __all__ = ["Program", "Block", "Operator", "Variable", "Parameter",
            "program_guard", "default_main_program",
            "default_startup_program", "unique_name", "unique_name_guard",
            "name_scope", "Executor", "Scope", "global_scope", "scope_guard",
-           "CPUPlace", "CUDAPlace", "LayerHelper", "ParamAttr", "layers",
-           "initializer", "io", "observability", "inference"]
+           "CPUPlace", "CUDAPlace", "append_backward", "gradients",
+           "LayerHelper", "ParamAttr", "layers", "optimizer", "initializer",
+           "io", "observability", "inference"]

@@ -6,4 +6,5 @@ from .core import (Program, Block, Operator, Variable, Parameter,  # noqa: F401
                    name_scope, grad_var_name, convert_np_dtype)
 from .executor import (Executor, Scope, global_scope, scope_guard,  # noqa: F401
                        CPUPlace, CUDAPlace)
+from .backward import append_backward, gradients  # noqa: F401
 from .layer_helper import LayerHelper, ParamAttr  # noqa: F401

@@ -1,0 +1,411 @@
+"""IR-level reverse-mode autodiff: append_backward.
+
+Reference: python/paddle/fluid/backward.py:558 append_backward — walks the
+forward ops in reverse, appends one grad op per forward op, sums duplicated
+gradient contributions (:135 _addup_repetitive_outputs_), and prunes branches
+cut by stop_gradient (:211).
+
+A copy of `paddle_tpu/framework/backward.py` (desc-level, no device code):
+grad ops here are *descriptions only*. Their lowering is the generic
+torch.func.vjp path in registry.py; ops with RNG or saved state register a
+custom grad_maker/grad_lower (e.g. dropout), and fused_attention's grad
+drives the Hopper backward kernels.
+
+Grad-op desc convention (mirrors the reference's GradOpDescMaker defaults,
+paddle/fluid/framework/grad_op_desc_maker.h):
+  inputs:  every forward input slot under its own name,
+           every forward output slot under "__out__"+slot,
+           output gradients under slot+"@GRAD" ("" where unavailable)
+  outputs: input gradients under slot+"@GRAD" ("" where not required)
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+from .core import (Block, Operator, Parameter, Program, Variable,
+                   grad_var_name, GRAD_SUFFIX)
+from .registry import get_op_def
+
+__all__ = ["append_backward", "gradients", "GradientDropWarning"]
+
+
+class GradientDropWarning(UserWarning):
+    """A gradient the loss demanded was dropped at a not-differentiable
+    op (grad_free=False) whose inputs happened to be non-differentiable —
+    the runtime twin of the static analyzer's PT-W104: both fire on the
+    same case (a gradient flows into an op that cannot produce one)."""
+
+
+def _find_loss_op_idx(block: Block, loss: Variable) -> int:
+    for i in reversed(range(len(block.ops))):
+        if loss.name in block.ops[i].output_names():
+            return i
+    raise ValueError(f"loss var {loss.name!r} is not produced by any op")
+
+
+def _collect_path_ops(block: Block, last_idx: int,
+                      seed: Optional[Set[str]] = None) -> List[int]:
+    """Indices of ops at or before `last_idx` that (transitively) produce
+    the seed vars (default: the outputs of op `last_idx`)."""
+    needed: Set[str] = set(seed) if seed is not None \
+        else set(block.ops[last_idx].output_names())
+    path = []
+    for i in reversed(range(last_idx + 1)):
+        op = block.ops[i]
+        if set(op.output_names()) & needed:
+            path.append(i)
+            needed.update(op.input_names())
+    return list(reversed(path))
+
+
+def _var_wants_grad(block: Block, name: str, no_grad_set: Set[str]) -> bool:
+    if name in no_grad_set:
+        return False
+    try:
+        v = block.var(name)
+    except KeyError:
+        return False
+    return not v.stop_gradient
+
+
+class _GradAccum:
+    """Tracks per-var gradient contributions; duplicates become a sum op
+    (the reference's _addup_repetitive_outputs_)."""
+
+    def __init__(self, block: Block):
+        self.block = block
+        self.contribs: Dict[str, List[str]] = {}
+        self.pending_ops: List[Operator] = []
+
+    def new_contrib_name(self, var: str) -> str:
+        lst = self.contribs.setdefault(var, [])
+        name = grad_var_name(var) if not lst else \
+            f"{grad_var_name(var)}@RENAME@{len(lst)}"
+        lst.append(name)
+        return name
+
+    def finalize(self, var: str) -> str:
+        """Return the (merged) grad var name for `var`, or "" if none."""
+        lst = self.contribs.get(var, [])
+        if not lst:
+            return ""
+        if len(lst) == 1:
+            return lst[0]
+        out = grad_var_name(var)
+        op = Operator(self.block, "sum", {"X": list(lst)}, {"Out": [out]})
+        self.pending_ops.append(op)
+        self._declare_grad_var(out, var)
+        # the merged grad stays sparse only if every contribution is sparse
+        if all(self.block.has_var(c) and
+               self.block.var(c).type == "selected_rows" for c in lst):
+            self.block.var(out).type = "selected_rows"
+        self.contribs[var] = [out]
+        return out
+
+    def _declare_grad_var(self, gname: str, src: str):
+        if gname and gname not in self.block.vars:
+            sv = self.block.var(src)
+            self.block.create_var(name=gname, shape=sv.shape, dtype=sv.dtype)
+
+
+def _make_grad_op_descs(op: Operator, block: Block, accum: _GradAccum,
+                        no_grad_set: Set[str]) -> List[Operator]:
+    opdef = get_op_def(op.type)
+    if opdef.not_differentiable:
+        # Silently dropping a gradient the loss depends on trains wrong —
+        # worse than an error (the reference differentiates through these
+        # via sub-block grad recursion, backward.py:422). Raise unless the
+        # op is provably grad-free (indices, comparisons, samplers) or no
+        # differentiable input feeds it.
+        if not opdef.grad_free \
+                and any(accum.contribs.get(n) for n in op.output_names()):
+            diff_ins = [n for n in op.input_names()
+                        if _var_wants_grad(block, n, no_grad_set)
+                        and block.has_var(n)
+                        and str(block.var(n).dtype).startswith("float")]
+            dropped = sorted(n for n in op.output_names()
+                             if accum.contribs.get(n))
+            if diff_ins:
+                raise RuntimeError(
+                    f"op {op.type!r} lies on the loss path (the loss "
+                    f"depends on outputs {dropped}) "
+                    f"but has no gradient; inputs {diff_ins} would "
+                    f"silently receive no gradient. Mark them "
+                    f"stop_gradient=True if that is intended"
+                    + (" (for While loops, pass max_trip_count to make "
+                       "them differentiable)" if op.type == "while"
+                       else ""))
+            # no differentiable input survives to raise for, but a
+            # gradient WAS demanded of this op and is being dropped —
+            # warn with op + var provenance (PT-W104's runtime twin;
+            # before this the drop was silent)
+            warnings.warn(GradientDropWarning(
+                f"op {op.type!r}: gradient demanded for output(s) "
+                f"{dropped} is dropped — the op is not differentiable "
+                f"(grad_free=False); everything upstream receives no "
+                f"gradient [PT-W104]"), stacklevel=3)
+        return []
+
+    if opdef.grad_maker is not None:
+        descs = opdef.grad_maker(op, block, no_grad_set)
+        ops = []
+        for d in descs:
+            # rewrite canonical out-grad input names to merged contributions
+            ins = {}
+            for slot, names in d["inputs"].items():
+                if slot.endswith(GRAD_SUFFIX):
+                    ins[slot] = [accum.finalize(n[: -len(GRAD_SUFFIX)])
+                                 if n.endswith(GRAD_SUFFIX) else n
+                                 for n in names]
+                else:
+                    ins[slot] = list(names)
+            # vars whose downstream grad this op CONSUMES entirely (a loop
+            # carry: the grad it emits is w.r.t. the value at loop ENTRY).
+            # Reset their contribution list so upstream producers see only
+            # the grad emitted here, not the already-consumed one — the
+            # reference handles the same re-assignment problem by renaming
+            # (backward.py _rename_grad_).
+            for n in d.get("reset_grads", ()):
+                accum.contribs[n] = []
+            outs = {}
+            for slot, names in d["outputs"].items():
+                fixed = []
+                for n in names:
+                    src = n[: -len(GRAD_SUFFIX)] if n.endswith(GRAD_SUFFIX) \
+                        else n
+                    if not _var_wants_grad(block, src, no_grad_set):
+                        fixed.append("")
+                        continue
+                    gname = accum.new_contrib_name(src)
+                    accum._declare_grad_var(gname, src)
+                    fixed.append(gname)
+                outs[slot] = fixed
+            ops.append(Operator(block, d["type"], ins, outs,
+                                d.get("attrs", {})))
+        return ops
+
+    # ---- generic maker ----
+    ins: Dict[str, List[str]] = {}
+    for slot, names in op.inputs.items():
+        ins[slot] = list(names)
+    for slot, names in op.outputs.items():
+        ins["__out__" + slot] = list(names)
+        ins[slot + GRAD_SUFFIX] = [accum.finalize(n) for n in names]
+
+    outs: Dict[str, List[str]] = {}
+    any_grad = False
+    sparse_slots = (opdef.sparse_grad_slots(op)
+                    if opdef.sparse_grad_slots is not None else set())
+    for slot, names in op.inputs.items():
+        if slot in opdef.no_grad_inputs:
+            continue
+        gnames = []
+        for n in names:
+            if _var_wants_grad(block, n, no_grad_set):
+                gname = accum.new_contrib_name(n)
+                accum._declare_grad_var(gname, n)
+                if slot in sparse_slots:
+                    block.var(gname).type = "selected_rows"
+                gnames.append(gname)
+                any_grad = True
+            else:
+                gnames.append("")
+        if any(gnames):
+            outs[slot + GRAD_SUFFIX] = gnames
+    if not any_grad:
+        return []
+    return [Operator(block, op.type + "_grad", ins, outs, dict(op.attrs))]
+
+
+def _prune_dead_grad_ops(grad_ops: List[Operator],
+                         keep_names: Set[str]) -> List[Operator]:
+    """Demand-driven DCE over the emitted grad ops.
+
+    The reverse sweep emits a grad op for every op on the loss path, but
+    a chain whose upstream ends at a not-differentiable op (e.g. the
+    grads of a sequence_mask output) is computed and then dropped — dead
+    trace weight the verifier flags as PT-W101. Keep only ops whose
+    outputs (transitively) reach a demanded gradient: a parameter's, or
+    any leaf var's (data/feed vars — op_test fetches those). Consumers
+    appear after producers in `grad_ops`, so one reversed pass suffices.
+    """
+    needed = set(keep_names)
+    kept: List[Operator] = []
+    for gop in reversed(grad_ops):
+        if any(n and n in needed for n in gop.output_names()):
+            needed.update(n for n in gop.input_names() if n)
+            kept.append(gop)
+    return list(reversed(kept))
+
+
+def _leaf_grad_demand(accum: _GradAccum, produced_fwd: Set[str]) -> Set[str]:
+    """Grad contribution names for LEAF forward vars (not produced by any
+    forward op: params, data/feed vars) — the terminal demand of the
+    backward pass."""
+    keep: Set[str] = set()
+    for v, lst in accum.contribs.items():
+        if v not in produced_fwd:
+            keep.update(n for n in lst if n)
+    return keep
+
+
+def _apply_error_clips(op, block, accum, grad_ops):
+    """error_clip (reference clip.py ErrorClipByValue via
+    _callback_lookup_): a forward var carrying .error_clip has its grad
+    clipped just before the grad op that consumes it."""
+    for out_name in op.output_names():
+        v = block.vars.get(out_name)
+        eclip = getattr(v, "error_clip", None)
+        if eclip is not None and accum.contribs.get(out_name):
+            gname = accum.finalize(out_name)
+            grad_ops.extend(accum.pending_ops)
+            accum.pending_ops.clear()
+            grad_ops.append(Operator(
+                block, "clip", {"X": [gname]}, {"Out": [gname]},
+                {"min": eclip.min, "max": eclip.max,
+                 "op_role": "backward"}))
+
+
+def append_backward(loss: Variable,
+                    parameter_list: Optional[Sequence[str]] = None,
+                    no_grad_set: Optional[Set[str]] = None,
+                    callbacks=None) -> List[Tuple[Variable, Variable]]:
+    """Append grad ops computing d(loss)/d(param); returns [(param, grad)].
+
+    reference: python/paddle/fluid/backward.py:558.
+    """
+    block = loss.block
+    program = block.program
+    no_grad = set(no_grad_set or ())
+
+    if loss.shape not in ((1,), ()):
+        raise ValueError(f"loss must be scalar, got shape {loss.shape}")
+
+    loss_idx = _find_loss_op_idx(block, loss)
+    path = _collect_path_ops(block, loss_idx)
+    produced_fwd = {n for op in block.ops for n in op.output_names() if n}
+
+    accum = _GradAccum(block)
+
+    # seed: d(loss)/d(loss) = 1
+    loss_grad = grad_var_name(loss.name)
+    block.create_var(name=loss_grad, shape=loss.shape, dtype=loss.dtype)
+    block.append_op(
+        "fill_constant", {}, {"Out": [loss_grad]},
+        {"shape": list(loss.shape), "dtype": loss.dtype, "value": 1.0,
+         "force_cpu": False, "op_role": "backward"},
+        infer_shape=False)
+    accum.contribs[loss.name] = [loss_grad]
+
+    grad_ops: List[Operator] = []
+    for i in reversed(path):
+        op = block.ops[i]
+        accum.pending_ops.clear()
+        _apply_error_clips(op, block, accum, grad_ops)
+        new_ops = _make_grad_op_descs(op, block, accum, no_grad)
+        # sum-merge ops created while finalizing out-grads must run first
+        grad_ops.extend(accum.pending_ops)
+        grad_ops.extend(new_ops)
+
+    # leaf merges (params used by multiple ops)
+    accum.pending_ops.clear()
+    params = [p for p in block.all_parameters() if p.trainable]
+    if parameter_list is not None:
+        params = [p for p in params if p.name in set(parameter_list)]
+    param_final: Dict[str, str] = {}
+    for p in params:
+        param_final[p.name] = accum.finalize(p.name)
+    grad_ops.extend(accum.pending_ops)
+
+    keep = _leaf_grad_demand(accum, produced_fwd)
+    keep.update(g for g in param_final.values() if g)
+    grad_ops = _prune_dead_grad_ops(grad_ops, keep)
+
+    for gop in grad_ops:
+        gop.attrs.setdefault("op_role", "backward")
+        block.ops.append(gop)
+    program._bump_version()
+
+    params_grads: List[Tuple[Variable, Variable]] = []
+    for p in params:
+        gname = param_final.get(p.name, "")
+        if not gname:
+            continue
+        params_grads.append((p, block.var(gname)))
+    return params_grads
+
+
+def gradients(targets: Sequence[Variable], inputs: Sequence[Variable],
+              target_gradients=None,
+              no_grad_set: Optional[Set[str]] = None) -> List[Variable]:
+    """Compute grads of sum(targets) w.r.t. inputs.
+
+    Multiple targets and explicit seed gradients are supported, matching
+    fluid.gradients (reference: python/paddle/fluid/backward.py:973
+    calc_gradient): each target is seeded with its target_gradient (or
+    ones), seeds and flow-through contributions merge via the usual
+    duplicate-sum machinery, and a single reverse sweep over the union of
+    the targets' forward paths emits the grad ops.
+    """
+    targets = list(targets)
+    if not targets:
+        raise ValueError("gradients() needs at least one target")
+    if target_gradients is None:
+        target_gradients = [None] * len(targets)
+    target_gradients = list(target_gradients)
+    if len(target_gradients) != len(targets):
+        raise ValueError(
+            f"{len(targets)} targets but {len(target_gradients)} "
+            "target_gradients")
+    block = targets[0].block
+    no_grad = set(no_grad_set or ())
+    produced_fwd = {n for op in block.ops for n in op.output_names() if n}
+
+    # union of the targets' producing paths, in forward order
+    idxs = [_find_loss_op_idx(block, t) for t in targets]
+    path = _collect_path_ops(block, max(idxs),
+                             seed={t.name for t in targets})
+
+    accum = _GradAccum(block)
+    for t, tg in zip(targets, target_gradients):
+        if tg is not None:
+            if tuple(tg.shape) != tuple(t.shape):
+                raise ValueError(
+                    f"target_gradient {tg.name!r} shape {tg.shape} != "
+                    f"target {t.name!r} shape {t.shape}")
+            accum.contribs.setdefault(t.name, []).append(tg.name)
+            continue
+        seed = grad_var_name(t.name) if t.name not in accum.contribs \
+            else f"{grad_var_name(t.name)}@SEED"
+        block.create_var(name=seed, shape=t.shape, dtype=t.dtype)
+        # ones_like handles -1 (batch) dims that fill_constant cannot
+        block.append_op("fill_any_like", {"X": [t.name]},
+                        {"Out": [seed]},
+                        {"value": 1.0, "dtype": t.dtype,
+                         "op_role": "backward"}, infer_shape=False)
+        accum.contribs.setdefault(t.name, []).append(seed)
+
+    grad_ops: List[Operator] = []
+    for i in reversed(path):
+        op = block.ops[i]
+        accum.pending_ops.clear()
+        _apply_error_clips(op, block, accum, grad_ops)
+        new_ops = _make_grad_op_descs(op, block, accum, no_grad)
+        grad_ops.extend(accum.pending_ops)
+        grad_ops.extend(new_ops)
+
+    accum.pending_ops.clear()
+    finals = [accum.finalize(v.name) for v in inputs]
+    grad_ops.extend(accum.pending_ops)
+
+    keep = _leaf_grad_demand(accum, produced_fwd)
+    keep.update(f for f in finals if f)
+    grad_ops = _prune_dead_grad_ops(grad_ops, keep)
+
+    for gop in grad_ops:
+        gop.attrs.setdefault("op_role", "backward")
+        block.ops.append(gop)
+    block.program._bump_version()
+    return [block.var(f) if f else None for f in finals]

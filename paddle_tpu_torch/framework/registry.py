@@ -7,11 +7,15 @@ rule, a plain function on torch tensors; that one rule gives
 
   * build-time shape/dtype inference — the rule runs on meta-device tensors
     (in place of `jax.eval_shape`),
-  * execution — the executor calls it eagerly, op by op.
+  * execution — the executor calls it eagerly, op by op,
+  * gradients — `torch.func.vjp` over the rule (in place of `jax.vjp`).
+    XLA's CSE removed the forward that jax.vjp replays; in eager mode the
+    replay is real work, so ops with a cheaper exact gradient register
+    their own grad lowering.
 
-Gradient lowering (`_lower_grad_op`), macro (control-flow) ops and host ops
-come with the training slice; `OpDef` already carries their fields so op
-modules can register grad makers now.
+Ops can override the grad-desc maker or the grad lowering when the generic
+path is wrong (rng ops like dropout, ops with saved intermediates). Macro
+(control-flow) ops and host ops come with later slices.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from typing import Any, Callable, Dict, List, Optional, Set
 
 import torch
 
-from .core import Block, Operator
+from .core import Block, Operator, GRAD_SUFFIX
 
 __all__ = ["OpDef", "register_op", "get_op_def", "has_op_def",
            "infer_op_shapes", "LowerContext", "lower_op", "DUMMY_BATCH",
@@ -66,16 +70,23 @@ class OpDef:
     no_grad_inputs: Set[str] = field(default_factory=set)
     # output slots that are not differentiable / get zero cotangents
     non_diff_outputs: Set[str] = field(default_factory=set)
-    # draws from ctx.rng()
+    # draws from ctx.rng() — requires a custom grad path
     stateful: bool = False
+    # in-place update op (optimizer ops): outputs alias inputs by name
+    is_optimizer_op: bool = False
     # custom grad-op desc maker: (op, block, no_grad_set) -> list[dict]
     grad_maker: Optional[Callable] = None
-    # custom grad lowering (lowered by the training slice)
+    # custom grad lowering: (ctx, ins, attrs) -> {slot: [tensors]}
     grad_lower: Optional[Callable] = None
-    # if True, op has NO gradient
+    # if True, op has NO gradient (grads of its inputs are zeros / skipped)
     not_differentiable: bool = False
-    # for not_differentiable ops: a zero/absent gradient is intended
+    # for not_differentiable ops: True means a zero/absent gradient is
+    # intended; False means backward raises if the loss depends on the op
     grad_free: bool = False
+    # fn(op) -> set of forward-input slots whose grads are SelectedRows
+    # (lookup_table with is_sparse=True); backward marks those grad vars'
+    # Variable.type = "selected_rows"
+    sparse_grad_slots: Optional[Callable] = None
 
 
 _REGISTRY: Dict[str, OpDef] = {}
@@ -143,9 +154,8 @@ class LowerContext:
 def lower_op(ctx: LowerContext, op: Operator, env: Dict[str, Any]) -> None:
     """Run one op: read inputs from env, write outputs into env."""
     if op.type.endswith("_grad"):
-        raise NotImplementedError(
-            f"op {op.type!r}: gradient ops run in the training slice of "
-            "paddle_tpu_torch, which is not ported yet")
+        _lower_grad_op(ctx, op, env)
+        return
     opdef = get_op_def(op.type)
     ins = {slot: [env[n] for n in names]
            for slot, names in op.inputs.items() if names}
@@ -166,6 +176,95 @@ def _bind_outputs(op: Operator, outs: Dict[str, List[Any]], env):
             env[n] = v
 
 
+def _lower_grad_op(ctx: LowerContext, op: Operator, env: Dict[str, Any]):
+    """Run a `<type>_grad` op: the forward op's custom `grad_lower`, or
+    the generic path, `torch.func.vjp` over the forward rule."""
+    fwd_type = op.type[: -len("_grad")]
+    opdef = get_op_def(fwd_type)
+
+    if opdef.grad_lower is not None:
+        ins = {slot: [env[n] for n in names if n]
+               for slot, names in op.inputs.items()
+               if any(n for n in names)}
+        outs = opdef.grad_lower(ctx, ins, op.attrs)
+        _bind_outputs(op, outs, env)
+        return
+
+    if opdef.stateful:
+        raise RuntimeError(
+            f"op {fwd_type} uses rng; it must define a custom grad_lower")
+
+    # Split grad-op inputs into forward inputs, forward outputs, out-grads.
+    fwd_in_slots: Dict[str, List[str]] = {}
+    out_grad_slots: Dict[str, List[str]] = {}
+    for slot, names in op.inputs.items():
+        if not names:
+            continue
+        if slot.endswith(GRAD_SUFFIX):
+            out_grad_slots[slot[: -len(GRAD_SUFFIX)]] = names
+        elif not slot.startswith("__out__"):
+            fwd_in_slots[slot] = names
+
+    # Which forward-input slots need grads (appear in grad-op outputs).
+    req_slots = [s[: -len(GRAD_SUFFIX)] for s in op.outputs
+                 if s.endswith(GRAD_SUFFIX) and op.outputs[s]]
+    diff_slots = [s for s in fwd_in_slots
+                  if s in req_slots and s not in opdef.no_grad_inputs]
+
+    flat_primals = [env[n] for s in diff_slots for n in fwd_in_slots[s]]
+    slot_lens = [len(fwd_in_slots[s]) for s in diff_slots]
+
+    out_index: List = []  # filled by the replay: (slot, idx) per output
+
+    def f(*flat):
+        ins: Dict[str, List[Any]] = {}
+        it = iter(flat)
+        for s, ln in zip(diff_slots, slot_lens):
+            ins[s] = [next(it) for _ in range(ln)]
+        for s, names in fwd_in_slots.items():
+            if s not in ins:
+                ins[s] = [env[n] for n in names]
+        sub_ctx = LowerContext(device=ctx.device, abstract=ctx.abstract)
+        outs = opdef.lower(sub_ctx, ins, op.attrs)
+        out_index.clear()
+        flat_outs = []
+        for slot in sorted(outs):
+            if slot in opdef.non_diff_outputs:
+                continue
+            for i, v in enumerate(outs[slot]):
+                if v.is_floating_point() or v.is_complex():
+                    out_index.append((slot, i))
+                    flat_outs.append(v)
+        return tuple(flat_outs)
+
+    primals_out, vjp_fn = torch.func.vjp(f, *flat_primals)
+
+    # Cotangents: out-grad from env when present, else zeros.
+    cots = []
+    for (slot, i), primal in zip(out_index, primals_out):
+        names = out_grad_slots.get(slot)
+        g = None
+        if names is not None and i < len(names) and names[i] in env:
+            g = env[names[i]]
+        cots.append(torch.zeros_like(primal) if g is None
+                    else g.to(primal.dtype))
+
+    grads = vjp_fn(tuple(cots))
+
+    it = iter(grads)
+    grads_by_slot = {s: [next(it) for _ in range(ln)]
+                     for s, ln in zip(diff_slots, slot_lens)}
+    for slot, names in op.outputs.items():
+        if not slot.endswith(GRAD_SUFFIX):
+            continue
+        vals = grads_by_slot.get(slot[: -len(GRAD_SUFFIX)])
+        if vals is None:
+            continue
+        for n, v in zip(names, vals):
+            if n:  # empty name == grad not needed for this var
+                env[n] = v
+
+
 # ---------------------------------------------------------------------------
 # Shape inference on the meta device
 # ---------------------------------------------------------------------------
@@ -180,6 +279,9 @@ def infer_op_shapes(op: Operator, block: Block) -> None:
     meta-device tensors. -1 (batch) dims are substituted with DUMMY_BATCH
     and mapped back to -1 in the outputs."""
     if op.type in ("feed", "fetch"):
+        return
+    if op.type.endswith("_grad"):
+        _infer_grad_shapes(op, block)
         return
     opdef = get_op_def(op.type)
 
@@ -219,3 +321,22 @@ def infer_op_shapes(op: Operator, block: Block) -> None:
                 shape = concrete_to_batch(shape)
             v.shape = shape
             v.dtype = dtype_name(t.dtype)
+
+
+def _infer_grad_shapes(op: Operator, block: Block) -> None:
+    """Grad var shape == forward var shape; no tracing needed (so a
+    forward output whose declared shape is a build-time dummy, like
+    fused_attention's Lse, never reaches a grad var)."""
+    for slot, names in op.outputs.items():
+        if not slot.endswith(GRAD_SUFFIX):
+            continue
+        fwd_names = op.inputs.get(slot[: -len(GRAD_SUFFIX)], [])
+        for i, n in enumerate(names):
+            if not n:
+                continue
+            v = block.var(n) if block.has_var(n) else block.create_var(
+                name=n)
+            if i < len(fwd_names) and block.has_var(fwd_names[i]):
+                fv = block.var(fwd_names[i])
+                v.shape = fv.shape
+                v.dtype = fv.dtype

@@ -7,9 +7,10 @@ the same weights. Attention goes through the fused_attention op with
 causal=True, which dispatches to the Hopper flash kernels on CUDA
 (flash_fwd at s >= 640, flash_small_fwd at 256 <= s <= 512).
 
-Only the inference form is ported: `gpt_lm_program(..., is_test=False)`
-(optimizer, AMP, recompute) and `tp_shardings` come with the training
-slice.
+`gpt_lm_program` builds the train step (is_test=False, the JAX default:
+append_backward + SGD or Adam) or the inference form (is_test=True). Not
+ported yet: amp=True, recompute=True, optimizer="lamb" (each raises) and
+`tp_shardings`.
 """
 
 from __future__ import annotations
@@ -96,18 +97,18 @@ def gpt_decoder(tokens, cfg: GPTConfig, is_test=False, prefix="gpt"):
     return _ln(x, f"{prefix}/lnf")
 
 
-def gpt_lm_program(cfg: GPTConfig, seq_len: int, is_test=True,
+def gpt_lm_program(cfg: GPTConfig, seq_len: int, is_test=False,
                    learning_rate=1e-4, optimizer="adam", amp=False,
                    recompute=False):
-    """(main, startup, fetches) of the causal LM: next-token CE with the
-    tied wte head, loss over positions 0..seq-2 predicting 1..seq-1.
-    Inference form only (is_test=True); fetches carry "loss" and
-    "logits"."""
-    if not is_test or amp or recompute:
+    """(main, startup, fetches) for a causal-LM step: next-token CE with
+    the tied wte head, loss over positions 0..seq-2 predicting 1..seq-1.
+    With is_test=False the backward and the optimizer (`optimizer`:
+    "adam" or "sgd") are appended. Fetches carry "loss" and "logits"."""
+    if amp or recompute or optimizer not in ("adam", "sgd"):
         raise NotImplementedError(
-            "gpt_lm_program: training (is_test=False, the optimizer, amp, "
-            "recompute) comes with the training slice of paddle_tpu_torch, "
-            "which is not ported yet; build with is_test=True")
+            "gpt_lm_program: amp=True, recompute=True and optimizers other "
+            f"than adam/sgd (got {optimizer!r}) are not ported to "
+            "paddle_tpu_torch yet")
     main, startup = pt.Program(), pt.Program()
     with pt.program_guard(main, startup):
         tokens = pt.layers.data("tokens", [seq_len], dtype="int64")
@@ -120,6 +121,12 @@ def gpt_lm_program(cfg: GPTConfig, seq_len: int, is_test=True,
         labels = pt.layers.reshape(labels, [0, seq_len - 1, 1])
         loss = pt.layers.softmax_with_cross_entropy(pred, labels)
         mean_loss = pt.layers.mean(loss)
+        if optimizer == "adam":
+            opt = pt.optimizer.Adam(learning_rate)
+        else:
+            opt = pt.optimizer.SGD(learning_rate)
+        if not is_test:
+            opt.minimize(mean_loss)
     return main, startup, {"loss": mean_loss, "logits": logits}
 
 

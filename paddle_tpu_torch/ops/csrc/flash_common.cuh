@@ -1,7 +1,8 @@
-// Shared helpers of the flash-attention forward kernels (flash_fwd.cu,
-// flash_small_fwd.cu): typed 4-wide loads and stores between device memory
-// (fp32 or bf16) and f32 registers / shared memory, and the 16-lane
-// reductions that combine a score row held by 16 threads.
+// Shared helpers of the flash-attention kernels (flash_fwd.cu,
+// flash_small_fwd.cu and, through flash_bwd_common.cuh, the backward
+// kernels): typed 4-wide loads and stores between device memory (fp32 or
+// bf16) and f32 registers / shared memory, and the 16-lane reductions that
+// combine a score row held by 16 threads.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -30,6 +30,9 @@ _BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 KERNEL_SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "flash_small_fwd": "flash_small_fwd.cu",
+    "flash_bwd_dkv": "flash_bwd_dkv.cu",
+    "flash_bwd_dq": "flash_bwd_dq.cu",
+    "flash_small_bwd": "flash_small_bwd.cu",
 }
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,8 +1,12 @@
-"""Math ops of the inference slice: elementwise_add, matmul, mul, mean.
+"""Math ops of the GPT slices: elementwise_add, matmul, mul, mean, sum,
+scale.
 
 Port of the matching rules in `paddle_tpu/ops/math_ops.py` (_broadcast_y:21,
-matmul:64, mul:79, mean:148). Large products go to `torch.matmul`, as the
-JAX package leaves them to XLA.
+matmul:64, mul:79, mean:148, sum:153, scale:178). Large products go to
+`torch.matmul`, as the JAX package leaves them to XLA. The grads of
+elementwise_add, matmul, mul and mean take the generic vjp path, as in JAX;
+in eager mode that replays the forward product once more per grad op
+(PERF.md §5 measures it).
 """
 
 import math
@@ -62,3 +66,25 @@ def _mul(ctx, ins, attrs):
 @register_op("mean")
 def _mean(ctx, ins, attrs):
     return {"Out": [torch.mean(ins["X"][0]).reshape((1,))]}
+
+
+@register_op("sum")
+def _sum(ctx, ins, attrs):
+    """add_n: sum a list of tensors (grad accumulation, e.g. the tied
+    gpt/wte; reference: operators/sum_op.cc). Dense only: SelectedRows
+    inputs come with the sparse lookup_table grad."""
+    xs = ins["X"]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {"Out": [out]}
+
+
+@register_op("scale")
+def _scale(ctx, ins, attrs):
+    x = ins["X"][0]
+    s = attrs.get("scale", 1.0)
+    b = attrs.get("bias", 0.0)
+    if attrs.get("bias_after_scale", True):
+        return {"Out": [x * s + b]}
+    return {"Out": [(x + b) * s]}

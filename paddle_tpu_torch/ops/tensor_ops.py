@@ -1,9 +1,10 @@
-"""Tensor ops of the inference slice: reshape2, slice, lookup_table, fill,
-constants, random init.
+"""Tensor ops of the GPT slices: reshape2, slice, lookup_table (with its
+dense grad), fill, constants, random init.
 
 Port of the matching rules in `paddle_tpu/ops/tensor_ops.py` (reshape2:42,
-slice:141, lookup_table:281, fill_constant:347, assign_value:382,
-uniform_random:435, gaussian_random:446). Rules create tensors on
+slice:141, lookup_table:256-299, fill_constant:347, fill_any_like:370,
+assign_value:382, uniform_random:435, gaussian_random:446). The grads of
+reshape2 and slice take the generic vjp path. Rules create tensors on
 `ctx.device`; random ops draw from the run's `torch.Generator` (or a fixed
 `seed` attr), so they give other numbers than JAX's keys from the same seed.
 """
@@ -54,7 +55,36 @@ def _slice(ctx, ins, attrs):
     return {"Out": [out]}
 
 
-@register_op("lookup_table", no_grad_inputs={"Ids"})
+def _lookup_sparse_slots(op):
+    return {"W"} if op.attrs.get("is_sparse", False) else set()
+
+
+def _lookup_table_grad(ctx, ins, attrs):
+    """Dense scatter-add of the out-grad rows into a zero table (reference:
+    operators/lookup_table_op.h LookupTableGradKernel); padding_idx rows
+    get no gradient. is_sparse=True (a SelectedRows grad) comes with a
+    later slice."""
+    if attrs.get("is_sparse", False):
+        raise NotImplementedError(
+            "lookup_table with is_sparse=True (SelectedRows gradients) is "
+            "not ported to paddle_tpu_torch yet; build it with "
+            "is_sparse=False")
+    w, ids, og = ins["W"][0], ins["Ids"][0], ins["Out@GRAD"][0]
+    if ids.ndim > 1 and ids.shape[-1] == 1:
+        ids = torch.squeeze(ids, -1)
+    rows = ids.reshape(-1).long()
+    vals = og.reshape(-1, og.shape[-1]).to(w.dtype)
+    pad = attrs.get("padding_idx", -1)
+    if pad is not None and pad >= 0:
+        vals = torch.where((rows != pad)[:, None], vals,
+                           torch.zeros((), dtype=vals.dtype,
+                                       device=vals.device))
+    return {"W@GRAD": [torch.zeros_like(w).index_add_(0, rows, vals)]}
+
+
+@register_op("lookup_table", no_grad_inputs={"Ids"},
+             sparse_grad_slots=_lookup_sparse_slots,
+             grad_lower=_lookup_table_grad)
 def _lookup_table(ctx, ins, attrs):
     """Embedding (reference: operators/lookup_table_op.cc). Ids carry a
     trailing 1 dim in fluid."""
@@ -75,6 +105,14 @@ def _fill_constant(ctx, ins, attrs):
                                dtype=torch_dtype(attrs.get("dtype",
                                                            "float32")),
                                device=ctx.device)]}
+
+
+@register_op("fill_any_like", not_differentiable=True, grad_free=True)
+def _fill_any_like(ctx, ins, attrs):
+    x = ins["X"][0]
+    dtype = attrs.get("dtype")
+    return {"Out": [torch.full_like(
+        x, attrs["value"], dtype=torch_dtype(dtype) if dtype else x.dtype)]}
 
 
 @register_op("assign_value", not_differentiable=True, grad_free=True)

@@ -1,6 +1,9 @@
-"""Where the time of a GPT-2 small inference request goes, on one CUDA card.
+"""Where the time of a GPT-2 small inference request, or train step, goes,
+on one CUDA card.
 
     python3 -m paddle_tpu_torch.tools.profile_gpt [--seed N] [--iters N]
+    python3 -m paddle_tpu_torch.tools.profile_gpt --train [--seed N]
+        [--iters N]
 
 Builds GPT-2 small (GPTConfig()) with the port's DSL, initializes it on
 CUDAPlace(0), prunes it to the logits as save_inference_model does, and
@@ -19,8 +22,18 @@ batch 4 at s=512):
     bf16, and F.scaled_dot_product_attention (fp32 and bf16) as a
     yardstick only.
 
-Prints one JSON line per measurement and writes chiprun_out/profile_gpt.json.
-Device numbers come only from a card: without one it exits non-zero.
+With --train it measures instead the GPT-2 small train step (Adam,
+dropout 0.1) at the two shapes of chip_smoke.py's train phase: the median
+step wall time, and a torch.profiler trace of a few steps with the device
+time by kernel group (matmul, flash forward, flash backward, the forward
+replays of the generic torch.func.vjp grads, Adam, elementwise, ...), by
+op type, and the device's idle share. Each op runs inside a
+record_function range (and a generic grad's replay of its forward inside
+a nested one), and a kernel is charged to the range its launch fell in.
+
+Prints one JSON line per measurement and writes chiprun_out/profile_gpt.json
+(profile_gpt_train.json with --train). Device numbers come only from a
+card: without one it exits non-zero.
 """
 
 import argparse
@@ -220,10 +233,216 @@ def dispatch_sweep(seed, sink):
         _emit(row, sink)
 
 
+_FLASH_FWD = ("flash_fwd_kernel", "flash_small_fwd_kernel")
+_FLASH_BWD = ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel",
+              "flash_small_bwd_kernel")
+_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+             "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def _train_group(kernel: str, op: str, replay: bool) -> str:
+    """Kernel group of a train step: our kernels and the generic-vjp
+    replays first, then matmuls, then by the op that launched it."""
+    if any(k in kernel for k in _FLASH_BWD):
+        return "flash backward (ours)"
+    if any(k in kernel for k in _FLASH_FWD):
+        return "flash forward (ours)"
+    if replay:
+        return "generic-vjp forward replay"
+    g = _group(kernel)
+    if g.startswith("matmul"):
+        return g
+    if op == "adam":
+        return "adam"
+    if op.startswith("softmax_with_cross_entropy"):
+        return "softmax cross-entropy (fwd+grad)"
+    if op in ("dropout", "dropout_grad"):
+        return "dropout (fwd+grad)"
+    return g
+
+
+class _OpRanges:
+    """While installed, every op the executor runs sits in a
+    record_function range "op:<type>", and the forward rule a generic grad
+    op replays under torch.func.vjp in a nested "replay:<type>"."""
+
+    def __init__(self):
+        from ..framework import registry
+        self._reg = registry
+        self._saved = {}
+        self._in_grad = False
+
+    def __enter__(self):
+        import torch
+        reg = self._reg
+        lower_op, lower_grad = reg.lower_op, reg._lower_grad_op
+        self._saved = {"lower_op": lower_op, "_lower_grad_op": lower_grad,
+                       "defs": {t: d.lower for t, d in reg._REGISTRY.items()}}
+
+        def op_range(ctx, op, env):
+            with torch.profiler.record_function("op:" + op.type):
+                return lower_op(ctx, op, env)
+
+        def grad_op(ctx, op, env):
+            self._in_grad = True
+            try:
+                return lower_grad(ctx, op, env)
+            finally:
+                self._in_grad = False
+
+        def wrap(op_type, fn):
+            def rule(ctx, ins, attrs):
+                if not self._in_grad:
+                    return fn(ctx, ins, attrs)
+                with torch.profiler.record_function("replay:" + op_type):
+                    return fn(ctx, ins, attrs)
+            return rule
+
+        for t, d in reg._REGISTRY.items():
+            d.lower = wrap(t, d.lower)
+        reg._lower_grad_op = grad_op
+        from ..framework import executor
+        executor.lower_op = op_range
+        return self
+
+    def __exit__(self, *exc):
+        reg = self._reg
+        for t, fn in self._saved["defs"].items():
+            reg._REGISTRY[t].lower = fn
+        reg._lower_grad_op = self._saved["_lower_grad_op"]
+        from ..framework import executor
+        executor.lower_op = self._saved["lower_op"]
+        return False
+
+
+def _attribute(events):
+    """(device kernels, {kernel id: (op type, replayed)}): each kernel is
+    charged to the innermost op/replay range that holds its launch (found
+    through the launch's CUDA correlation id). The profiler mirrors each
+    record_function range onto the device timeline as an annotation that
+    spans the range's kernels; those are not kernels and are left out."""
+    import bisect
+    from torch.autograd import DeviceType
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("op:", "replay:"))]
+    launch_at = {e.id: e.time_range.start for e in events
+                 if e.device_type == DeviceType.CPU and e.name in _LAUNCHES}
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in events if e.device_type == DeviceType.CPU
+                    and e.name.startswith(("op:", "replay:")))
+    starts = [r[0] for r in ranges]
+    out = {}
+    for k in kernels:
+        t = launch_at.get(k.id)
+        op, replay = "unattributed", False
+        if t is not None:
+            # the innermost range holding the launch began last; ops do
+            # not overlap, so the op range is at most a replay range away
+            i = bisect.bisect_right(starts, t) - 1
+            for s, e, name in reversed(ranges[max(0, i - 3):i + 1]):
+                if e < t:
+                    continue
+                if name.startswith("replay:"):
+                    replay = True
+                else:
+                    op = name[3:]
+                    break
+        out[id(k)] = (op, replay)
+    return kernels, out
+
+
+def profile_train(seed, iters, sink):
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models.gpt import GPTConfig, gpt_lm_program
+
+    cfg = GPTConfig()
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    rng = np.random.RandomState(seed)
+    for seq, batch in ((1024, 2), (512, 4)):
+        with ptt.unique_name_guard():
+            main, startup, fetch = gpt_lm_program(cfg, seq)
+        startup.random_seed = main.random_seed = seed
+        scope = ptt.Scope()
+        exe.run(startup, scope=scope)
+        toks = rng.randint(0, cfg.vocab_size, (batch, seq)).astype("int64")
+
+        def step():
+            out, = exe.run(main, feed={"tokens": toks},
+                           fetch_list=[fetch["loss"]], scope=scope,
+                           return_numpy=False)
+            torch.cuda.synchronize()
+            return out
+
+        step()                                           # warm-up
+        ts = []
+        for _ in range(iters):
+            t = time.perf_counter()
+            step()
+            ts.append((time.perf_counter() - t) * 1e3)
+        n_ops = len(main.global_block.ops)
+        n_generic = sum(1 for op in main.global_block.ops
+                        if op.type.endswith("_grad")
+                        and _generic_grad(op.type))
+        _emit({"phase": "train_step", "seq": seq, "batch": batch,
+               "median_step_ms": sorted(ts)[len(ts) // 2],
+               "step_ms": ts, "ops": n_ops, "generic_vjp_grad_ops": n_generic,
+               "tokens_per_s": batch * seq / (sorted(ts)[len(ts) // 2]
+                                              / 1e3)}, sink)
+
+        with _OpRanges(), torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for _ in range(2):
+                step()
+            wall_us = (time.perf_counter() - t) * 1e6
+        kernels, where = _attribute(prof.events())
+        if not kernels:
+            _emit({"phase": "train_profile", "seq": seq, "batch": batch,
+                   "device_time": "not measured (the profiler recorded no "
+                                  "device events)"}, sink)
+            continue
+        by_group, by_op, other = {}, {}, {}
+        for k in kernels:
+            us = k.time_range.end - k.time_range.start
+            op, replay = where[id(k)]
+            g = _train_group(k.name, op, replay)
+            by_group[g] = by_group.get(g, 0.0) + us
+            key = op + (" (replay)" if replay else "")
+            by_op[key] = by_op.get(key, 0.0) + us
+            if g == "other":
+                other[k.name] = other.get(k.name, 0.0) + us
+        busy = _union_us([(k.time_range.start, k.time_range.end)
+                          for k in kernels])
+        _emit({"phase": "train_profile", "seq": seq, "batch": batch,
+               "steps": 2, "wall_ms_per_step": wall_us / 2e3,
+               "device_busy_ms_per_step": busy / 2e3,
+               "device_idle_share": 1.0 - busy / wall_us,
+               "device_ms_per_step_by_group": {
+                   k: v / 2e3 for k, v in sorted(by_group.items(),
+                                                 key=lambda kv: -kv[1])},
+               "device_ms_per_step_by_op": {
+                   k: v / 2e3 for k, v in sorted(
+                       by_op.items(), key=lambda kv: -kv[1])[:16]},
+               "top_other_kernels_ms_per_step": [
+                   [n[:90], v / 2e3] for n, v in sorted(
+                       other.items(), key=lambda kv: -kv[1])[:6]]}, sink)
+        del scope
+
+
+def _generic_grad(grad_type: str) -> bool:
+    from ..framework.registry import get_op_def
+    return get_op_def(grad_type[: -len("_grad")]).grad_lower is None
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--train", action="store_true",
+                    help="profile the train step instead of inference")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -239,11 +458,15 @@ def main():
     _emit({"phase": "setup", "card": card, "torch": torch.__version__}, sink)
     from paddle_tpu_torch.ops import cuda_build
     cuda_build.build_all()
-    dispatch_sweep(args.seed, sink)
-    profile_requests(args.seed, args.iters, sink)
+    if args.train:
+        profile_train(args.seed, args.iters, sink)
+    else:
+        dispatch_sweep(args.seed, sink)
+        profile_requests(args.seed, args.iters, sink)
     out_dir = os.path.join(_ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_gpt.json"), "w") as f:
+    name = "profile_gpt_train.json" if args.train else "profile_gpt.json"
+    with open(os.path.join(out_dir, name), "w") as f:
         json.dump(sink, f, indent=1)
 
 

@@ -186,12 +186,6 @@ def test_run_before_startup_and_bad_feed_raise():
         exe.run(main, feed={}, fetch_list=[f["logits"]], scope=scope)
 
 
-def test_training_program_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tgpt.gpt_lm_program(_cfg(tgpt.GPTConfig, "fused"), 256,
-                            is_test=False)
-
-
 def test_port_imports_neither_jax_nor_paddle_tpu(jax_saved):
     d = jax_saved[(256, "fused")][0]
     code = (
