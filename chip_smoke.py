@@ -17,7 +17,12 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 (no kernel build) must raise, not run the plain path. Then
                 the three backward kernels over the same kinds of cases
                 (dQ, dK, dV and the bias grad db), each case launched twice
-                and required to give the same bits;
+                and required to give the same bits. Then the two residual +
+                LayerNorm kernels, fp32 and bf16, H 200/768/1024, M
+                1/1000/16384, random or unit scale and bias, and bf16 at
+                the spike's other shapes (8192 and 131072 rows of 768), the
+                backward launched twice for the same bits, and fused_ln's
+                autograd against autograd of torch_ln;
   3. serve   -- GPT-2 small (GPTConfig(): vocab 50257, hidden 768, 12
                 layers, 12 heads) built with the port's DSL, initialized on
                 CUDAPlace(0) from --seed, saved with save_inference_model at
@@ -38,12 +43,35 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 the attn_impl="xla" program run from a copy of the same
                 scope: losses, step-1 gradients and the parameters after 3
                 steps, to the tolerances stated below;
-  5. times   -- each kernel at its main-path shape: CUDA-event time, the
-                plain version's time, F.scaled_dot_product_attention's time
-                (forward, or its backward alone through autograd) as a
-                yardstick only (the port never calls it), and the bound
-                max(FLOPs / 67 TFLOP/s fp32 non-tensor, bytes / 3.35 TB/s)
-                of an H100 SXM (NVIDIA's data sheet).
+  5. bert    -- BERT-base (BertConfig(): vocab 30522, hidden 768, 12
+                layers, 12 heads, ffn 3072) MLM pretrain steps through
+                Executor.run on CUDAPlace(0). Held run at s=512 b=16 with
+                each row's last 10-40 % padded, dropout 0: the
+                attn_impl="fused" program (flash_small_fwd/flash_small_bwd
+                with the mask as a per-key bias) against the
+                attn_impl="einsum" program from a copy of the same scope, 3
+                Adam steps in fp32 and 3 with the bf16 AMP rewrite, both
+                from the same parameters and feeds: losses, step-1
+                gradients (under AMP against the fp32 run's) and the
+                parameters after 3 steps are held; counts
+                zeroed just before each fused run's steps and read just
+                after: 12 launches a step of each small kernel, none of the
+                others. Then bench.py's shape (s=128 b=128, einsum, AMP,
+                dropout 0.1, no flash kernel) for 3 steps. Step ms, tokens/s,
+                peak memory and MFU for each run;
+  6. spike   -- the residual + LayerNorm spike's table
+                (paddle_tpu_torch.tools.spike_residual_ln) at its four bf16
+                shapes, counts zeroed just before and read just after;
+  7. times   -- each kernel at its main-path shape: CUDA-event time, the
+                plain version's time, a library call's time as a yardstick
+                only (the port never calls it: F.scaled_dot_product_attention
+                forward or its backward alone through autograd;
+                F.layer_norm(x + r) and aten's native_layer_norm_backward),
+                and the bound max(FLOPs / the peak of the operands' type
+                (67 TFLOP/s fp32 non-tensor, 989.4 TFLOP/s bf16), bytes
+                / 3.35 TB/s) of an H100 SXM (NVIDIA's data sheet); the two
+                single-pass flash kernels also at BERT's shape, bf16 with a
+                bias.
 
 The line before the last is the {"kernels": [...]} summary; the last line is
 {"ok": true, "device": {...}}. Full results go to chiprun_out/chip_smoke.json.
@@ -64,9 +92,11 @@ OUT_DIR = os.path.join(HERE, "chiprun_out")
 WORK_DIR = os.path.join(HERE, "_smoke_work")   # saved models, removed at exit
 
 # H100 SXM peaks (NVIDIA H100 data sheet, dense): float32 outside the
-# tensor cores, and HBM3 bandwidth. The fp32 kernels use plain FMAs (no
-# TF32), so the fp32 non-tensor rate is their compute ceiling.
+# tensor cores (the rate for fp32 work with TF32 off), bf16 on the tensor
+# cores, and HBM3 bandwidth. A bound takes the peak of its operands' type,
+# whatever the kernel itself runs on.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989.4e12
 PEAK_BYTES = 3.35e12
 
 # Kernel vs plain version. Both compute in f32 from the same inputs and
@@ -83,8 +113,17 @@ LOGIT_TOL = 1e-3    # GPT-2 logits, flash program vs plain-attention program
 # round to the neighbouring bf16 value (one ulp, 2^-7 of |x|). db is f32.
 BWD_TOL = 1e-4
 
+# Residual + LayerNorm kernels vs their plain versions: out, mu, rstd and
+# ds held to LN_TOL (atol and rtol), a bf16 out or ds may be one bf16 ulp
+# away; dscale and dbias are sums over up to 16384 rows in another order,
+# held to LN_SUM_RTOL of their largest value.
+LN_TOL = 1e-5
+LN_SUM_RTOL = 1e-4
+
 # kernel -> its source, the TPU kernel it replaces, and whether the serving
-# path (forward only) launches it; the train path launches all five
+# path (forward only) launches it; the GPT train path launches all five
+# flash kernels, the BERT path the two single-pass ones, the spike the two
+# residual + LayerNorm ones
 KERNELS = {
     "flash_fwd": {
         "source": "paddle_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -111,7 +150,19 @@ KERNELS = {
         "replaces": "paddle_tpu/ops/flash_attention.py:279",
         "serve": False,
     },
+    "residual_ln_fwd": {
+        "source": "paddle_tpu_torch/ops/csrc/residual_ln_fwd.cu",
+        "replaces": "tools/spike_residual_ln.py:44",
+        "serve": False,
+    },
+    "residual_ln_bwd": {
+        "source": "paddle_tpu_torch/ops/csrc/residual_ln_bwd.cu",
+        "replaces": "tools/spike_residual_ln.py:55",
+        "serve": False,
+    },
 }
+FLASH_KERNELS = [n for n in KERNELS if n.startswith("flash")]
+LN_KERNELS = [n for n in KERNELS if n.startswith("residual_ln")]
 FWD_KERNELS = [n for n, k in KERNELS.items() if k["serve"]]
 
 
@@ -157,10 +208,16 @@ def _ptxas_summary(log):
     import re
     out, cur = {}, None
     for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = None     # a kernel without template args is not listed
         m = re.search(r"Compiling entry function '.*?kernelI(f|13__nv_"
-                      r"bfloat16)Li(\d+)E", ln)
+                      r"bfloat16)((?:Li\d+E)+)", ln)
         if m:
-            cur = f"{'f32' if m.group(1) == 'f' else 'bf16'}/d{m.group(2)}"
+            ints = re.findall(r"Li(\d+)E", m.group(2))
+            # flash kernels: <T, head dim>; residual LN: <T, VEC, NV>
+            tag = f"d{ints[0]}" if len(ints) == 1 else \
+                f"vec{ints[0]}/nv{ints[1]}"
+            cur = f"{'f32' if m.group(1) == 'f' else 'bf16'}/{tag}"
             out[cur] = ""
         elif cur and "spill stores" in ln:
             out[cur] += ln.split(",")[1].strip().replace(" bytes", "B") + ", "
@@ -181,7 +238,9 @@ def phase_build():
             f.write(log)
         ptxas[name] = _ptxas_summary(log)
     emit({"phase": "build", "wall_s": round(wall, 3),
-          "per_source_s": {k: round(v, 3) for k, v in took.items()}})
+          "per_source_s": {k: round(v, 3) for k, v in took.items()},
+          "residual_ln_sources_s": {k: round(took[k], 3) for k in LN_KERNELS
+                                    if k in took}})
     for name, lines in ptxas.items():
         emit({"phase": "build", "kernel": name, "ptxas": lines})
     return {"wall_s": wall, "per_source_s": took, "ptxas": ptxas}
@@ -277,7 +336,8 @@ def phase_kernels(seed):
         worst[key] = max(worst.get(key, 0.0), err_o, err_l)
     emit({"phase": "kernels", "cases": len(results),
           "worst": {f"{n}/{dt}": e for (n, dt), e in worst.items()}})
-    return results + _dispatch_checks(seed) + phase_bwd_kernels(seed)
+    return results + _dispatch_checks(seed) + phase_bwd_kernels(seed) \
+        + phase_ln_kernels(seed)
 
 
 def _bwd_inputs(bn, sq, sk, d, dtype, with_bias, causal, seed):
@@ -381,6 +441,105 @@ def phase_bwd_kernels(seed):
     return results
 
 
+def _ln_close(a, b, rtol):
+    """(ok, max abs err): |a - b| <= LN_TOL + rtol * |b| everywhere."""
+    import torch
+    a, b = a.float(), b.float()
+    return (bool(torch.isfinite(a).all())
+            and bool(((a - b).abs() <= LN_TOL + rtol * b.abs()).all()),
+            (a - b).abs().max().item())
+
+
+def _sum_close(a, b):
+    """(ok, max abs err) for a column sum: within LN_SUM_RTOL of max |b|."""
+    import torch
+    err = (a - b).abs().max().item()
+    return (bool(torch.isfinite(a).all())
+            and err <= LN_SUM_RTOL * b.abs().max().item(), err)
+
+
+def phase_ln_kernels(seed):
+    """The residual + LayerNorm kernels against their plain versions in
+    every combination of dtype, H, M (1000 is ragged against the TPU
+    kernel's 256-row blocks) and scale/bias (random, or 1 and 0), then at
+    the spike's bf16 shapes the grid leaves out; each backward launched
+    twice for the same bits. Then fused_ln's autograd against autograd of
+    torch_ln."""
+    import itertools
+    import torch
+    from paddle_tpu_torch.tools import spike_residual_ln as srl
+    torch.manual_seed(seed)     # the cotangents g
+    results, worst = [], {}
+    cases = list(itertools.product((torch.float32, torch.bfloat16),
+                                   (200, 768, 1024), (1, 1000, 16384),
+                                   (False, True)))
+    cases += [(torch.bfloat16, h, m, False) for m, h in srl.SHAPES
+              if (torch.bfloat16, h, m, False) not in cases]
+    for i, (dtype, h, m, unit) in enumerate(cases, 1):
+        x, r, sc, b = srl.spike_inputs(m, h, dtype, seed + 3000 + i, unit)
+        g = torch.randn(x.shape, device=x.device).to(dtype)
+        rtol = LN_TOL if dtype == torch.float32 else BF16_ULP
+        out, mu, rstd = srl.residual_ln_fwd(x, r, sc, b)
+        ds, dsc, db = srl.residual_ln_bwd(x, r, sc, mu, rstd, g)
+        again = srl.residual_ln_bwd(x, r, sc, mu, rstd, g)
+        torch.cuda.synchronize()
+        ref = srl.residual_ln_fwd_plain(x, r, sc, b)
+        # the backward from the same saved mu, rstd on both sides, so it
+        # does not rest on the forward kernel
+        rds, rdsc, rdb = srl.residual_ln_bwd_plain(x, r, sc, mu, rstd, g)
+        checks = {"out": _ln_close(out, ref[0], rtol),
+                  "mu": _ln_close(mu, ref[1], LN_TOL),
+                  "rstd": _ln_close(rstd, ref[2], LN_TOL),
+                  "ds": _ln_close(ds, rds, rtol),
+                  "dscale": _sum_close(dsc, rdsc),
+                  "dbias": _sum_close(db, rdb)}
+        bitwise = all(torch.equal(a, a2) for a, a2 in
+                      zip((ds, dsc, db), again))
+        ok = bitwise and all(c[0] for c in checks.values())
+        rec = {"phase": "ln_kernel", "M": m, "H": h,
+               "dtype": str(dtype).split(".")[-1],
+               "scale_bias": "1/0" if unit else "random",
+               "max_abs_err": {k: c[1] for k, c in checks.items()},
+               "atol": LN_TOL, "rtol": rtol,
+               "sum_rtol_of_max": LN_SUM_RTOL,
+               "bitwise_rerun": bitwise, "ok": ok}
+        emit(rec)
+        results.append(rec)
+        if not ok:
+            fail(f"residual LN kernels disagree with their plain versions "
+                 f"or are not reproducible: {rec}")
+        for k, c in checks.items():
+            key = (rec["dtype"], k)
+            worst[key] = max(worst.get(key, 0.0), c[1])
+        del x, r, g, out, ds, again, ref, rds
+    # fused_ln (the kernels behind torch.autograd.Function) against
+    # autograd of the plain composition torch_ln
+    for dtype in (torch.float32, torch.bfloat16):
+        x, r, sc, b = srl.spike_inputs(4096, 768, dtype, seed + 4000)
+        g = torch.randn(x.shape, device=x.device).to(dtype)
+        res = []
+        for fn in (srl.fused_ln, srl.torch_ln):
+            leaves = [t.detach().requires_grad_() for t in (x, r, sc, b)]
+            out = fn(*leaves)
+            res.append([out] + list(torch.autograd.grad(out, leaves, g)))
+        rel = {}
+        for k, a, want in zip(("out", "dx", "dr", "dscale", "dbias"), *res):
+            rel[k] = ((a.float() - want.float()).abs().max()
+                      / want.float().abs().max()).item()
+        tol = 1e-4 if dtype == torch.float32 else BF16_ULP
+        rec = {"phase": "ln_autograd", "M": 4096, "H": 768,
+               "dtype": str(dtype).split(".")[-1],
+               "max_err_rel_to_max": rel, "tol": tol,
+               "ok": max(rel.values()) <= tol}
+        emit(rec)
+        results.append(rec)
+        if not rec["ok"]:
+            fail(f"fused_ln's gradients differ from torch_ln's: {rec}")
+    emit({"phase": "ln_kernels", "cases": len(results),
+          "worst": {f"{dt}/{k}": e for (dt, k), e in worst.items()}})
+    return results
+
+
 def _dispatch_checks(seed):
     """flash_dispatch keeps the JAX rule: on the card every head dim with
     d % 8 == 0 goes to a kernel, and one that no kernel is built for
@@ -394,16 +553,17 @@ def _dispatch_checks(seed):
     for d, s in ((24, 256), (96, 256), (40, 640), (96, 1024)):
         q, k, v = mk(s, d), mk(s, d), mk(s, d)
         want = "flash_small_fwd" if fa._small_ok(s, s) else "flash_fwd"
-        before = {n: getattr(fa, n).launches for n in KERNELS}
+        before = {n: getattr(fa, n).launches for n in FLASH_KERNELS}
         o, _ = fa.attention_fwd_lse(q, k, v, causal=True)
-        delta = {n: getattr(fa, n).launches - before[n] for n in KERNELS}
+        delta = {n: getattr(fa, n).launches - before[n]
+                 for n in FLASH_KERNELS}
         ref = fa.mha_reference(q, k, v, None, True)
         err = (o - ref).abs().max().item()
         rec = {"phase": "dispatch", "d": d, "s": s, "launches": delta,
                "max_abs_err_vs_reference": err, "tol": FP32_TOL}
         emit(rec)
         results.append(rec)
-        if delta != {n: int(n == want) for n in KERNELS}:
+        if delta != {n: int(n == want) for n in FLASH_KERNELS}:
             fail(f"attention at d={d}, s={s} launched {delta}, expected one "
                  f"{want}")
         if not bool(((o - ref).abs() <= FP32_TOL + FP32_TOL * ref.abs())
@@ -582,7 +742,7 @@ def phase_train(seed):
               (512, 4, ("flash_small_fwd", "flash_small_bwd")))
     exe = ptt.Executor(ptt.CUDAPlace(0))
     rng = np.random.RandomState(seed)
-    names = list(KERNELS)
+    names = FLASH_KERNELS
     launches = {n: 0 for n in names}
     summaries = []
     for seq, batch, knames in shapes:
@@ -690,7 +850,266 @@ def phase_train(seed):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: times at the main-path shapes
+# phase 5: BERT-base pretrain steps
+# ---------------------------------------------------------------------------
+
+BERT_LR = 1e-4
+# The AMP runs, fused vs einsum program, both with bf16 AMP: the einsum
+# program rounds scores and probabilities to bf16, the kernels keep them in
+# f32. Losses: measured 8.3e-6 relative apart (H100 80GB HBM3, 700 W).
+BERT_AMP_LOSS_RTOL = 1e-4
+# AMP step-1 gradients, per tensor, against the exact ones (the fp32 fused
+# run's, from the same parameters and feeds): max |g - g_fp32| <=
+# BERT_AMP_GRAD_RTOL * max |g_fp32| + GRAD_ATOL, as the CPU test holds the
+# port's AMP gradients against JAX's fp32 ones. Measured (H100, 700 W):
+# worst 0.0186 * max |g| (l0/ln1.scale), and the einsum AMP program, which
+# launches no kernel, 0.0187 (l1/v.w): bf16 rounding of the cotangents. A
+# wrong bias or cast gradient is off by the order of max |g| itself.
+BERT_AMP_GRAD_RTOL = 4e-2
+
+
+def _bert_feed(rng, cfg, batch, seq, pad):
+    """bench.py's feed; with pad=True each row's last 10-40 % are padding
+    (input_mask 0), as ragged MLM batches have."""
+    import numpy as np
+    mask = np.ones((batch, seq), np.float32)
+    if pad:
+        real = seq - (rng.uniform(0.1, 0.4, batch) * seq).astype(int)
+        mask = (np.arange(seq)[None] < real[:, None]).astype(np.float32)
+    return {"src_ids": rng.randint(0, cfg.vocab_size,
+                                   (batch, seq)).astype(np.int64),
+            "sent_ids": rng.randint(0, 2, (batch, seq)).astype(np.int64),
+            "input_mask": mask,
+            "mlm_labels": rng.randint(0, cfg.vocab_size,
+                                      (batch, seq)).astype(np.int64)}
+
+
+def _bert_steps(exe, main, fetch, scope, feeds, grads):
+    """One train step per feed; (losses, step ms, step-1 grads). Each step
+    is timed on the host clock up to a synchronise."""
+    import torch
+    losses, step_ms, g1 = [], [], None
+    for i, feed in enumerate(feeds):
+        t = time.perf_counter()
+        out = exe.run(main, feed=feed,
+                      fetch_list=[fetch["loss"]] + (grads if i == 0 else []),
+                      scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(out[0].item()))
+        if i == 0:
+            g1 = dict(zip(grads, out[1:]))
+    return losses, step_ms, g1
+
+
+def _grad_worst(grads, refs, rtol):
+    """(worst diff / tol, var, diff, tol) over the tensors, tol = rtol *
+    max |ref| + GRAD_ATOL."""
+    worst = (-1.0, None, 0.0, 0.0)
+    for n, ref in refs.items():
+        diff = (grads[n].float() - ref.float()).abs().max().item()
+        tol = rtol * ref.float().abs().max().item() + GRAD_ATOL
+        worst = max(worst, (diff / tol, n, diff, tol))
+    return worst
+
+
+def _bert_rates(cfg, batch, seq, step_ms, amp):
+    from paddle_tpu_torch.models.bert import flops_per_step
+    med = sorted(step_ms)[len(step_ms) // 2]
+    flops = flops_per_step(cfg, batch, seq)
+    rec = {"median_step_ms": med, "tokens_per_s": batch * seq / (med / 1e3),
+           "flops_per_step": flops,
+           "mfu_vs_bf16_peak": flops / (med / 1e3) / PEAK_BF16_FLOPS}
+    if not amp:
+        # fp32 matmuls without TF32 run on FMAs: the fp32 non-tensor peak
+        rec["mfu_vs_fp32_peak"] = flops / (med / 1e3) / PEAK_FP32_FLOPS
+    return rec
+
+
+def phase_bert(seed):
+    """BERT-base through Executor.run on CUDAPlace(0): the held fused vs
+    einsum runs at s=512 b=16 (fp32, then AMP), then bench.py's shape."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models.bert import BertConfig, bert_pretrain_program
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    seq, batch = 512, 16
+    cfg = BertConfig(dropout=0.0)
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    rng = np.random.RandomState(seed)
+    # one set of feeds and of starting values for the fp32 and the AMP run,
+    # so that the AMP gradients can be held against the fp32 ones
+    feeds = [_bert_feed(rng, cfg, batch, seq, pad=True)
+             for _ in range(TRAIN_STEPS)]
+    launches = {n: 0 for n in FLASH_KERNELS}
+    runs, init, exact = [], None, None
+    for amp in (False, True):
+        t0 = time.perf_counter()
+        progs = {}
+        for impl in ("fused", "einsum"):
+            with ptt.unique_name_guard():
+                progs[impl] = bert_pretrain_program(
+                    BertConfig(attn_impl=impl, dropout=0.0), seq,
+                    learning_rate=BERT_LR, amp=amp)
+        main, startup, fetch = progs["fused"]
+        startup.random_seed = seed
+        scope = ptt.Scope()
+        exe.run(startup, scope=scope)
+        if init is None:
+            init = _clone_scope(scope)
+        else:
+            for n in init.var_names():
+                if n in scope:
+                    v = init.find_var(n)
+                    scope.set_var(n, v.clone() if hasattr(v, "clone") else v)
+        ref_scope = _clone_scope(scope)
+        params = [p.name for p in main.global_block.all_parameters()]
+        grads = [p + "@GRAD" for p in params]
+        setup_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        for n in FLASH_KERNELS:
+            getattr(fa, n).launches = 0
+        # ---- the main path: counts zeroed just before, read just after ----
+        losses, step_ms, g1 = _bert_steps(exe, main, fetch, scope, feeds,
+                                          grads)
+        delta = {n: getattr(fa, n).launches for n in FLASH_KERNELS}
+        # -------------------------------------------------------------------
+        peak = torch.cuda.max_memory_allocated()
+        want = {n: TRAIN_STEPS * cfg.layers if n in ("flash_small_fwd",
+                                                      "flash_small_bwd")
+                else 0 for n in FLASH_KERNELS}
+        if delta != want:
+            fail(f"bert s={seq} amp={amp} launched {delta}, expected {want}")
+        for n in FLASH_KERNELS:
+            launches[n] += delta[n]
+
+        rmain, _, rfetch = progs["einsum"]
+        torch.cuda.reset_peak_memory_stats()
+        ref_losses, ref_ms, rg1 = _bert_steps(exe, rmain, rfetch, ref_scope,
+                                              feeds, grads)
+        ref_peak = torch.cuda.max_memory_allocated()
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+        param_diff, param_worst = max(
+            ((scope.find_var(n) - ref_scope.find_var(n)).abs().max().item(),
+             n) for n in params)
+        rec = {"phase": "bert", "model": "bert-base", "seq": seq,
+               "batch": batch, "amp": amp, "attn_impl": "fused",
+               "optimizer": "adam", "lr": BERT_LR, "dropout": 0.0,
+               "padded_share": float(1 - np.mean(
+                   [f["input_mask"].mean() for f in feeds])),
+               "steps": TRAIN_STEPS, "setup_s": setup_s, "step_ms": step_ms,
+               **_bert_rates(cfg, batch, seq, step_ms, amp),
+               "max_memory_allocated": peak, "launches": delta,
+               "losses": losses, "einsum_losses": ref_losses,
+               "einsum_step_ms": ref_ms,
+               "einsum_max_memory_allocated": ref_peak,
+               "loss_rel_diff": loss_rel,
+               "loss_rtol": BERT_AMP_LOSS_RTOL if amp else LOSS_RTOL,
+               "param_max_abs_diff": param_diff, "param_worst": param_worst,
+               "param_tol": 2 * BERT_LR * TRAIN_STEPS + 1e-6}
+        if not amp:
+            # fused vs einsum, both exact
+            grad_rtol, grad_ref = GRAD_RTOL, rg1
+            exact = {n: g.clone() for n, g in g1.items()}
+            fp32_losses = losses
+        else:
+            # both AMP programs against the exact gradients, and the AMP
+            # losses against the fp32 run's, for the record
+            grad_rtol, grad_ref = BERT_AMP_GRAD_RTOL, exact
+            ratio, var, diff, tol = _grad_worst(rg1, exact, grad_rtol)
+            rec.update({"einsum_grad_worst": {"var": var,
+                                              "max_abs_diff": diff,
+                                              "tol": tol, "ratio": ratio},
+                        "loss_rel_diff_vs_fp32": [
+                            abs(a - b) / abs(b)
+                            for a, b in zip(losses, fp32_losses)]})
+        ratio, var, diff, tol = _grad_worst(g1, grad_ref, grad_rtol)
+        rec.update({"grad_rtol": grad_rtol, "grad_atol": GRAD_ATOL,
+                    "grad_against": "einsum program" if not amp
+                    else "fp32 fused run",
+                    "grad_worst": {"var": var, "max_abs_diff": diff,
+                                   "tol": tol, "ratio": ratio}})
+        emit(rec)
+        runs.append(rec)
+        if not all(np.isfinite(losses + ref_losses)) \
+                or max(loss_rel) > rec["loss_rtol"]:
+            fail(f"bert amp={amp}: losses {losses} vs the einsum "
+                 f"program's {ref_losses}")
+        if ratio > 1.0:
+            fail(f"bert amp={amp}: step-1 gradient {var} differs by {diff} "
+                 f"> {tol} from the {rec['grad_against']}'s")
+        if param_diff > rec["param_tol"]:
+            fail(f"bert amp={amp}: parameter {param_worst} differs by "
+                 f"{param_diff} after {TRAIN_STEPS} steps")
+        del g1, rg1, scope, ref_scope, progs
+        torch.cuda.empty_cache()
+    del init, exact
+
+    # bench.py's shape: BERT-base, s=128 b=128, einsum attention, AMP,
+    # dropout 0.1; at s=128 no flash kernel runs
+    seq, batch = 128, 128
+    cfg = BertConfig()
+    t0 = time.perf_counter()
+    with ptt.unique_name_guard():
+        main, startup, fetch = bert_pretrain_program(
+            cfg, seq, learning_rate=BERT_LR, amp=True)
+    startup.random_seed = main.random_seed = seed
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope)
+    feeds = [_bert_feed(rng, cfg, batch, seq, pad=False)
+             for _ in range(TRAIN_STEPS)]
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for n in FLASH_KERNELS:
+        getattr(fa, n).launches = 0
+    losses, step_ms, _ = _bert_steps(exe, main, fetch, scope, feeds, [])
+    delta = {n: getattr(fa, n).launches for n in FLASH_KERNELS}
+    rec = {"phase": "bert", "model": "bert-base", "shape": "bench.py",
+           "seq": seq, "batch": batch, "amp": True, "attn_impl": "einsum",
+           "optimizer": "adam", "lr": BERT_LR, "dropout": cfg.dropout,
+           "steps": TRAIN_STEPS, "setup_s": setup_s, "step_ms": step_ms,
+           **_bert_rates(cfg, batch, seq, step_ms, True),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": delta, "losses": losses}
+    emit(rec)
+    runs.append(rec)
+    if any(delta.values()):
+        fail(f"bench.py's shape launched flash kernels: {delta}")
+    if not all(np.isfinite(losses)):
+        fail(f"bench.py's shape: non-finite losses {losses}")
+    del scope
+    torch.cuda.empty_cache()
+    return {"runs": runs, "launches": launches,
+            "shapes": {n: (16 * cfg.heads, 512)
+                       for n in ("flash_small_fwd", "flash_small_bwd")}}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the residual + LayerNorm spike
+# ---------------------------------------------------------------------------
+
+def phase_spike(seed):
+    from paddle_tpu_torch.tools import spike_residual_ln as srl
+    for n in LN_KERNELS:
+        getattr(srl, n).launches = 0
+    # ---- the spike's path: counts zeroed just before, read just after ----
+    rows = srl.spike_table(seed, emit)
+    launches = {n: getattr(srl, n).launches for n in LN_KERNELS}
+    # -----------------------------------------------------------------------
+    for n, c in launches.items():
+        if c == 0:
+            fail(f"kernel {n} was not launched on the spike's path")
+    emit({"phase": "spike_launches", "launches": launches})
+    return {"rows": rows, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: times at the main-path shapes
 # ---------------------------------------------------------------------------
 
 def _pairs(sq, sk, causal):
@@ -699,11 +1118,20 @@ def _pairs(sq, sk, causal):
     return sum(min(r + 1, sk) for r in range(sq)) if causal else sq * sk
 
 
-def _bound(name, bn, sq, sk, d, causal, elem):
+def _peak_flops(elem):
+    """The card's peak rate for operands of `elem` bytes: bf16 (2) on the
+    tensor cores, fp32 (4) outside them, as TF32 is off."""
+    return PEAK_BF16_FLOPS if elem == 2 else PEAK_FP32_FLOPS
+
+
+def _bound(name, bn, sq, sk, d, causal, elem, bias=False):
     """Least time (ms) for a kernel's work: its FLOPs over the kept pairs
     (4 per pair and head-dim column forward: S and P.V; 8 for dkv: S, dP,
     dV, dK; 6 for dq: S, dP, dQ; 10 for the single pass: S, dP, dV, dK, dQ)
-    against its inputs read once and outputs written once."""
+    at the peak of the operands' type, against its inputs read once and
+    outputs written once (with a bias,
+    its f32 (b*n, sk) read, and the bias grad written by the backward
+    kernels that own keys)."""
     flop_mult, q_io, k_io = {
         # (FLOPs per pair and column, (b*n, sq, d) tensors moved,
         #  (b*n, sk, d) tensors moved); every kernel also reads or writes
@@ -715,28 +1143,42 @@ def _bound(name, bn, sq, sk, d, causal, elem):
     flops = float(flop_mult) * bn * _pairs(sq, sk, causal) * d
     nbytes = (q_io * bn * sq * d + k_io * bn * sk * d) * elem \
         + 4 * rows * bn * sq
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    if bias:
+        nbytes += 4 * bn * sk * (1 if name in ("flash_fwd", "flash_small_fwd",
+                                               "flash_bwd_dq") else 2)
+    t_ops, t_bytes = flops / _peak_flops(elem), nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes"), flops, nbytes
 
 
-def _sdpa_bwd_ms(q, k, v, do, n):
-    """The backward alone of F.scaled_dot_product_attention (causal) on
-    the same (b*n, s, d) inputs, through torch.autograd.grad: a yardstick
-    only, the port never calls it. It computes dQ, dK and dV together."""
+def _sdpa_bwd_ms(q, k, v, do, n, causal=True, bias=None):
+    """The backward alone of F.scaled_dot_product_attention on the same
+    (b*n, s, d) inputs (with a per-key bias as its additive mask), through
+    torch.autograd.grad: a yardstick only, the port never calls it. It
+    computes dQ, dK and dV together."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.tools.profile_gpt import time_ms
     bn, s, d = q.shape
     q4, k4, v4 = (t.detach().view(bn // n, n, s, d).requires_grad_()
                   for t in (q, k, v))
-    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    mask = None if bias is None else _sdpa_mask(bias, n).to(q.dtype)
+    out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                         is_causal=causal)
     do4 = do.view(bn // n, n, s, d)
     return time_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), do4,
                                                retain_graph=True))
 
 
-def phase_times(serve, train, seed):
+def _sdpa_mask(bias, n):
+    """(b*n, sk) per-key bias -> (b, 1, 1, sk), SDPA's additive mask."""
+    bn, sk = bias.shape
+    return bias.view(bn // n, n, sk)[:, :1, None, :]
+
+
+def _flash_rows(serve, train, bert, seed):
+    """The five flash kernels at their GPT main-path shapes (fp32, causal),
+    then the two single-pass ones at BERT's (bf16, per-key bias)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -744,49 +1186,134 @@ def phase_times(serve, train, seed):
     n, d = serve["heads"], serve["head_dim"]
     sm = d ** -0.5
     rows = []
-    for name in KERNELS:
-        bn, s = train["shapes"][name]
+    cases = [(name, train["shapes"][name], torch.float32, True, False)
+             for name in FLASH_KERNELS]
+    cases += [(name, bert["shapes"][name], torch.bfloat16, False, True)
+              for name in ("flash_small_fwd", "flash_small_bwd")]
+    for name, (bn, s), dtype, causal, with_bias in cases:
         kernel = getattr(fa, name)
         plain = getattr(fa, name + "_plain")
+        b = bn // n
         if KERNELS[name]["serve"]:
-            q, k, v, _ = _inputs(bn, s, s, d, torch.float32, False, seed)
-            ok, err_o, err_l, _ = _compare(kernel, plain, q, k, v, None,
-                                           True, sm)
+            q, k, v, bias = _inputs(bn, s, s, d, dtype, with_bias, seed)
+            ok, err_o, err_l, _ = _compare(kernel, plain, q, k, v, bias,
+                                           causal, sm)
             err = max(err_o, err_l)
-            args = (q, k, v, None)
-            b = bn // n
+            args = (q, k, v, bias)
             q4, k4, v4 = (t.view(b, n, s, d) for t in (q, k, v))
+            mask = None if bias is None else _sdpa_mask(bias, n).to(dtype)
             lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=True))
+                q4, k4, v4, attn_mask=mask, is_causal=causal))
         else:
-            args = _bwd_inputs(bn, s, s, d, torch.float32, False, True,
-                               seed)
-            ok, err, _ = _compare_bwd(name, args, True, sm)
-            lib_ms = _sdpa_bwd_ms(args[0], args[1], args[2], args[4], n)
+            args = _bwd_inputs(bn, s, s, d, dtype, with_bias, causal, seed)
+            ok, err, _ = _compare_bwd(name, args, causal, sm)
+            lib_ms = _sdpa_bwd_ms(args[0], args[1], args[2], args[4], n,
+                                  causal, args[3])
         if not ok:
             fail(f"{name} disagrees with its plain version at the main-path "
                  "shape")
-        ms = time_ms(lambda: kernel(*args, True, sm))
-        plain_ms = time_ms(lambda: plain(*args, True, sm), iters=5)
-        bound_ms, bound_by, flops, nbytes = _bound(name, bn, s, s, d, True,
-                                                   4)
-        launches = train["launches"][name] + serve["launches"].get(name, 0)
-        row = {"name": name, "route": "cuda",
-               "source": KERNELS[name]["source"],
-               "replaces": KERNELS[name]["replaces"],
-               "launches": launches, "max_abs_err": err, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": lib_ms}
+        ms = time_ms(lambda: kernel(*args, causal, sm))
+        plain_ms = time_ms(lambda: plain(*args, causal, sm), iters=5)
+        bound_ms, bound_by, flops, nbytes = _bound(
+            name, bn, s, s, d, causal, torch.finfo(dtype).bits // 8,
+            with_bias)
+        launches = train["launches"][name] + serve["launches"].get(name, 0) \
+            + bert["launches"][name]
         emit({"phase": "time", "kernel": name, "bn": bn, "sq": s, "sk": s,
-              "d": d, "dtype": "float32", "causal": True, "flops": flops,
-              "bytes": nbytes, "ms": ms, "plain_ms": plain_ms,
-              "library_ms": lib_ms, "bound_ms": bound_ms,
-              "bound_by": bound_by,
+              "d": d, "dtype": str(dtype).split(".")[-1], "causal": causal,
+              "bias": with_bias, "flops": flops, "bytes": nbytes, "ms": ms,
+              "plain_ms": plain_ms, "library_ms": lib_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by,
               "launches_serve": serve["launches"].get(name, 0),
               "launches_train": train["launches"][name],
+              "launches_bert": bert["launches"][name],
               "tflops_per_s": flops / (ms * 1e-3) / 1e12})
-        rows.append(row)
+        if with_bias:
+            continue   # the kernels line keeps the GPT shapes' rows
+        rows.append({"name": name, "route": "cuda",
+                     "source": KERNELS[name]["source"],
+                     "replaces": KERNELS[name]["replaces"],
+                     "launches": launches, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms})
     return rows
+
+
+# FLOPs a value of the residual + LayerNorm kernels: forward add, sum,
+# subtract, square-and-sum, two multiplies and an add; backward add,
+# subtract, multiply, g * scale, two products summed, the ds expression
+# (4) and the two column sums
+LN_FLOPS_PER_VALUE = {"residual_ln_fwd": 8, "residual_ln_bwd": 13}
+
+
+def _ln_rows(spike, seed):
+    """The residual + LayerNorm kernels at BERT-base's bench shape, (16384,
+    768) bf16; library yardsticks F.layer_norm(x + r) for the forward and
+    aten's native_layer_norm_backward (from its own saved mean, rstd) for
+    the backward."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.tools import spike_residual_ln as srl
+    from paddle_tpu_torch.tools.profile_gpt import time_ms
+    m, h = srl.SHAPES[0]
+    x, r, sc, b = srl.spike_inputs(m, h, torch.bfloat16, seed)
+    g = torch.randn(x.shape, device=x.device).to(x.dtype)
+    sc16, b16 = sc.to(x.dtype), b.to(x.dtype)
+    _, mu, rstd = srl.residual_ln_fwd_plain(x, r, sc, b)
+    s_ = x + r
+    _, lmu, lrstd = torch.ops.aten.native_layer_norm(s_, [h], sc16, b16,
+                                                     srl.EPS)
+    alone = dict(zip(LN_KERNELS, srl.prepared_launches(x, r, sc, b, g)))
+    calls = {
+        "residual_ln_fwd": (
+            lambda: srl.residual_ln_fwd(x, r, sc, b),
+            lambda: srl.residual_ln_fwd_plain(x, r, sc, b),
+            lambda: F.layer_norm(x + r, (h,), sc16, b16, srl.EPS)),
+        "residual_ln_bwd": (
+            lambda: srl.residual_ln_bwd(x, r, sc, mu, rstd, g),
+            lambda: srl.residual_ln_bwd_plain(x, r, sc, mu, rstd, g),
+            lambda: torch.ops.aten.native_layer_norm_backward(
+                g, s_, [h], lmu, lrstd, sc16, b16, [True, True, True])),
+    }
+    fb, bb = srl.bound_bytes(m, h, x.element_size())
+    rows = []
+    for name in LN_KERNELS:
+        kern, plain, lib = calls[name]
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = max((a.float() - w.float()).abs().max().item()
+                  for a, w in zip(got, want))
+        # the kernel alone (prepared launches); through the wrapper, its
+        # checks and allocations take longer than the kernel at this shape
+        ms = time_ms(alone[name])
+        wrapper_ms = time_ms(kern)
+        plain_ms = time_ms(plain, iters=5)
+        lib_ms = time_ms(lib)
+        nbytes = fb if name == "residual_ln_fwd" else bb
+        flops = LN_FLOPS_PER_VALUE[name] * m * h
+        t_ops = flops / _peak_flops(x.element_size())
+        t_bytes = nbytes / PEAK_BYTES
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        emit({"phase": "time", "kernel": name, "M": m, "H": h,
+              "dtype": "bfloat16", "flops": flops, "bytes": nbytes,
+              "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+              "library_ms": lib_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by,
+              "launches_spike": spike["launches"][name],
+              "bytes_per_s": nbytes / (ms * 1e-3)})
+        rows.append({"name": name, "route": "cuda",
+                     "source": KERNELS[name]["source"],
+                     "replaces": KERNELS[name]["replaces"],
+                     "launches": spike["launches"][name],
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib_ms})
+    return rows
+
+
+def phase_times(serve, train, bert, spike, seed):
+    return _flash_rows(serve, train, bert, seed) + _ln_rows(spike, seed)
 
 
 def main():
@@ -805,7 +1332,10 @@ def main():
           "device": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count(),
           "matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-          "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32})
+          "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+          "matmul.allow_bf16_reduced_precision_reduction":
+              torch.backends.cuda.matmul
+              .allow_bf16_reduced_precision_reduction})
     os.makedirs(OUT_DIR, exist_ok=True)
     t0 = time.perf_counter()
     try:
@@ -813,14 +1343,17 @@ def main():
         kernels = phase_kernels(args.seed)
         serve = phase_serve(args.seed)
         train = phase_train(args.seed)
-        rows = phase_times(serve, train, args.seed)
+        bert = phase_bert(args.seed)
+        spike = phase_spike(args.seed)
+        rows = phase_times(serve, train, bert, spike, args.seed)
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "seed": args.seed,
                    "wall_s": time.perf_counter() - t0, "build": build,
                    "kernel_cases": kernels, "serve": serve["summary"],
-                   "train": train["summaries"],
+                   "train": train["summaries"], "bert": bert["runs"],
+                   "spike": spike["rows"],
                    "requests": serve["requests"], "kernels": rows}, f,
                   indent=1)
     print(card, flush=True)

@@ -1,0 +1,196 @@
+"""Automatic mixed precision: bf16 rewrite of the program IR.
+
+A copy of `paddle_tpu/contrib/mixed_precision.py` (which imports no JAX):
+the same white and black lists, letter for letter, and the same rewrite,
+so both packages build the same AMP program. On the card the bf16 ops run
+torch's bf16 kernels (cuBLAS bf16 matmuls accumulate in f32).
+
+Reference: python/paddle/fluid/contrib/mixed_precision/decorator.py:194
+(decorate) + fp16_lists.py black/white op lists. TPU redesign: the compute
+dtype is bfloat16, which shares float32's exponent range — so no loss
+scaling, no dynamic-scale bookkeeping, and master weights simply stay the
+float32 params in the scope. The rewrite inserts `cast` ops in the forward
+IR *before* append_backward, so gradients flow through the casts and arrive
+at optimizer ops in float32 automatically (cast's vjp is a cast back).
+
+Ops with reductions keep float32 *internal* math in their lowering rules
+(layer_norm / softmax / softmax_with_cross_entropy upcast inside), so bf16
+here only halves HBM traffic without harming stability.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Set
+
+from ..framework.core import Operator, Program
+
+__all__ = ["decorate", "rewrite_bf16", "AutoMixedPrecisionLists"]
+
+# ops whose float32 inputs are cast to bf16 (compute + activations)
+WHITE_LIST: Set[str] = {
+    "mul", "matmul", "bmm", "einsum", "conv2d", "depthwise_conv2d",
+    "conv2d_transpose", "pool2d",
+    "elementwise_add", "elementwise_sub", "elementwise_mul",
+    "elementwise_div", "elementwise_max", "elementwise_min",
+    "relu", "gelu", "tanh", "sigmoid", "swish", "silu", "leaky_relu",
+    "softplus", "exp", "square", "abs", "scale",
+    "dropout", "softmax", "layer_norm", "batch_norm",
+    "reshape2", "reshape", "transpose2", "transpose", "split", "concat",
+    "stack", "slice", "squeeze2", "unsqueeze2", "flatten2", "expand",
+    "pad", "gather",
+    "softmax_with_cross_entropy",
+}
+
+# ops whose bf16 inputs are cast back to float32 (precision-sensitive)
+BLACK_LIST: Set[str] = {
+    "mean", "reduce_sum", "reduce_mean", "sum", "cross_entropy",
+    "cumsum", "squared_l2_norm", "clip_by_norm", "p_norm",
+}
+
+_FLOAT = ("float32",)
+
+# per-op slots that must STAY float32 even on white-listed ops: bf16 running
+# statistics would round away the (1-momentum)-scaled increments and the
+# stats would stall (batch_norm's fp32 internal math only protects the
+# per-batch stats, not the persistent accumulators)
+_KEEP_F32_IN = {"batch_norm": {"Mean", "Variance", "Scale", "Bias"}}
+_KEEP_F32_OUT = {"batch_norm": {"MeanOut", "VarianceOut", "SavedMean",
+                                "SavedVariance"}}
+
+
+class AutoMixedPrecisionLists:
+    def __init__(self, custom_white_list=None, custom_black_list=None):
+        self.white_list = set(WHITE_LIST)
+        self.black_list = set(BLACK_LIST)
+        if custom_white_list:
+            self.white_list |= set(custom_white_list)
+            self.black_list -= set(custom_white_list)
+        if custom_black_list:
+            self.black_list |= set(custom_black_list)
+            self.white_list -= set(custom_black_list)
+
+
+def rewrite_bf16(program: Program,
+                 amp_lists: Optional[AutoMixedPrecisionLists] = None):
+    """Insert casts so whitelisted forward ops compute in bf16. Must run
+    BEFORE append_backward."""
+    amp_lists = amp_lists or AutoMixedPrecisionLists()
+    blk = program.global_block
+    new_ops = []
+    cast_to_bf16 = {}   # f32 var name -> bf16 cast name
+    cast_to_f32 = {}    # bf16 var name -> f32 cast name
+    cur_dtype = {}      # var name -> tracked dtype string
+
+    def _dtype(name):
+        if name in cur_dtype:
+            return cur_dtype[name]
+        try:
+            return blk.var(name).dtype
+        except KeyError:
+            return None
+
+    def _insert_cast(name, to, cache, suffix):
+        if name in cache:
+            return cache[name]
+        v = blk.var(name)
+        cast_name = name + suffix
+        nv = blk.create_var(name=cast_name, shape=v.shape, dtype=to,
+                            stop_gradient=v.stop_gradient)
+        new_ops.append(Operator(blk, "cast", {"X": [name]},
+                                {"Out": [cast_name]}, {"out_dtype": to}))
+        cache[name] = cast_name
+        return cast_name
+
+    for op in blk.ops:
+        if op.attrs.get("op_role") in ("backward", "optimize"):
+            raise RuntimeError(
+                "rewrite_bf16 must run before append_backward/minimize")
+        if op.type in amp_lists.white_list:
+            keep_in = _KEEP_F32_IN.get(op.type, set())
+            keep_out = _KEEP_F32_OUT.get(op.type, set())
+            for slot, names in op.inputs.items():
+                if slot in keep_in:
+                    continue
+                for j, n in enumerate(names):
+                    if _dtype(n) in _FLOAT:
+                        names[j] = _insert_cast(n, "bfloat16", cast_to_bf16,
+                                                "@BF16")
+            new_ops.append(op)
+            for slot, names in op.outputs.items():
+                for n in names:
+                    d = _dtype(n)
+                    if d in _FLOAT or d == "bfloat16":
+                        # loss stays f32 (xent lowering emits f32 loss)
+                        if slot in keep_out or (
+                                op.type == "softmax_with_cross_entropy"
+                                and slot == "Loss"):
+                            cur_dtype[n] = "float32"
+                        else:
+                            cur_dtype[n] = "bfloat16"
+                            if n in blk.vars:
+                                blk.vars[n].dtype = "bfloat16"
+        elif op.type in amp_lists.black_list:
+            for slot, names in op.inputs.items():
+                for j, n in enumerate(names):
+                    if _dtype(n) == "bfloat16":
+                        names[j] = _insert_cast(n, "float32", cast_to_f32,
+                                                "@FP32")
+            new_ops.append(op)
+            for names in op.outputs.values():
+                for n in names:
+                    if _dtype(n) == "bfloat16":
+                        cur_dtype[n] = "float32"
+                        if n in blk.vars:
+                            blk.vars[n].dtype = "float32"
+        else:
+            new_ops.append(op)
+    blk.ops = new_ops
+    # Re-infer shapes/dtypes from the actual lowering rules over the
+    # rewritten block: the slot-level bookkeeping above marks whitelist
+    # outputs bf16 wholesale, but some rules keep side outputs in f32
+    # (layer_norm's Mean/Variance), and GRAY ops (neither list) compute
+    # in whatever dtype flows in without any declared-metadata update —
+    # stale declared dtypes that the static verifier flags as PT-E006
+    # (and that would mislead exports / feed casting). One pass of the
+    # real inference restores the one-rule-serves-all invariant.
+    from ..framework.registry import (infer_op_shapes, _HOST_OPS, _MACROS)
+    for op in blk.ops:
+        t = op.type
+        if t in ("feed", "fetch") or t in _HOST_OPS or t in _MACROS \
+                or t.endswith("_grad"):
+            continue
+        infer_op_shapes(op, blk)
+    program._bump_version()
+    return program
+
+
+class OptimizerWithMixedPrecision:
+    """decorate() wrapper: rewrite forward IR to bf16, then minimize.
+    `get_loss_scaling` exists for API parity — always 1.0 with bf16."""
+
+    def __init__(self, optimizer, amp_lists=None):
+        self._optimizer = optimizer
+        self._amp_lists = amp_lists
+
+    def get_loss_scaling(self):
+        return 1.0
+
+    def backward(self, loss, **kw):
+        rewrite_bf16(loss.block.program, self._amp_lists)
+        return self._optimizer.backward(loss, **kw)
+
+    def apply_gradients(self, params_grads, program=None, startup=None):
+        return self._optimizer.apply_gradients(params_grads, program,
+                                               startup)
+
+    def minimize(self, loss, startup_program=None, **kw):
+        rewrite_bf16(loss.block.program, self._amp_lists)
+        return self._optimizer.minimize(loss,
+                                        startup_program=startup_program,
+                                        **kw)
+
+
+def decorate(optimizer, amp_lists=None, init_loss_scaling=1.0,
+             use_dynamic_loss_scaling=False):
+    """fluid.contrib.mixed_precision.decorate analog (bf16, no scaling)."""
+    return OptimizerWithMixedPrecision(optimizer, amp_lists)

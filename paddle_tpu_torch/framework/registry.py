@@ -14,8 +14,9 @@ rule, a plain function on torch tensors; that one rule gives
     their own grad lowering.
 
 Ops can override the grad-desc maker or the grad lowering when the generic
-path is wrong (rng ops like dropout, ops with saved intermediates). Macro
-(control-flow) ops and host ops come with later slices.
+path is wrong (rng ops like dropout, ops with saved intermediates). The
+macro (control-flow) and host-op tables exist, empty: the ops that fill
+them come with later slices.
 """
 
 from __future__ import annotations
@@ -104,6 +105,17 @@ def get_op_def(op_type: str) -> OpDef:
     if op_type not in _REGISTRY:
         raise NotImplementedError(f"no lowering registered for op {op_type!r}")
     return _REGISTRY[op_type]
+
+
+# The JAX registry's two side tables, carried over with their meaning; no op
+# of the ported paths registers into them yet. `_MACROS`: control-flow ops
+# that lower with full context, fn(ctx, op, env) (`paddle_tpu/framework/
+# registry.py:109`). `_HOST_OPS`: host-boundary ops (file IO, RPC, readers)
+# that the executor runs against the scope outside the op sequence,
+# fn(op, scope, feed) (:135). Passes over a block, such as the AMP rewrite's
+# re-inference, skip both.
+_MACROS: Dict[str, Callable] = {}
+_HOST_OPS: Dict[str, Callable] = {}
 
 
 def has_op_def(op_type: str) -> bool:

@@ -1,5 +1,5 @@
-"""Math layers of the inference slice: elementwise_add (and `+` on
-Variables), matmul, mean.
+"""Math layers of the GPT and BERT slices: elementwise_add (and `+` on
+Variables), matmul, einsum, scale, mean.
 
 Copied from `paddle_tpu/layers/math.py`: the same op types, slots and
 attrs.
@@ -8,7 +8,7 @@ attrs.
 from ..framework.core import Variable
 from ..framework.layer_helper import LayerHelper
 
-__all__ = ["elementwise_add", "matmul", "mean"]
+__all__ = ["elementwise_add", "matmul", "einsum", "scale", "mean"]
 
 
 def _to_variable(x, ref: Variable):
@@ -52,6 +52,23 @@ def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
                      {"transpose_X": transpose_x, "transpose_Y": transpose_y,
                       "alpha": float(alpha)})
     return out
+
+
+def einsum(equation, *operands, name=None):
+    helper = LayerHelper("einsum", name=name)
+    out = helper.create_variable_for_type_inference(operands[0].dtype)
+    helper.append_op("einsum", {"Operands": [v.name for v in operands]},
+                     {"Out": [out.name]}, {"equation": equation})
+    return out
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
+    helper = LayerHelper("scale", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("scale", {"X": [x.name]}, {"Out": [out.name]},
+                     {"scale": float(scale), "bias": float(bias),
+                      "bias_after_scale": bias_after_scale})
+    return helper.append_activation(out, act)
 
 
 def mean(x, name=None):

@@ -1,5 +1,5 @@
-"""NN layers of the inference slice: fc, embedding, layer_norm, dropout,
-gelu, softmax_with_cross_entropy, fused_attention.
+"""NN layers of the GPT and BERT slices: fc, embedding, layer_norm, dropout,
+gelu, softmax, softmax_with_cross_entropy, fused_attention.
 
 Copied from `paddle_tpu/layers/nn.py`: the same op types, slots, attrs and
 parameter initializers, so programs built by either DSL serialize alike.
@@ -10,7 +10,7 @@ import numpy as np
 from ..framework.layer_helper import LayerHelper
 from ..initializer import Constant, Xavier
 
-__all__ = ["fc", "embedding", "layer_norm", "dropout", "gelu",
+__all__ = ["fc", "embedding", "layer_norm", "dropout", "gelu", "softmax",
            "softmax_with_cross_entropy", "fused_attention"]
 
 
@@ -118,6 +118,14 @@ def gelu(x, approximate=False, name=None):
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op("gelu", {"X": [x.name]}, {"Out": [out.name]},
                      {"approximate": approximate})
+    return out
+
+
+def softmax(x, axis=-1, name=None):
+    helper = LayerHelper("softmax", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("softmax", {"X": [x.name]}, {"Out": [out.name]},
+                     {"axis": axis})
     return out
 
 

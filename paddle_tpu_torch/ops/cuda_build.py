@@ -33,6 +33,8 @@ KERNEL_SOURCES = {
     "flash_bwd_dkv": "flash_bwd_dkv.cu",
     "flash_bwd_dq": "flash_bwd_dq.cu",
     "flash_small_bwd": "flash_small_bwd.cu",
+    "residual_ln_fwd": "residual_ln_fwd.cu",
+    "residual_ln_bwd": "residual_ln_bwd.cu",
 }
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -84,20 +86,28 @@ def build_all(names=None) -> Dict[str, float]:
         if os.path.exists(out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        procs[name] = (subprocess.Popen(_command(name, tmp),
-                                        stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter())
+        # nvcc's output goes to a file, so no process waits on a full pipe
+        # and each source's time is its own
+        logf = open(f"{tmp}.log", "w+")
+        procs[name] = (subprocess.Popen(_command(name, tmp), stdout=logf,
+                                        stderr=subprocess.STDOUT),
+                       logf, tmp, out, time.perf_counter())
     took = {}
     failed = []
-    for name, (p, tmp, out, t0) in procs.items():
-        log, _ = p.communicate()
-        build_logs[name] = log
-        took[name] = time.perf_counter() - t0
-        if p.returncode != 0:
-            failed.append(f"{name}:\n{log}")
-            continue
-        os.replace(tmp, out)
+    while len(took) < len(procs):
+        for name, (p, logf, tmp, out, t0) in procs.items():
+            if name in took or p.poll() is None:
+                continue
+            took[name] = time.perf_counter() - t0
+            logf.seek(0)
+            build_logs[name] = log = logf.read()
+            logf.close()
+            os.remove(logf.name)
+            if p.returncode != 0:
+                failed.append(f"{name}:\n{log}")
+                continue
+            os.replace(tmp, out)
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return took

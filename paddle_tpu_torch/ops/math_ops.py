@@ -1,10 +1,11 @@
-"""Math ops of the GPT slices: elementwise_add, matmul, mul, mean, sum,
-scale.
+"""Math ops of the GPT and BERT slices: elementwise_add, matmul, mul, einsum,
+mean, sum, scale.
 
 Port of the matching rules in `paddle_tpu/ops/math_ops.py` (_broadcast_y:21,
-matmul:64, mul:79, mean:148, sum:153, scale:178). Large products go to
-`torch.matmul`, as the JAX package leaves them to XLA. The grads of
-elementwise_add, matmul, mul and mean take the generic vjp path, as in JAX;
+matmul:64, mul:79, einsum:104, mean:148, sum:153, scale:178). Large
+products go to `torch.matmul` / `torch.einsum`, as the JAX package leaves
+them to XLA. The grads of elementwise_add, matmul, mul, einsum and mean take
+the generic vjp path, as in JAX;
 in eager mode that replays the forward product once more per grad op
 (PERF.md §5 measures it).
 """
@@ -63,6 +64,13 @@ def _mul(ctx, ins, attrs):
     return {"Out": [out.reshape(tuple(x.shape[:xn]) + tuple(y.shape[yn:]))]}
 
 
+@register_op("einsum")
+def _einsum(ctx, ins, attrs):
+    """General contraction over the `Operands` list slot (BERT's b,s,n,d
+    attention einsums)."""
+    return {"Out": [torch.einsum(attrs["equation"], *ins["Operands"])]}
+
+
 @register_op("mean")
 def _mean(ctx, ins, attrs):
     return {"Out": [torch.mean(ins["X"][0]).reshape((1,))]}
@@ -80,11 +88,22 @@ def _sum(ctx, ins, attrs):
     return {"Out": [out]}
 
 
+def _weak_scalar(v, x):
+    """A python scalar as jnp's weak typing applies it to x: rounded to x's
+    dtype first when that is a 16-bit float. It matters under AMP, where
+    BERT's mask scale(1e4, bias=-1e4) runs in bf16: 1e4 rounds to 9984, so
+    a kept key gets 1 * 9984 - 9984 = 0 as in JAX, whatever precision the
+    backend's kernel keeps the scalar in (unrounded, 9984 - 1e4 = -16)."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return float(torch.tensor(v, dtype=x.dtype))
+    return v
+
+
 @register_op("scale")
 def _scale(ctx, ins, attrs):
     x = ins["X"][0]
-    s = attrs.get("scale", 1.0)
-    b = attrs.get("bias", 0.0)
+    s = _weak_scalar(attrs.get("scale", 1.0), x)
+    b = _weak_scalar(attrs.get("bias", 0.0), x)
     if attrs.get("bias_after_scale", True):
         return {"Out": [x * s + b]}
     return {"Out": [(x + b) * s]}

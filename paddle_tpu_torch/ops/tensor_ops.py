@@ -1,10 +1,11 @@
-"""Tensor ops of the GPT slices: reshape2, slice, lookup_table (with its
-dense grad), fill, constants, random init.
+"""Tensor ops of the GPT and BERT slices: reshape2, slice, lookup_table
+(with its dense grad), fill, constants, cast, random init.
 
 Port of the matching rules in `paddle_tpu/ops/tensor_ops.py` (reshape2:42,
 slice:141, lookup_table:256-299, fill_constant:347, fill_any_like:370,
-assign_value:382, uniform_random:435, gaussian_random:446). The grads of
-reshape2 and slice take the generic vjp path. Rules create tensors on
+assign_value:382, cast:388, uniform_random:435, gaussian_random:446). The
+grads of reshape2, slice and cast take the generic vjp path (cast's is a
+cast back to the input's dtype). Rules create tensors on
 `ctx.device`; random ops draw from the run's `torch.Generator` (or a fixed
 `seed` attr), so they give other numbers than JAX's keys from the same seed.
 """
@@ -124,6 +125,13 @@ def _assign_value(ctx, ins, attrs):
                                     device=ctx.device)]}
     vals = np.asarray(attrs["values"], dtype=dtype).reshape(shape)
     return {"Out": [torch.from_numpy(vals).to(ctx.device)]}
+
+
+@register_op("cast")
+def _cast(ctx, ins, attrs):
+    """`out_dtype` is a dtype string (the AMP rewrite's "bfloat16" /
+    "float32")."""
+    return {"Out": [ins["X"][0].to(torch_dtype(attrs["out_dtype"]))]}
 
 
 def _generator(ctx, attrs):

@@ -21,7 +21,8 @@ from .framework.core import (Parameter, Program, Variable,
                              default_startup_program, unique_name)
 from .framework.backward import append_backward
 
-__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Adam", "AdamOptimizer"]
+__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Adam", "AdamOptimizer",
+           "Lamb", "LambOptimizer"]
 
 
 class Optimizer:
@@ -176,5 +177,13 @@ class AdamOptimizer(_AdamLike):
     op_type = "adam"
 
 
+class LambOptimizer(Optimizer):
+    def __init__(self, *args, **kw):
+        raise NotImplementedError(
+            "Lamb is not ported to paddle_tpu_torch yet; it comes with the "
+            "optimizer slice (ROADMAP.md queue A.3)")
+
+
 SGD = SGDOptimizer
 Adam = AdamOptimizer
+Lamb = LambOptimizer

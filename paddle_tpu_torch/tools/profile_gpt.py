@@ -1,9 +1,9 @@
-"""Where the time of a GPT-2 small inference request, or train step, goes,
-on one CUDA card.
+"""Where the time of a GPT-2 small inference request, or of a GPT-2 small
+or BERT-base train step, goes, on one CUDA card.
 
     python3 -m paddle_tpu_torch.tools.profile_gpt [--seed N] [--iters N]
-    python3 -m paddle_tpu_torch.tools.profile_gpt --train [--seed N]
-        [--iters N]
+    python3 -m paddle_tpu_torch.tools.profile_gpt --train [--model bert]
+        [--seed N] [--iters N]
 
 Builds GPT-2 small (GPTConfig()) with the port's DSL, initializes it on
 CUDAPlace(0), prunes it to the logits as save_inference_model does, and
@@ -23,7 +23,11 @@ batch 4 at s=512):
     yardstick only.
 
 With --train it measures instead the GPT-2 small train step (Adam,
-dropout 0.1) at the two shapes of chip_smoke.py's train phase: the median
+dropout 0.1) at the two shapes of chip_smoke.py's train phase (with
+--model bert: the BERT-base MLM pretrain step with the bf16 AMP rewrite,
+bert_pretrain_program(amp=True), at s=512 b=16 on the fused attention path
+with each row's last 10-40 % padded, and at bench.py's s=128 b=128 on the
+einsum path, dropout 0.1 at both): the median
 step wall time, and a torch.profiler trace of a few steps with the device
 time by kernel group (matmul, flash forward, flash backward, the forward
 replays of the generic torch.func.vjp grads, Adam, elementwise, ...), by
@@ -32,7 +36,8 @@ record_function range (and a generic grad's replay of its forward inside
 a nested one), and a kernel is charged to the range its launch fell in.
 
 Prints one JSON line per measurement and writes chiprun_out/profile_gpt.json
-(profile_gpt_train.json with --train). Device numbers come only from a
+(profile_gpt_train.json with --train, profile_bert_train.json with --train
+--model bert). Device numbers come only from a
 card: without one it exits non-zero.
 """
 
@@ -59,7 +64,8 @@ def _group(name: str) -> str:
         return "memcpy DtoH (logits)"
     if "memcpy" in n or "memset" in n:
         return "memcpy/memset other"
-    if "gemm" in n or "sgemm" in n or "cutlass" in n or "xmma" in n:
+    if "gemm" in n or "cutlass" in n or "xmma" in n or "nvjet" in n:
+        # nvjet: cuBLAS's own kernels, its bf16 products among them
         return "matmul (cuBLAS)"
     if "layer_norm" in n or "welford" in n or "var_mean" in n or \
             "reduce" in n:
@@ -254,6 +260,8 @@ def _train_group(kernel: str, op: str, replay: bool) -> str:
         return g
     if op == "adam":
         return "adam"
+    if op in ("cast", "cast_grad"):
+        return "AMP casts (fwd+grad)"
     if op.startswith("softmax_with_cross_entropy"):
         return "softmax cross-entropy (fwd+grad)"
     if op in ("dropout", "dropout_grad"):
@@ -351,25 +359,51 @@ def _attribute(events):
     return kernels, out
 
 
-def profile_train(seed, iters, sink):
+def _train_cells(model, rng):
+    """(label, seq, batch, program builder, feed) of each train cell."""
+    import numpy as np
+    if model == "gpt":
+        from paddle_tpu_torch.models.gpt import GPTConfig, gpt_lm_program
+        cfg = GPTConfig()
+        return [(f"gpt2 s{seq} b{batch}", seq, batch,
+                 lambda seq=seq: gpt_lm_program(cfg, seq),
+                 {"tokens": rng.randint(0, cfg.vocab_size, (batch, seq))
+                  .astype("int64")}) for seq, batch in ((1024, 2), (512, 4))]
+    from paddle_tpu_torch.models.bert import BertConfig, bert_pretrain_program
+    cells = []
+    for seq, batch, impl, pad in ((512, 16, "fused", True),
+                                  (128, 128, "einsum", False)):
+        cfg = BertConfig(attn_impl=impl)
+        mask = np.ones((batch, seq), np.float32)
+        if pad:    # each row's last 10-40 % is padding
+            real = seq - (rng.uniform(0.1, 0.4, batch) * seq).astype(int)
+            mask = (np.arange(seq)[None] < real[:, None]).astype(np.float32)
+        feed = {"src_ids": rng.randint(0, cfg.vocab_size, (batch, seq)),
+                "sent_ids": rng.randint(0, 2, (batch, seq)),
+                "input_mask": mask,
+                "mlm_labels": rng.randint(0, cfg.vocab_size, (batch, seq))}
+        cells.append((f"bert-base s{seq} b{batch} {impl} amp", seq, batch,
+                       lambda cfg=cfg, seq=seq: bert_pretrain_program(
+                           cfg, seq, amp=True), feed))
+    return cells
+
+
+def profile_train(seed, iters, sink, model="gpt"):
     import numpy as np
     import torch
     import paddle_tpu_torch as ptt
-    from paddle_tpu_torch.models.gpt import GPTConfig, gpt_lm_program
 
-    cfg = GPTConfig()
     exe = ptt.Executor(ptt.CUDAPlace(0))
     rng = np.random.RandomState(seed)
-    for seq, batch in ((1024, 2), (512, 4)):
+    for label, seq, batch, build, feed in _train_cells(model, rng):
         with ptt.unique_name_guard():
-            main, startup, fetch = gpt_lm_program(cfg, seq)
+            main, startup, fetch = build()
         startup.random_seed = main.random_seed = seed
         scope = ptt.Scope()
         exe.run(startup, scope=scope)
-        toks = rng.randint(0, cfg.vocab_size, (batch, seq)).astype("int64")
 
         def step():
-            out, = exe.run(main, feed={"tokens": toks},
+            out, = exe.run(main, feed=feed,
                            fetch_list=[fetch["loss"]], scope=scope,
                            return_numpy=False)
             torch.cuda.synchronize()
@@ -385,8 +419,8 @@ def profile_train(seed, iters, sink):
         n_generic = sum(1 for op in main.global_block.ops
                         if op.type.endswith("_grad")
                         and _generic_grad(op.type))
-        _emit({"phase": "train_step", "seq": seq, "batch": batch,
-               "median_step_ms": sorted(ts)[len(ts) // 2],
+        _emit({"phase": "train_step", "cell": label, "seq": seq,
+               "batch": batch, "median_step_ms": sorted(ts)[len(ts) // 2],
                "step_ms": ts, "ops": n_ops, "generic_vjp_grad_ops": n_generic,
                "tokens_per_s": batch * seq / (sorted(ts)[len(ts) // 2]
                                               / 1e3)}, sink)
@@ -400,7 +434,7 @@ def profile_train(seed, iters, sink):
             wall_us = (time.perf_counter() - t) * 1e6
         kernels, where = _attribute(prof.events())
         if not kernels:
-            _emit({"phase": "train_profile", "seq": seq, "batch": batch,
+            _emit({"phase": "train_profile", "cell": label,
                    "device_time": "not measured (the profiler recorded no "
                                   "device events)"}, sink)
             continue
@@ -416,8 +450,8 @@ def profile_train(seed, iters, sink):
                 other[k.name] = other.get(k.name, 0.0) + us
         busy = _union_us([(k.time_range.start, k.time_range.end)
                           for k in kernels])
-        _emit({"phase": "train_profile", "seq": seq, "batch": batch,
-               "steps": 2, "wall_ms_per_step": wall_us / 2e3,
+        _emit({"phase": "train_profile", "cell": label, "seq": seq,
+               "batch": batch, "steps": 2, "wall_ms_per_step": wall_us / 2e3,
                "device_busy_ms_per_step": busy / 2e3,
                "device_idle_share": 1.0 - busy / wall_us,
                "device_ms_per_step_by_group": {
@@ -443,6 +477,8 @@ def main():
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--train", action="store_true",
                     help="profile the train step instead of inference")
+    ap.add_argument("--model", choices=("gpt", "bert"), default="gpt",
+                    help="with --train: GPT-2 small, or BERT-base with AMP")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -459,13 +495,14 @@ def main():
     from paddle_tpu_torch.ops import cuda_build
     cuda_build.build_all()
     if args.train:
-        profile_train(args.seed, args.iters, sink)
+        profile_train(args.seed, args.iters, sink, args.model)
     else:
         dispatch_sweep(args.seed, sink)
         profile_requests(args.seed, args.iters, sink)
     out_dir = os.path.join(_ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    name = "profile_gpt_train.json" if args.train else "profile_gpt.json"
+    name = (f"profile_{args.model}_train.json" if args.train
+            else "profile_gpt.json")
     with open(os.path.join(out_dir, name), "w") as f:
         json.dump(sink, f, indent=1)
 

@@ -1,5 +1,5 @@
 """Op rules of the PyTorch port against the JAX package, op_test style:
-each op of the GPT slices runs as a one-op program through both executors
+each op of the GPT and BERT slices runs as a one-op program through both executors
 on the CPU, with the same numpy inputs. Forward outputs agree to 1e-5
 (f32), and so do the shapes and dtypes each package infers at build time
 (the port on the meta device, JAX with jax.eval_shape). Gradients: the
@@ -8,7 +8,8 @@ in each package; both emit the same grad-op descs, and the input grads
 agree to 1e-5 (f32; the reference's op_test allows 5e-3). Random ops draw
 other numbers in the two packages (torch.Generator vs JAX keys), so for
 them the distributions are compared, and dropout's grad is checked with a
-fed Mask.
+fed Mask. The ops the AMP rewrite puts on BERT's path (cast, einsum,
+softmax) also run in bf16 (`test_op_in_dtype_matches_jax`).
 """
 
 import numpy as np
@@ -129,6 +130,11 @@ _CASES = [
     ("slice_decrease", "slice", {"Input": _f(3, 8, 4)}, ["Out"],
      {"axes": [0], "starts": [1], "ends": [2], "decrease_axis": [0]}),
     ("mean", "mean", {"X": _f(3, 4, 5)}, ["Out"], {}),
+    ("einsum_scores", "einsum",
+     {"Operands": [_f(2, 5, 3, 4), _f(2, 6, 3, 4)]}, ["Out"],
+     {"equation": "bqnd,bknd->bnqk"}),
+    ("softmax", "softmax", {"X": _f(2, 3, 7)}, ["Out"], {"axis": -1}),
+    ("softmax_axis1", "softmax", {"X": _f(2, 3, 7)}, ["Out"], {"axis": 1}),
     ("softmax_xent", "softmax_with_cross_entropy",
      {"Logits": _f(4, 3, 7), "Label": _labels}, ["Softmax", "Loss"],
      {"soft_label": False, "ignore_index": -100, "axis": -1}),
@@ -236,6 +242,10 @@ _GRAD_CASES = [
      {"soft_label": True, "ignore_index": -100, "axis": -1}, "Loss",
      ["Logits"]),
     ("mean", "mean", {"X": _f(3, 4, 5)}, ["Out"], {}, "Out", ["X"]),
+    ("einsum_ctx", "einsum", {"Operands": [_f(2, 3, 5, 6), _f(2, 6, 3, 4)]},
+     ["Out"], {"equation": "bnqk,bknd->bqnd"}, "Out", ["Operands"]),
+    ("softmax", "softmax", {"X": _f(2, 3, 7)}, ["Out"], {"axis": -1}, "Out",
+     ["X"]),
     ("sum", "sum", {"X": [_f(3, 4), _f(3, 4)]}, ["Out"], {}, "Out", ["X"]),
     ("scale", "scale", {"X": _f(3, 4)}, ["Out"],
      {"scale": 2.5, "bias": 0.5, "bias_after_scale": True}, "Out", ["X"]),
@@ -274,6 +284,80 @@ def test_op_grad_matches_jax(case):
     for t, j in zip(tg, jg):
         assert t.shape == j.shape
         np.testing.assert_allclose(t, j, atol=TOL, rtol=TOL)
+
+
+# bf16 values have 8 significant bits; a result computed in f32 and rounded
+# once may land on the neighbouring bf16 value in the other package
+BF16_ULP = 2.0 ** -7
+
+# (case id, op type, inputs, attrs, wrt slots): cast, einsum and softmax
+# as the AMP rewrite runs them
+_DTYPE_CASES = [
+    ("cast_to_bf16", "cast", {"X": _f(3, 4)}, {"out_dtype": "bfloat16"},
+     ["X"]),
+    ("cast_to_f32", "cast", {"X": _f(3, 4)}, {"out_dtype": "float32"},
+     ["X"]),
+    ("einsum_scores", "einsum",
+     {"Operands": [_f(2, 5, 3, 4), _f(2, 6, 3, 4)]},
+     {"equation": "bqnd,bknd->bnqk"}, ["Operands"]),
+    ("einsum_ctx", "einsum", {"Operands": [_f(2, 3, 5, 6), _f(2, 6, 3, 4)]},
+     {"equation": "bnqk,bknd->bqnd"}, ["Operands"]),
+    ("softmax", "softmax", {"X": _f(2, 3, 7) * 3}, {"axis": -1}, ["X"]),
+]
+
+
+def _run_in_dtype(pkg, exe, op_type, inputs, attrs, wrt, dtype):
+    """f32 data vars, each cast to `dtype` by a cast op (the AMP rewrite's
+    pattern), then the op, then gradients back to the f32 inputs through
+    the casts. Returns (fetched out, grads, declared out dtype, descs)."""
+    main = pkg.Program()
+    blk = main.global_block
+    in_map, feed = _declare_inputs(blk, inputs)
+    op_in = {}
+    for slot, names in in_map.items():
+        op_in[slot] = []
+        for n in names:
+            c = n + "@" + dtype
+            blk.create_var(name=c, shape=blk.var(n).shape, dtype=dtype)
+            blk.append_op("cast", {"X": [n]}, {"Out": [c]},
+                          {"out_dtype": dtype})
+            op_in[slot].append(c)
+    blk.append_op(op_type, op_in, {"Out": ["Out_out"]}, attrs)
+    out = blk.var("Out_out")
+    feed["dout"] = np.random.RandomState(5).randn(*out.shape) \
+        .astype(np.float32)
+    blk.create_var(name="dout", shape=out.shape, dtype="float32")
+    grads = pkg.gradients([out], [blk.var(n) for s in wrt
+                                  for n in in_map[s]],
+                          target_gradients=[blk.var("dout")])
+    vals = exe.run(main, feed=feed,
+                   fetch_list=["Out_out"] + [g.name for g in grads])
+    vals = [np.asarray(v, dtype=np.float32) for v in vals]
+    descs = [op.type for op in blk.ops]
+    return vals[0], vals[1:], out.dtype, descs
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", _DTYPE_CASES,
+                         ids=[c[0] for c in _DTYPE_CASES])
+def test_op_in_dtype_matches_jax(case, dtype):
+    """Forward and grad of cast, einsum and softmax on f32 or bf16
+    operands: the same declared output dtype (softmax returns its input's
+    dtype though it computes in f32), and values within 1e-5 in f32 or
+    1e-5 + one bf16 ulp relative in bf16 (both packages accumulate bf16
+    products in f32 and round once)."""
+    _, op_type, inputs, attrs, wrt = case
+    j = _run_in_dtype(pt, pt.Executor(), op_type, inputs, attrs, wrt, dtype)
+    t = _run_in_dtype(ptt, ptt.Executor(ptt.CPUPlace()), op_type, inputs,
+                      attrs, wrt, dtype)
+    assert t[2] == j[2] and t[3] == j[3]
+    want = attrs.get("out_dtype", dtype)
+    assert t[2] == want
+    rtol = TOL if dtype == "float32" and want == "float32" else BF16_ULP
+    assert len(t[1]) == len(j[1]) > 0
+    for a, b in zip([t[0]] + t[1], [j[0]] + j[1]):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, atol=TOL, rtol=rtol)
 
 
 def _run_dropout_grad(pkg, exe, mask, dout, attrs):
