@@ -22,7 +22,12 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 1/1000/16384, random or unit scale and bias, and bf16 at
                 the spike's other shapes (8192 and 131072 rows of 768), the
                 backward launched twice for the same bits, and fused_ln's
-                autograd against autograd of torch_ln;
+                autograd against autograd of torch_ln. Then the conv + BN
+                kernels at the spike's five shapes, a ragged M (6272, 1000)
+                and C = 200, conv_bn_stats launched twice for the same bits,
+                and bn_apply_relu's one-value path (C % 8 != 0); then the
+                head-slice Gram kernel at the repro's shape, a ragged one
+                and a strided view;
   3. serve   -- GPT-2 small (GPTConfig(): vocab 50257, hidden 768, 12
                 layers, 12 heads) built with the port's DSL, initialized on
                 CUDAPlace(0) from --seed, saved with save_inference_model at
@@ -59,19 +64,40 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 others. Then bench.py's shape (s=128 b=128, einsum, AMP,
                 dropout 0.1, no flash kernel) for 3 steps. Step ms, tokens/s,
                 peak memory and MFU for each run;
-  6. spike   -- the residual + LayerNorm spike's table
+  6. resnet  -- ResNet-50 as tools/bench_resnet50.py builds it (224x224,
+                1000 classes, NCHW, Momentum) through Executor.run and the
+                inference Predictor on CUDAPlace(0): 3 fp32 steps at batch 4
+                (lr 1e-3) held against the same program run on CPUPlace
+                from the same values and feeds (step 1's loss, gradients,
+                Momentum update and the BN running statistics it leaves;
+                the losses of steps 2-3, where the trajectories part, to a
+                looser bound; the card's own sensitivity to a 1e-7 input
+                change beside it); the AMP program from
+                the same values and feeds held against the fp32 run; the
+                trained program's clone(for_test=True) saved and served at
+                batch 8 by a Predictor on the card and one on the CPU;
+                bench_resnet50's shape (batch 128, AMP, Momentum(0.1, 0.9)):
+                median step, img/s, MFU, peak memory. No hand-written
+                kernel runs on this path (its convs go to cuDNN): every
+                count zeroed just before it and read just after stays 0;
+  7. spike   -- the residual + LayerNorm spike's table
                 (paddle_tpu_torch.tools.spike_residual_ln) at its four bf16
-                shapes, counts zeroed just before and read just after;
-  7. times   -- each kernel at its main-path shape: CUDA-event time, the
+                shapes, the conv + BN spike's table (tools.spike_conv_bn)
+                at ResNet-50's five bottleneck 1x1 convs, and the head-slice
+                repro (tools.mosaic_repro_headslice), counts zeroed just
+                before and read just after;
+  8. times   -- each kernel at its main-path shape: CUDA-event time, the
                 plain version's time, a library call's time as a yardstick
                 only (the port never calls it: F.scaled_dot_product_attention
                 forward or its backward alone through autograd;
-                F.layer_norm(x + r) and aten's native_layer_norm_backward),
+                F.layer_norm(x + r) and aten's native_layer_norm_backward;
+                the compositions torch.matmul + two column sums and
+                torch.addcmul + relu; torch.bmm on the strided head slice),
                 and the bound max(FLOPs / the peak of the operands' type
                 (67 TFLOP/s fp32 non-tensor, 989.4 TFLOP/s bf16), bytes
                 / 3.35 TB/s) of an H100 SXM (NVIDIA's data sheet); the two
                 single-pass flash kernels also at BERT's shape, bf16 with a
-                bias.
+                bias, and the conv + BN kernels at all five spike shapes.
 
 The line before the last is the {"kernels": [...]} summary; the last line is
 {"ok": true, "device": {...}}. Full results go to chiprun_out/chip_smoke.json.
@@ -120,6 +146,17 @@ BWD_TOL = 1e-4
 LN_TOL = 1e-5
 LN_SUM_RTOL = 1e-4
 
+# conv + BN spike kernels vs their plain versions (f32 from the same bf16
+# inputs): y and the ReLU output within CBN_TOL + one bf16 ulp relative
+# (the product's f32 sums are taken in another order, so y may round to the
+# neighbouring bf16 value); s and q are sums over up to 401408 rows in
+# another order, held to CBN_SUM_RTOL of their largest value.
+CBN_TOL = 1e-5
+CBN_SUM_RTOL = 1e-4
+# head-slice Gram kernel vs its plain version (einsum, f32, TF32 off): sums
+# over d in another order, GRAM_TOL atol and rtol
+GRAM_TOL = 2e-5
+
 # kernel -> its source, the TPU kernel it replaces, and whether the serving
 # path (forward only) launches it; the GPT train path launches all five
 # flash kernels, the BERT path the two single-pass ones, the spike the two
@@ -160,10 +197,47 @@ KERNELS = {
         "replaces": "tools/spike_residual_ln.py:55",
         "serve": False,
     },
+    "conv_bn_stats": {
+        "source": "paddle_tpu_torch/ops/csrc/conv_bn_stats.cu",
+        "replaces": "tools/spike_conv_bn.py:26",
+        "serve": False,
+    },
+    "bn_apply_relu": {
+        "source": "paddle_tpu_torch/ops/csrc/bn_apply_relu.cu",
+        "replaces": "tools/spike_conv_bn.py:88",
+        "serve": False,
+    },
+    "headslice_gram": {
+        "source": "paddle_tpu_torch/ops/csrc/headslice_gram.cu",
+        "replaces": "tools/mosaic_repro_headslice.py:34",
+        "serve": False,
+    },
 }
 FLASH_KERNELS = [n for n in KERNELS if n.startswith("flash")]
 LN_KERNELS = [n for n in KERNELS if n.startswith("residual_ln")]
+CONV_BN_KERNELS = ["conv_bn_stats", "bn_apply_relu"]
 FWD_KERNELS = [n for n, k in KERNELS.items() if k["serve"]]
+
+
+def wrapper(name):
+    """The Python wrapper of kernel `name`, which holds its launch count."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.tools import mosaic_repro_headslice as mrh
+    from paddle_tpu_torch.tools import spike_conv_bn as scb
+    from paddle_tpu_torch.tools import spike_residual_ln as srl
+    return {"conv_bn_stats": scb.fused_conv_bn_stats,
+            "bn_apply_relu": scb.bn_apply_relu,
+            "headslice_gram": mrh.headslice_gram}.get(name) or getattr(
+        fa if name in FLASH_KERNELS else srl, name)
+
+
+def zero_counts(names):
+    for n in names:
+        wrapper(n).launches = 0
+
+
+def read_counts(names):
+    return {n: wrapper(n).launches for n in names}
 
 
 def emit(obj):
@@ -337,7 +411,8 @@ def phase_kernels(seed):
     emit({"phase": "kernels", "cases": len(results),
           "worst": {f"{n}/{dt}": e for (n, dt), e in worst.items()}})
     return results + _dispatch_checks(seed) + phase_bwd_kernels(seed) \
-        + phase_ln_kernels(seed)
+        + phase_ln_kernels(seed) + phase_conv_bn_kernels(seed) \
+        + phase_gram_kernels(seed)
 
 
 def _bwd_inputs(bn, sq, sk, d, dtype, with_bias, causal, seed):
@@ -537,6 +612,125 @@ def phase_ln_kernels(seed):
             fail(f"fused_ln's gradients differ from torch_ln's: {rec}")
     emit({"phase": "ln_kernels", "cases": len(results),
           "worst": {f"{dt}/{k}": e for (dt, k), e in worst.items()}})
+    return results
+
+
+def _cbn_close(a, b):
+    """(ok, max abs err): |a - b| <= CBN_TOL + one bf16 ulp * |b|."""
+    import torch
+    a, b = a.float(), b.float()
+    return (bool(torch.isfinite(a).all())
+            and bool(((a - b).abs() <= CBN_TOL + BF16_ULP * b.abs()).all()),
+            (a - b).abs().max().item())
+
+
+def _cbn_sum_close(a, b):
+    """(ok, max abs err) for a column sum: within CBN_SUM_RTOL of max |b|."""
+    import torch
+    err = (a - b).abs().max().item()
+    return (bool(torch.isfinite(a).all())
+            and err <= CBN_SUM_RTOL * b.abs().max().item(), err)
+
+
+def phase_conv_bn_kernels(seed):
+    """The conv + BN spike's kernels against their plain versions at the
+    spike's five shapes, the unfloored ragged M = 6272, M = 1000 with K and
+    C that are multiples of 8 but not of the kernel's tiles, each
+    conv_bn_stats launched twice for the same bits; bn_apply_relu also with
+    C % 8 != 0 (its one-value path)."""
+    import torch
+    from paddle_tpu_torch.tools import spike_conv_bn as scb
+    cases = list(scb.SHAPES) + [(6272, 2048, 512), (1000, 72, 200),
+                                (1000, 64, 64)]
+    results, worst = [], {}
+    for i, (m, k, c) in enumerate(cases):
+        x, w, _, _ = scb.spike_inputs(m, k, c, seed + 5000 + i)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed + 5500 + i)
+        gamma = torch.rand(c, generator=g, device="cuda") + 0.5
+        beta = torch.randn(c, generator=g, device="cuda")
+        y, s_, q = scb.fused_conv_bn_stats(x, w)
+        again = scb.fused_conv_bn_stats(x, w)
+        out = scb.bn_apply_relu(y, s_, q, gamma, beta)
+        torch.cuda.synchronize()
+        ry, rs, rq = scb.fused_conv_bn_stats_plain(x, w)
+        # the second kernel from the first kernel's y, s and q on both sides
+        rout = scb.bn_apply_relu_plain(y, s_, q, gamma, beta)
+        checks = {"y": _cbn_close(y, ry), "s": _cbn_sum_close(s_, rs),
+                  "q": _cbn_sum_close(q, rq), "out": _cbn_close(out, rout)}
+        bitwise = all(torch.equal(a, b) for a, b in zip((y, s_, q), again))
+        ok = bitwise and all(v[0] for v in checks.values())
+        rec = {"phase": "conv_bn_kernel", "M": m, "K": k, "C": c,
+               "dtype": "bfloat16",
+               "max_abs_err": {n: v[1] for n, v in checks.items()},
+               "atol": CBN_TOL, "rtol": BF16_ULP,
+               "sum_rtol_of_max": CBN_SUM_RTOL, "bitwise_rerun": bitwise,
+               "ok": ok}
+        emit(rec)
+        results.append(rec)
+        if not ok:
+            fail(f"conv+BN kernels disagree with their plain versions or "
+                 f"are not reproducible: {rec}")
+        for n, v in checks.items():
+            worst[n] = max(worst.get(n, 0.0), v[1])
+        del x, w, y, again, ry, out, rout
+    for m, c in ((1000, 100), (4099, 36)):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed + 5900 + c)
+        y = torch.randn((m, c), generator=g, device="cuda") \
+            .to(torch.bfloat16)
+        s_ = y.float().sum(0)
+        q = (y.float() ** 2).sum(0)
+        gamma = torch.rand(c, generator=g, device="cuda")
+        beta = torch.randn(c, generator=g, device="cuda")
+        out = scb.bn_apply_relu(y, s_, q, gamma, beta)
+        ok, err = _cbn_close(out, scb.bn_apply_relu_plain(y, s_, q, gamma,
+                                                          beta))
+        rec = {"phase": "conv_bn_kernel", "kernel": "bn_apply_relu",
+               "M": m, "C": c, "max_abs_err": {"out": err}, "ok": ok}
+        emit(rec)
+        results.append(rec)
+        if not ok:
+            fail(f"bn_apply_relu disagrees with its plain version: {rec}")
+    emit({"phase": "conv_bn_kernels", "cases": len(results),
+          "worst": worst})
+    return results
+
+
+def phase_gram_kernels(seed):
+    """The head-slice Gram kernel against its plain version at the repro's
+    shape, a ragged one, and a (b, s, n, d) view of a (b, n, s, d) tensor
+    (other strides); each launched twice for the same bits."""
+    import torch
+    from paddle_tpu_torch.tools import mosaic_repro_headslice as mrh
+    results = []
+    for i, (shape, view) in enumerate(((mrh.SHAPE, False),
+                                       ((2, 200, 6, 40), False),
+                                       ((3, 100, 4, 32), True))):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed + 6000 + i)
+        b, s_, n, d = shape
+        if view:
+            x = torch.rand((b, n, s_, d), generator=g,
+                           device="cuda").permute(0, 2, 1, 3)
+        else:
+            x = torch.rand(shape, generator=g, device="cuda")
+        got = mrh.headslice_gram(x)
+        again = mrh.headslice_gram(x)
+        torch.cuda.synchronize()
+        want = mrh.headslice_gram_plain(x)
+        diff = (got - want).abs()
+        bitwise = torch.equal(got, again)
+        ok = bitwise and bool(torch.isfinite(got).all()) and bool(
+            (diff <= GRAM_TOL + GRAM_TOL * want.abs()).all())
+        rec = {"phase": "gram_kernel", "shape": list(shape),
+               "strides": list(x.stride()), "max_abs_err": diff.max().item(),
+               "atol": GRAM_TOL, "rtol": GRAM_TOL, "bitwise_rerun": bitwise,
+               "ok": ok}
+        emit(rec)
+        results.append(rec)
+        if not ok:
+            fail(f"headslice_gram disagrees with its plain version: {rec}")
     return results
 
 
@@ -1090,26 +1284,335 @@ def phase_bert(seed):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the residual + LayerNorm spike
+# phase 6: ResNet-50, bench_resnet50's train program, and its serving
+# ---------------------------------------------------------------------------
+
+RESNET_LR = 1e-3
+RESNET_STEPS = 3
+# The held fp32 run, card vs CPU from the same values and feeds. Step 1 is
+# held: its loss to LOSS_RTOL, its gradients and its parameter updates
+# (lr * g, the first Momentum step) per tensor to ||x - x_cpu|| <=
+# RESNET_GRAD_L2 * ||x_cpu||, and the BN running statistics it leaves to
+# |x - x_cpu| <= RESNET_STATE_TOL * max(1, max |x_cpu|). A ReLU net's
+# gradient moves with the sign of each pre-activation within rounding of 0,
+# and batch-norm at a small batch spreads each such flip over a whole
+# channel: on the CPU, scaling the input by 1 + 1e-7 moves ResNet-50's own
+# gradients by up to 0.027 relative L2 (0.27 of max |g| element-wise) at
+# batch 2 and 4, and JAX's lie 0.029 from the port's
+# (tests/test_torch_resnet.py); the card's own figure is measured here
+# (sensitivity_l2: 0.028 on an H100 80GB HBM3 at 700 W). From those
+# step-1 differences the two trajectories part: steps 2 and 3 are held to
+# RESNET_LATER_LOSS_RTOL (measured 8.5e-4 and 2.0e-2 relative on that card,
+# where the BN running variances after 3 steps stood 6.6 % apart).
+RESNET_GRAD_L2 = 0.1
+RESNET_STATE_TOL = 1e-4
+RESNET_LATER_LOSS_RTOL = 0.1
+# AMP from the fp32 run's parameters and feeds, against the fp32 run. On the
+# CPU at batch 2-4 (port and JAX alike) the bf16 AMP gradients of ResNet-50
+# at initialisation lie ~1.2 mean relative L2 from the fp32 ones below the
+# last stage (the kinks above, at bf16's 2^-9), the fc gradients 0.7 %
+# (bias) and 10 % (weights) away, every norm within 0.79-1.36 of fp32's, the
+# loss 1.1-2.3 % away; on the H100 at batch 4, 0.5 %, 10.7 %, 0.90-1.29
+# and 0.4 %. Held: the loss, each gradient's norm ratio, and the fc
+# gradients.
+RESNET_AMP_LOSS_RTOL = 5e-2
+RESNET_AMP_NORM_RATIO = (0.5, 2.0)
+RESNET_AMP_FC_L2 = {"fc_0.b_0": 5e-2, "fc_0.w_0": 0.25}
+# Served logits, card vs CPU, the same saved model: within
+# SERVE_LOGIT_RTOL * max |logit| (forward only, batch-norm on the running
+# statistics: no kink enters a forward value by more than its rounding)
+SERVE_LOGIT_RTOL = 1e-4
+# bench_resnet50's FLOP convention: 4.089 GMAC an image forward, 2 FLOPs a
+# MAC, x3 for forward and backward
+RESNET_FLOPS_PER_IMAGE = 3 * 2 * 4.089e9
+
+
+def _scope_from(values, device):
+    import paddle_tpu_torch as ptt
+    scope = ptt.Scope()
+    for n, v in values.items():
+        scope.set_var(n, v.to(device).clone())
+    return scope
+
+
+def _rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _resnet_first_step(exe, main, loss, scope, feed, grads, after):
+    """Step 1 with its gradients and the `after` vars (parameters, BN running
+    statistics) as the step leaves them: (loss, grads, after, ms)."""
+    import torch
+    t = time.perf_counter()
+    out = exe.run(main, feed=feed, fetch_list=[loss] + grads + after,
+                  scope=scope, return_numpy=False)
+    if exe.device.type == "cuda":
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    n = len(grads)
+    return (float(out[0].item()), dict(zip(grads, out[1:1 + n])),
+            dict(zip(after, out[1 + n:])), ms)
+
+
+def _resnet_held(exe, cpu, main, startup, loss, seed, rng):
+    """fp32 batch 4: RESNET_STEPS steps on the card and, from the same
+    values and feeds, on the CPU. Returns (record, card scope, init, feeds,
+    card step-1 grads, params)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.tools import bench_resnet50 as bench
+    startup.random_seed = seed
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope)
+    init = {n: scope.find_var(n).detach().cpu().clone()
+            for n in scope.var_names()
+            if isinstance(scope.find_var(n), torch.Tensor)}
+    params = [p.name for p in main.global_block.all_parameters()
+              if p.trainable]
+    grads = [p + "@GRAD" for p in params]
+    stats = [v.name for v in main.list_vars() if v.persistable
+             and (".mean_" in v.name or ".variance_" in v.name)]
+    feeds = [bench.feed(rng, 4) for _ in range(RESNET_STEPS)]
+    l1, g1, after, ms1 = _resnet_first_step(exe, main, loss, scope,
+                                            feeds[0], grads, params + stats)
+    later, later_ms, _ = _bert_steps(exe, main, {"loss": loss}, scope,
+                                     feeds[1:], [])
+    cscope = _scope_from(init, "cpu")
+    t = time.perf_counter()
+    cl1, cg1, cafter, _ = _resnet_first_step(cpu, main, loss, cscope,
+                                             feeds[0], grads, params + stats)
+    clater, _, _ = _bert_steps(cpu, main, {"loss": loss}, cscope, feeds[1:],
+                               [])
+    cpu_s = time.perf_counter() - t
+    # the card's own sensitivity: step 1 again with the input scaled by
+    # 1 + 1e-7
+    pfeed = dict(feeds[0])
+    pfeed["img"] = (pfeed["img"] * (1 + 1e-7)).astype(np.float32)
+    _, pg1, _, _ = _resnet_first_step(exe, main, loss,
+                                      _scope_from(init, exe.device), pfeed,
+                                      grads, [])
+    losses, closses = [l1] + later, [cl1] + clater
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, closses)]
+    gl2 = {n: _rel_l2(g1[n].cpu(), cg1[n]) for n in grads}
+    gmax = {n: ((g1[n].cpu() - cg1[n]).abs().max()
+                / cg1[n].abs().max()).item() for n in grads}
+    upd = {n: _rel_l2(after[n].cpu() - init[n], cafter[n] - init[n])
+           for n in params}
+    stat_err = max(((after[n].cpu() - cafter[n]).abs().max().item()
+                    / max(1.0, cafter[n].abs().max().item()), n)
+                   for n in stats)
+    worst = max((v, n) for n, v in gl2.items())
+    worst_upd = max((v, n) for n, v in upd.items())
+    rec = {"phase": "resnet", "run": "held fp32", "model": "resnet50",
+           "batch": 4, "hw": 224, "optimizer": "momentum", "lr": RESNET_LR,
+           "steps": RESNET_STEPS, "step_ms": [ms1] + later_ms,
+           "cpu_s": cpu_s, "losses": losses, "cpu_losses": closses,
+           "loss_rel_diff": loss_rel,
+           "loss_rtol": [LOSS_RTOL] + [RESNET_LATER_LOSS_RTOL] * len(later),
+           "grad_worst_rel_l2": {"var": worst[1], "rel_l2": worst[0],
+                                 "tol": RESNET_GRAD_L2},
+           "grad_mean_rel_l2": float(np.mean(list(gl2.values()))),
+           "grad_worst_max_over_max": max(gmax.values()),
+           "sensitivity_l2": max(_rel_l2(pg1[n], g1[n]) for n in grads),
+           "update_worst_rel_l2": {"var": worst_upd[1],
+                                   "rel_l2": worst_upd[0],
+                                   "tol": RESNET_GRAD_L2},
+           "bn_stats_worst_after_step1": {"var": stat_err[1],
+                                          "err": stat_err[0],
+                                          "tol": RESNET_STATE_TOL},
+           "tensors": {"grads": len(grads), "bn_stats": len(stats)}}
+    emit(rec)
+    if not all(np.isfinite(losses)) or loss_rel[0] > LOSS_RTOL or max(
+            loss_rel[1:]) > RESNET_LATER_LOSS_RTOL:
+        fail(f"resnet fp32: losses {losses} vs the CPU's {closses}")
+    if worst[0] > RESNET_GRAD_L2 or worst_upd[0] > RESNET_GRAD_L2:
+        fail(f"resnet fp32: step-1 gradient {worst[1]} or update "
+             f"{worst_upd[1]} lies {max(worst[0], worst_upd[0])} relative "
+             f"L2 from the CPU's")
+    if stat_err[0] > RESNET_STATE_TOL:
+        fail(f"resnet fp32: {stat_err[1]} differs from the CPU's by "
+             f"{stat_err[0]} after step 1")
+    return rec, scope, init, feeds, g1, params
+
+
+def _resnet_amp(exe, init, feeds, g1, params, losses32):
+    """AMP batch 4 from the fp32 run's parameters and feeds."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.tools import bench_resnet50 as bench
+    main, startup, loss, _ = bench.build_program(amp=True, lr=RESNET_LR)
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope)
+    for n, v in init.items():
+        if n in scope:
+            scope.set_var(n, v.to(exe.device).clone())
+    grads = [p + "@GRAD" for p in params]
+    losses, step_ms, ag1 = _bert_steps(exe, main, {"loss": loss}, scope,
+                                       feeds, grads)
+    ratios = {n: (ag1[n].float().norm() / g1[n].float().norm()).item()
+              for n in grads}
+    gl2 = {n: _rel_l2(ag1[n], g1[n]) for n in grads}
+    loss_rel = abs(losses[0] - losses32[0]) / abs(losses32[0])
+    fc = {p: gl2[p + "@GRAD"] for p in RESNET_AMP_FC_L2}
+    rec = {"phase": "resnet", "run": "held amp", "model": "resnet50",
+           "batch": 4, "steps": RESNET_STEPS, "step_ms": step_ms,
+           "losses": losses, "loss_rel_diff_vs_fp32_step1": loss_rel,
+           "loss_rtol": RESNET_AMP_LOSS_RTOL,
+           "grad_norm_ratio_range": [min(ratios.values()),
+                                     max(ratios.values())],
+           "norm_ratio_bounds": list(RESNET_AMP_NORM_RATIO),
+           "fc_rel_l2": fc, "fc_rel_l2_tol": RESNET_AMP_FC_L2,
+           "grad_mean_rel_l2": float(np.mean(list(gl2.values()))),
+           "grad_worst_rel_l2": max(gl2.values()),
+           "grads_finite": all(bool(g.float().isfinite().all())
+                               for g in ag1.values())}
+    emit(rec)
+    lo, hi = RESNET_AMP_NORM_RATIO
+    if not (rec["grads_finite"] and all(np.isfinite(losses))):
+        fail(f"resnet amp: non-finite losses or gradients: {rec}")
+    if loss_rel > RESNET_AMP_LOSS_RTOL or not all(
+            lo <= r <= hi for r in ratios.values()) or any(
+            fc[p] > RESNET_AMP_FC_L2[p] for p in fc):
+        fail(f"resnet amp: outside its bounds against the fp32 run: {rec}")
+    return rec
+
+
+def _resnet_serve(exe, main, logits, scope, rng):
+    """clone(for_test=True) of the trained program, save_inference_model,
+    a Predictor at batch 8 on the card and one on the CPU from the same
+    directory."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    test_prog = main.clone(for_test=True)
+    modes = {op.attrs.get("is_test") for op in test_prog.global_block.ops
+             if op.type == "batch_norm"}
+    d = os.path.join(WORK_DIR, "resnet50")
+    ptt.io.save_inference_model(d, ["img"], [logits], exe,
+                                main_program=test_prog, scope=scope)
+    card = ptt.inference.create_predictor(ptt.inference.Config(d))
+    cfg = ptt.inference.Config(d)
+    cfg.disable_gpu()
+    host = ptt.inference.create_predictor(cfg)
+    imgs = rng.rand(8, 3, 224, 224).astype(np.float32)
+    card.run({"img": imgs})                            # warm-up
+    lat = []
+    for _ in range(3):
+        t = time.perf_counter()
+        out, = card.run({"img": imgs})
+        lat.append((time.perf_counter() - t) * 1e3)
+    ref, = host.run({"img": imgs})
+    diff = float(np.abs(out - ref).max())
+    tol = SERVE_LOGIT_RTOL * float(np.abs(ref).max())
+    rec = {"phase": "resnet", "run": "served", "batch": 8,
+           "batch_norm_is_test": sorted(modes), "device": str(card.device),
+           "request_ms": lat, "median_request_ms": sorted(lat)[1],
+           "max_abs_logit_diff_vs_cpu": diff, "tol": tol,
+           "logits_shape": list(out.shape)}
+    emit(rec)
+    if modes != {True} or out.shape != (8, 1000) or card.device.type != \
+            "cuda" or not np.isfinite(out).all() or diff > tol:
+        fail(f"resnet served: {rec}")
+    shutil.rmtree(d, ignore_errors=True)
+    return rec
+
+
+def _resnet_timed(exe, seed, rng):
+    """bench_resnet50's shape: batch 128, NCHW, AMP, Momentum(0.1, 0.9); one
+    warm-up step, then 5 timed steps, each up to a synchronise."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.tools import bench_resnet50 as bench
+    main, startup, loss, _ = bench.build_program(amp=True, lr=0.1)
+    startup.random_seed = main.random_seed = seed
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope)
+    feed = bench.feed(rng, 128)
+    _bert_steps(exe, main, {"loss": loss}, scope, [feed], [])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, _ = _bert_steps(exe, main, {"loss": loss}, scope,
+                                     [feed] * 5, [])
+    med = sorted(step_ms)[len(step_ms) // 2]
+    flops = RESNET_FLOPS_PER_IMAGE * 128
+    rec = {"phase": "resnet", "run": "timed", "shape": "bench_resnet50",
+           "batch": 128, "fmt": "NCHW", "amp": True,
+           "optimizer": "momentum(0.1, 0.9)", "ops": len(main.global_block
+                                                          .ops),
+           "step_ms": step_ms, "median_step_ms": med,
+           "img_per_s": 128 / (med / 1e3), "flops_per_step": flops,
+           "mfu_vs_bf16_peak": flops / (med / 1e3) / PEAK_BF16_FLOPS,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "losses": losses}
+    emit(rec)
+    if not all(np.isfinite(losses)):
+        fail(f"resnet timed: non-finite losses {losses}")
+    return rec
+
+
+def phase_resnet(seed):
+    """ResNet-50 at full width (224x224, 1000 classes) through Executor.run
+    and the inference Predictor on CUDAPlace(0); no hand-written kernel
+    runs on this path (its convs go to cuDNN), which the counts show."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.tools import bench_resnet50 as bench
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    cpu = ptt.Executor(ptt.CPUPlace())
+    rng = np.random.RandomState(seed)
+    main, startup, loss, logits = bench.build_program(amp=False,
+                                                      lr=RESNET_LR)
+    zero_counts(KERNELS)
+    # ---- the main path: counts zeroed just before, read just after ----
+    held, scope, init, feeds, g1, params = _resnet_held(
+        exe, cpu, main, startup, loss, seed, rng)
+    amp = _resnet_amp(exe, init, feeds, g1, params, held["losses"])
+    served = _resnet_serve(exe, main, logits, scope, rng)
+    del scope, g1, init
+    torch.cuda.empty_cache()
+    timed = _resnet_timed(exe, seed, rng)
+    launches = read_counts(KERNELS)
+    # -------------------------------------------------------------------
+    emit({"phase": "resnet_launches", "launches": launches,
+          "note": "no hand-written kernel runs on the ResNet-50 path"})
+    if any(launches.values()):
+        fail(f"the ResNet-50 path launched hand kernels: {launches}")
+    torch.cuda.empty_cache()
+    return {"held": held, "amp": amp, "served": served, "timed": timed}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the spikes: residual + LayerNorm, conv + BN, the head-slice repro
 # ---------------------------------------------------------------------------
 
 def phase_spike(seed):
+    """The residual + LayerNorm spike's table, the conv + BN spike's table
+    and the head-slice repro, each on its own entry point."""
+    from paddle_tpu_torch.tools import mosaic_repro_headslice as mrh
+    from paddle_tpu_torch.tools import spike_conv_bn as scb
     from paddle_tpu_torch.tools import spike_residual_ln as srl
-    for n in LN_KERNELS:
-        getattr(srl, n).launches = 0
-    # ---- the spike's path: counts zeroed just before, read just after ----
+    names = LN_KERNELS + CONV_BN_KERNELS + ["headslice_gram"]
+    zero_counts(names)
+    # ---- the spikes' paths: counts zeroed just before, read just after ----
     rows = srl.spike_table(seed, emit)
-    launches = {n: getattr(srl, n).launches for n in LN_KERNELS}
+    cbn_rows = scb.spike_table(seed, emit)
+    ok, err = mrh.run(seed)
+    launches = read_counts(names)
     # -----------------------------------------------------------------------
+    if not ok:
+        fail(f"the head-slice repro's kernel differs by {err}")
     for n, c in launches.items():
         if c == 0:
             fail(f"kernel {n} was not launched on the spike's path")
     emit({"phase": "spike_launches", "launches": launches})
-    return {"rows": rows, "launches": launches}
+    return {"rows": rows, "conv_bn_rows": cbn_rows, "headslice_err": err,
+            "launches": launches}
 
 
 # ---------------------------------------------------------------------------
-# phase 7: times at the main-path shapes
+# phase 8: times at the main-path shapes
 # ---------------------------------------------------------------------------
 
 def _pairs(sq, sk, causal):
@@ -1312,8 +1815,104 @@ def _ln_rows(spike, seed):
     return rows
 
 
+def _alone_row(name, alone, kern, plain, lib, bound, launches, err, extra,
+               device=False):
+    """A times record and a kernels-line row for a spike kernel: the kernel
+    alone (prepared launches through the wrapper's `_run`), through its
+    wrapper, its plain version and the library yardstick. With `device`,
+    the kernel's time is its device time in a profiler trace, the launch
+    path's host work being longer than the kernel (`event_ms` keeps the
+    CUDA-event time of back-to-back launches)."""
+    from paddle_tpu_torch.tools.profile_gpt import device_time_ms, time_ms
+    ms = time_ms(alone)
+    bound_ms, bound_by, flops, nbytes = bound
+    extra = dict(extra)
+    if device:
+        extra["event_ms"], ms = ms, device_time_ms(alone)
+    rec = {"phase": "time", "kernel": name, **extra, "flops": flops,
+           "bytes": nbytes, "ms": ms, "wrapper_ms": time_ms(kern),
+           "plain_ms": time_ms(plain, iters=5),
+           "library_ms": time_ms(lib), "bound_ms": bound_ms,
+           "bound_by": bound_by, "launches_spike": launches,
+           "bytes_per_s": nbytes / (ms * 1e-3)}
+    emit(rec)
+    return {"name": name, "route": "cuda", "source": KERNELS[name]["source"],
+            "replaces": KERNELS[name]["replaces"], "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": rec["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": rec["library_ms"]}
+
+
+def _conv_bn_rows(spike, seed):
+    """conv_bn_stats at every spike shape and bn_apply_relu on its output;
+    the kernels line keeps conv_bn_stats at (401408, 64, 64) and
+    bn_apply_relu at (401408, 256). Library yardsticks (compositions, no
+    single call computes either): torch.matmul then the two f32 column
+    reductions; torch.addcmul then relu."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.tools import spike_conv_bn as scb
+    rows = {}
+    for m, k, c in scb.SHAPES:
+        x, w, gamma, beta = scb.spike_inputs(m, k, c, seed)
+        alone = scb.prepared_launches(x, w, gamma, beta)
+        y, s_, q = scb.fused_conv_bn_stats(x, w)
+        sc, sh = scb.bn_scale_shift(s_, q, m, gamma, beta)
+        ref = scb.fused_conv_bn_stats_plain(x, w)
+        err6 = max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip((y, s_, q), ref))
+        out = scb.bn_apply_relu(y, s_, q, gamma, beta)
+        err7 = (out.float() - scb.bn_apply_relu_plain(
+            y, s_, q, gamma, beta).float()).abs().max().item()
+
+        def lib6():
+            y32 = torch.matmul(x, w).float()
+            return y32.sum(0), (y32 * y32).sum(0)
+
+        r6 = _alone_row(
+            "conv_bn_stats", alone[0],
+            lambda: scb.fused_conv_bn_stats(x, w),
+            lambda: scb.fused_conv_bn_stats_plain(x, w), lib6,
+            scb.stats_bound(m, k, c), spike["launches"]["conv_bn_stats"],
+            err6, {"M": m, "K": k, "C": c, "dtype": "bfloat16"})
+        r7 = _alone_row(
+            "bn_apply_relu", alone[1],
+            lambda: scb.bn_apply_relu(y, s_, q, gamma, beta),
+            lambda: scb.bn_apply_relu_plain(y, s_, q, gamma, beta),
+            lambda: F.relu(torch.addcmul(sh, y, sc)).to(y.dtype),
+            scb.apply_bound(m, c), spike["launches"]["bn_apply_relu"],
+            err7, {"M": m, "C": c, "dtype": "bfloat16"})
+        rows.setdefault("conv_bn_stats", r6)
+        if (m, c) == (401408, 256):
+            rows["bn_apply_relu"] = r7
+        del x, w, y, out, ref
+    return [rows["conv_bn_stats"], rows["bn_apply_relu"]]
+
+
+def _gram_row(spike, seed):
+    """headslice_gram at the repro's shape, its time the device time of the
+    kernel (a launch costs the host more); library yardstick torch.bmm on
+    the strided slice and its transpose."""
+    import torch
+    from paddle_tpu_torch.tools import mosaic_repro_headslice as mrh
+    b, s_, n, d = mrh.SHAPE
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    x = torch.rand(mrh.SHAPE, generator=g, device="cuda")
+    xs = x[:, :, -1]
+    err = (mrh.headslice_gram(x) - mrh.headslice_gram_plain(x)).abs().max() \
+        .item()
+    return _alone_row(
+        "headslice_gram", mrh.prepared_launch(x),
+        lambda: mrh.headslice_gram(x), lambda: mrh.headslice_gram_plain(x),
+        lambda: torch.bmm(xs, xs.transpose(1, 2)), mrh.gram_bound(b, s_, d),
+        spike["launches"]["headslice_gram"], err,
+        {"b": b, "s": s_, "n": n, "d": d, "dtype": "float32"}, device=True)
+
+
 def phase_times(serve, train, bert, spike, seed):
-    return _flash_rows(serve, train, bert, seed) + _ln_rows(spike, seed)
+    return (_flash_rows(serve, train, bert, seed) + _ln_rows(spike, seed)
+            + _conv_bn_rows(spike, seed) + [_gram_row(spike, seed)])
 
 
 def main():
@@ -1344,6 +1943,7 @@ def main():
         serve = phase_serve(args.seed)
         train = phase_train(args.seed)
         bert = phase_bert(args.seed)
+        resnet = phase_resnet(args.seed)
         spike = phase_spike(args.seed)
         rows = phase_times(serve, train, bert, spike, args.seed)
     finally:
@@ -1353,7 +1953,8 @@ def main():
                    "wall_s": time.perf_counter() - t0, "build": build,
                    "kernel_cases": kernels, "serve": serve["summary"],
                    "train": train["summaries"], "bert": bert["runs"],
-                   "spike": spike["rows"],
+                   "resnet": resnet, "spike": spike["rows"],
+                   "spike_conv_bn": spike["conv_bn_rows"],
                    "requests": serve["requests"], "kernels": rows}, f,
                   indent=1)
     print(card, flush=True)

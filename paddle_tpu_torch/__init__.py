@@ -6,8 +6,9 @@ hand-written Hopper (sm_90a) CUDA kernels. It imports torch and never jax
 nor paddle_tpu. It covers GPT-2 inference (Program -> Executor ->
 fused_attention, the native io format and the inference Predictor), the
 GPT-2 training step (append_backward, SGD/Adam, the attention backward on
-three Hopper kernels) and the BERT MLM pretrain step with the bf16 AMP
-rewrite (`contrib.mixed_precision`).
+three Hopper kernels), the BERT MLM pretrain step with the bf16 AMP
+rewrite (`contrib.mixed_precision`) and ResNet training (Momentum, fp32 or
+AMP) and serving (`models.resnet`; convolutions through cuDNN).
 
 Places are real: `Executor()` runs on `CUDAPlace(0)` and raises when no GPU
 is present; `Executor(CPUPlace())` runs on the CPU.

@@ -1,4 +1,4 @@
-"""Layers DSL of the PyTorch port (the inference slice's subset)."""
+"""Layers DSL of the PyTorch port (the GPT, BERT and ResNet subset)."""
 
 from .math import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403

@@ -8,11 +8,16 @@ build takes seconds. Libraries go to `paddle_tpu_torch/ops/_build/`
 edited source rebuilds and an unchanged one is reused. Nothing here runs
 at import time: the first launch of a kernel builds it, and
 `build_all()` starts one `nvcc` per source at once.
+
+`on_cuda` and `launch` are the launch path of the kernels whose C entry
+`<name>_launch(pointers..., integers..., stream)` returns a cudaError_t
+(the spikes' kernels; the flash kernels have their own signature).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -21,7 +26,8 @@ import threading
 import time
 from typing import Dict, List
 
-__all__ = ["KERNEL_SOURCES", "build_all", "load_library", "nvcc_path"]
+__all__ = ["KERNEL_SOURCES", "build_all", "load_library", "nvcc_path",
+           "on_cuda", "launch"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
@@ -35,6 +41,9 @@ KERNEL_SOURCES = {
     "flash_small_bwd": "flash_small_bwd.cu",
     "residual_ln_fwd": "residual_ln_fwd.cu",
     "residual_ln_bwd": "residual_ln_bwd.cu",
+    "conv_bn_stats": "conv_bn_stats.cu",
+    "bn_apply_relu": "bn_apply_relu.cu",
+    "headslice_gram": "headslice_gram.cu",
 }
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -124,3 +133,41 @@ def load_library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(out)
             _libs[name] = lib
         return lib
+
+
+_INT_TYPES = {"i": ctypes.c_int, "q": ctypes.c_longlong}
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_fn(name: str, n_ptrs: int, int_types: str):
+    fn = getattr(load_library(name), f"{name}_launch")
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [
+        _INT_TYPES[t] for t in int_types] + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def on_cuda(name: str, x) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one (the
+    caller runs the plain version); any other device raises."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    return True
+
+
+def launch(name: str, tensors, ints, int_types: str = "") -> None:
+    """Call `<name>_launch` with the pointers of `tensors`, then `ints`
+    (C int each, or per `int_types`: "i" int, "q" long long), then the
+    current stream of the tensors' device; raise if the launch was
+    refused."""
+    import torch
+    fn = _launch_fn(name, len(tensors), int_types or "i" * len(ints))
+    device = tensors[0].device
+    with torch.cuda.device(device):
+        err = fn(*[t.data_ptr() for t in tensors], *ints,
+                 torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError "
+                           f"{err} (ints {list(ints)})")

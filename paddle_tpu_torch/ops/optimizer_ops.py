@@ -1,12 +1,13 @@
-"""Optimizer update ops: sgd and adam, dense only.
+"""Optimizer update ops: sgd, momentum and adam, dense only.
 
-Port of `paddle_tpu/ops/optimizer_ops.py` (sgd:30, adam:70). Each is a
-function (param, grad, state...) -> (param', state...); the IR gives the
-outputs the same var names as the inputs (ParamOut = Param, Moment1Out =
-Moment1, ...), so the executor binds the new tensors to those names and
-writes them back to the scope at the end of the run. State (moments) is
-kept in float32 whatever the param dtype. SelectedRows (sparse) grads come
-with the sparse lookup_table grad.
+Port of `paddle_tpu/ops/optimizer_ops.py` (sgd:30, momentum:43, adam:70).
+Each is a function (param, grad, state...) -> (param', state...); the IR
+gives the outputs the same var names as the inputs (ParamOut = Param,
+Moment1Out = Moment1, ...), so the executor binds the new tensors to those
+names and writes them back to the scope at the end of the run. State
+(moments, velocities) is kept in float32 whatever the param dtype.
+SelectedRows (sparse) grads come with the sparse lookup_table grad; until
+then momentum raises on one.
 """
 
 import torch
@@ -22,6 +23,26 @@ def _lr(ins):
 def _sgd(ctx, ins, attrs):
     p, g = ins["Param"][0], ins["Grad"][0]
     return {"ParamOut": [(p.float() - _lr(ins) * g.float()).to(p.dtype)]}
+
+
+@register_op("momentum", not_differentiable=True, is_optimizer_op=True)
+def _momentum(ctx, ins, attrs):
+    """v' = mu * v + g; p' = p - lr * v', or with Nesterov p - lr * (g +
+    mu * v'); in f32, ParamOut cast back to the parameter's dtype."""
+    p, g, v = ins["Param"][0], ins["Grad"][0], ins["Velocity"][0]
+    if not isinstance(g, torch.Tensor):
+        raise NotImplementedError(
+            "momentum with a SelectedRows grad is not ported to "
+            "paddle_tpu_torch yet")
+    mu = attrs["mu"]
+    lr = _lr(ins)
+    g32 = g.float()
+    v_new = mu * v + g32
+    if attrs.get("use_nesterov", False):
+        p_new = p.float() - (g32 + mu * v_new) * lr
+    else:
+        p_new = p.float() - lr * v_new
+    return {"ParamOut": [p_new.to(p.dtype)], "VelocityOut": [v_new]}
 
 
 @register_op("adam", not_differentiable=True, is_optimizer_op=True)

@@ -1,11 +1,12 @@
-"""Tensor ops of the GPT and BERT slices: reshape2, slice, lookup_table
-(with its dense grad), fill, constants, cast, random init.
+"""Tensor ops of the GPT, BERT and ResNet slices: reshape2, slice,
+lookup_table (with its dense grad), fill, constants, cast, random init,
+top_k.
 
 Port of the matching rules in `paddle_tpu/ops/tensor_ops.py` (reshape2:42,
 slice:141, lookup_table:256-299, fill_constant:347, fill_any_like:370,
-assign_value:382, cast:388, uniform_random:435, gaussian_random:446). The
-grads of reshape2, slice and cast take the generic vjp path (cast's is a
-cast back to the input's dtype). Rules create tensors on
+assign_value:382, cast:388, uniform_random:435, gaussian_random:446,
+top_k:483). The grads of reshape2, slice and cast take the generic vjp
+path (cast's is a cast back to the input's dtype). Rules create tensors on
 `ctx.device`; random ops draw from the run's `torch.Generator` (or a fixed
 `seed` attr), so they give other numbers than JAX's keys from the same seed.
 """
@@ -158,3 +159,11 @@ def _gaussian_random(ctx, ins, attrs):
                     dtype=torch.float32, device=ctx.device)
     out = attrs.get("mean", 0.0) + attrs.get("std", 1.0) * n
     return {"Out": [out.to(torch_dtype(attrs.get("dtype", "float32")))]}
+
+
+@register_op("top_k", non_diff_outputs={"Indices"})
+def _top_k(ctx, ins, attrs):
+    """The k largest along the last axis, largest first; Indices int64
+    (JAX without x64 gives int32, a known non-fault)."""
+    v, i = torch.topk(ins["X"][0], attrs["k"], dim=-1)
+    return {"Out": [v], "Indices": [i]}

@@ -1,15 +1,16 @@
 """Optimizers: build update ops onto the program IR.
 
 Port of `paddle_tpu/optimizer.py` (Optimizer :35, SGDOptimizer :238,
-_AdamLike/AdamOptimizer :285-330; reference: python/paddle/fluid/
-optimizer.py). The learning rate is a graph variable; accumulators are
-persistable vars initialized in the startup program; the update ops of
-`ops/optimizer_ops.py` run in the same Executor.run as the backward pass.
+MomentumOptimizer :246, _AdamLike/AdamOptimizer :285-330; reference:
+python/paddle/fluid/optimizer.py). The learning rate is a graph variable;
+accumulators are persistable vars initialized in the startup program; the
+update ops of `ops/optimizer_ops.py` run in the same Executor.run as the
+backward pass.
 
 Not ported yet: the dygraph branch of `minimize`, the train_stats
 telemetry tap (which leaves the program unchanged when no logger is
 installed), regularization and gradient clipping (passing either raises),
-and the other optimizers (Momentum, AdamW, Lamb, ...).
+and the other optimizers (LarsMomentum, AdamW, Lamb, ...).
 """
 
 from __future__ import annotations
@@ -21,8 +22,9 @@ from .framework.core import (Parameter, Program, Variable,
                              default_startup_program, unique_name)
 from .framework.backward import append_backward
 
-__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Adam", "AdamOptimizer",
-           "Lamb", "LambOptimizer"]
+__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
+           "MomentumOptimizer", "Adam", "AdamOptimizer", "Lamb",
+           "LambOptimizer"]
 
 
 class Optimizer:
@@ -137,6 +139,26 @@ class SGDOptimizer(Optimizer):
             {"ParamOut": [p.name]}, infer_shape=False)
 
 
+class MomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, p, startup):
+        self._add_accumulator("velocity", p, startup)
+
+    def _append_optimize_op(self, block, p, g, lr):
+        v = self._accumulators["velocity"][p.name]
+        return block.append_op(
+            "momentum",
+            {"Param": [p.name], "Grad": [g.name], "Velocity": [v.name],
+             "LearningRate": [lr.name]},
+            {"ParamOut": [p.name], "VelocityOut": [v.name]},
+            {"mu": self._momentum, "use_nesterov": self._use_nesterov},
+            infer_shape=False)
+
+
 class _AdamLike(Optimizer):
     op_type = "adam"
 
@@ -185,5 +207,6 @@ class LambOptimizer(Optimizer):
 
 
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer
 Lamb = LambOptimizer

@@ -1,9 +1,9 @@
-"""Where the time of a GPT-2 small inference request, or of a GPT-2 small
-or BERT-base train step, goes, on one CUDA card.
+"""Where the time of a GPT-2 small inference request, or of a GPT-2 small,
+BERT-base or ResNet-50 train step, goes, on one CUDA card.
 
     python3 -m paddle_tpu_torch.tools.profile_gpt [--seed N] [--iters N]
-    python3 -m paddle_tpu_torch.tools.profile_gpt --train [--model bert]
-        [--seed N] [--iters N]
+    python3 -m paddle_tpu_torch.tools.profile_gpt --train
+        [--model gpt|bert|resnet50] [--seed N] [--iters N]
 
 Builds GPT-2 small (GPTConfig()) with the port's DSL, initializes it on
 CUDAPlace(0), prunes it to the logits as save_inference_model does, and
@@ -27,17 +27,19 @@ dropout 0.1) at the two shapes of chip_smoke.py's train phase (with
 --model bert: the BERT-base MLM pretrain step with the bf16 AMP rewrite,
 bert_pretrain_program(amp=True), at s=512 b=16 on the fused attention path
 with each row's last 10-40 % padded, and at bench.py's s=128 b=128 on the
-einsum path, dropout 0.1 at both): the median
-step wall time, and a torch.profiler trace of a few steps with the device
-time by kernel group (matmul, flash forward, flash backward, the forward
-replays of the generic torch.func.vjp grads, Adam, elementwise, ...), by
-op type, and the device's idle share. Each op runs inside a
-record_function range (and a generic grad's replay of its forward inside
-a nested one), and a kernel is charged to the range its launch fell in.
+einsum path, dropout 0.1 at both; with --model resnet50: bench_resnet50's
+step, ResNet-50 at batch 128, 224x224, NCHW, Momentum(0.1, 0.9) with the
+bf16 AMP rewrite): the median step wall time, and a torch.profiler trace of
+a few steps with the device time by kernel group (matmul, cuDNN conv
+forward and backward, flash forward, flash backward, the forward replays of
+the generic torch.func.vjp grads, batch_norm, ReLU, pooling, the optimizer,
+elementwise, ...), by op type, and the device's idle share. Each op runs
+inside a record_function range (and a generic grad's replay of its forward
+inside a nested one), and a kernel is charged to the range its launch fell
+in.
 
 Prints one JSON line per measurement and writes chiprun_out/profile_gpt.json
-(profile_gpt_train.json with --train, profile_bert_train.json with --train
---model bert). Device numbers come only from a
+(profile_<model>_train.json with --train). Device numbers come only from a
 card: without one it exits non-zero.
 """
 
@@ -56,10 +58,16 @@ def _emit(obj, sink):
     print(json.dumps(obj), flush=True)
 
 
+_CONV_KERNELS = ("conv", "cudnn", "fprop", "dgrad", "wgrad", "winograd",
+                 "implicit_gemm", "implicit_convolve")
+
+
 def _group(name: str) -> str:
     n = name.lower()
     if "flash_fwd_kernel" in n or "flash_small_fwd_kernel" in n:
         return "flash attention (ours)"
+    if any(k in n for k in _CONV_KERNELS):
+        return "conv (cuDNN)"
     if "memcpy" in n and "dtoh" in n:
         return "memcpy DtoH (logits)"
     if "memcpy" in n or "memset" in n:
@@ -106,6 +114,28 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_time_ms(fn, iters=20, warmup=3):
+    """Mean device time, in ms, of the kernels one call of `fn` launches,
+    from a torch.profiler trace: the kernel's own time where the host's
+    launch path takes longer than the kernel, so that `time_ms` measures
+    the host."""
+    import torch
+    from torch.autograd import DeviceType
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device events")
+    return sum(e.time_range.end - e.time_range.start
+               for e in kernels) / iters / 1e3
 
 
 def profile_requests(seed, iters, sink):
@@ -255,11 +285,21 @@ def _train_group(kernel: str, op: str, replay: bool) -> str:
         return "flash forward (ours)"
     if replay:
         return "generic-vjp forward replay"
+    if op == "conv2d":
+        return "conv forward (cuDNN)"
+    if op == "conv2d_grad":
+        return "conv backward (cuDNN)"
     g = _group(kernel)
     if g.startswith("matmul"):
         return g
-    if op == "adam":
-        return "adam"
+    if op in ("adam", "momentum"):
+        return op
+    if op in ("batch_norm", "batch_norm_grad"):
+        return "batch_norm (fwd+grad)"
+    if op in ("relu", "relu_grad"):
+        return "relu (fwd+grad)"
+    if op in ("pool2d", "pool2d_grad"):
+        return "pool2d (fwd+grad)"
     if op in ("cast", "cast_grad"):
         return "AMP casts (fwd+grad)"
     if op.startswith("softmax_with_cross_entropy"):
@@ -360,8 +400,17 @@ def _attribute(events):
 
 
 def _train_cells(model, rng):
-    """(label, seq, batch, program builder, feed) of each train cell."""
+    """(label, seq, batch, program builder, feed) of each train cell; seq is
+    None for an image model."""
     import numpy as np
+    if model == "resnet50":
+        from paddle_tpu_torch.tools import bench_resnet50 as bench
+
+        def build():
+            main, startup, loss, _ = bench.build_program(amp=True)
+            return main, startup, {"loss": loss}
+        return [("resnet50 b128 224 NCHW amp momentum", None, 128, build,
+                 bench.feed(rng, 128))]
     if model == "gpt":
         from paddle_tpu_torch.models.gpt import GPTConfig, gpt_lm_program
         cfg = GPTConfig()
@@ -410,6 +459,7 @@ def profile_train(seed, iters, sink, model="gpt"):
             return out
 
         step()                                           # warm-up
+        torch.cuda.reset_peak_memory_stats()
         ts = []
         for _ in range(iters):
             t = time.perf_counter()
@@ -419,11 +469,14 @@ def profile_train(seed, iters, sink, model="gpt"):
         n_generic = sum(1 for op in main.global_block.ops
                         if op.type.endswith("_grad")
                         and _generic_grad(op.type))
+        med = sorted(ts)[len(ts) // 2]
+        rate = ({"img_per_s": batch / (med / 1e3)} if seq is None
+                else {"tokens_per_s": batch * seq / (med / 1e3)})
         _emit({"phase": "train_step", "cell": label, "seq": seq,
-               "batch": batch, "median_step_ms": sorted(ts)[len(ts) // 2],
-               "step_ms": ts, "ops": n_ops, "generic_vjp_grad_ops": n_generic,
-               "tokens_per_s": batch * seq / (sorted(ts)[len(ts) // 2]
-                                              / 1e3)}, sink)
+               "batch": batch, "median_step_ms": med, "step_ms": ts,
+               "ops": n_ops, "generic_vjp_grad_ops": n_generic,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               **rate}, sink)
 
         with _OpRanges(), torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU,
@@ -477,8 +530,10 @@ def main():
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--train", action="store_true",
                     help="profile the train step instead of inference")
-    ap.add_argument("--model", choices=("gpt", "bert"), default="gpt",
-                    help="with --train: GPT-2 small, or BERT-base with AMP")
+    ap.add_argument("--model", choices=("gpt", "bert", "resnet50"),
+                    default="gpt",
+                    help="with --train: GPT-2 small, BERT-base with AMP, or "
+                         "ResNet-50 at bench_resnet50's shape")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -492,8 +547,11 @@ def main():
                           text=True, timeout=60).stdout.strip()
     sink = []
     _emit({"phase": "setup", "card": card, "torch": torch.__version__}, sink)
-    from paddle_tpu_torch.ops import cuda_build
-    cuda_build.build_all()
+    if not (args.train and args.model == "resnet50"):
+        # the GPT and BERT paths launch the flash kernels; no hand-written
+        # kernel runs on the ResNet-50 path
+        from paddle_tpu_torch.ops import cuda_build
+        cuda_build.build_all()
     if args.train:
         profile_train(args.seed, args.iters, sink, args.model)
     else:

@@ -35,14 +35,14 @@ over the H100's 3.35 TB/s.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import functools
 import json
 import os
 import subprocess
 import sys
 
 import torch
+
+from ..ops.cuda_build import launch, on_cuda
 
 __all__ = ["EPS", "residual_ln_fwd", "residual_ln_bwd",
            "residual_ln_fwd_plain", "residual_ln_bwd_plain", "fused_ln",
@@ -93,16 +93,6 @@ def residual_ln_bwd_plain(x, r, scale, mu, rstd, g):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
-def _kernel_fn(name: str, n_ptrs: int, n_ints: int):
-    from ..ops.cuda_build import load_library
-    fn = getattr(load_library(name), f"{name}_launch")
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _check_rows(name, x, others):
     """x: (M, H) contiguous f32/bf16 on CUDA; `others` ({name: tensor}) the
     same dtype, shape and device."""
@@ -137,28 +127,11 @@ def _vector(name, tn, t, h, device):
     return t.reshape(h).to(torch.float32).contiguous()
 
 
-def _on_device(name, x):
-    """True for CUDA tensors (launch the kernel), False for CPU ones (the
-    plain version); anything else raises."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {x.device}")
-    return True
-
-
 def _run(name, tensors, ints):
     """Launch kernel `name` on checked inputs and allocated outputs, in the
     argument order of its .cu, on the current stream, and count the
     launch. The wrappers and the kernel-alone timing both launch here."""
-    fn = _kernel_fn(name, len(tensors), len(ints))
-    device = tensors[0].device
-    with torch.cuda.device(device):
-        err = fn(*[t.data_ptr() for t in tensors], *ints,
-                 torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with cudaError "
-                           f"{err} (ints {ints})")
+    launch(name, tensors, ints)
     _WRAPPERS[name].launches += 1
 
 
@@ -208,7 +181,7 @@ def residual_ln_fwd(x, r, scale, bias):
     """out = LN(x + r) * scale + bias (replaces `fwd_kernel`). x, r: (M, H)
     f32 or bf16; scale, bias: H values. Returns (out in x's dtype, mu,
     rstd (M, 1) f32)."""
-    if not _on_device("residual_ln_fwd", x):
+    if not on_cuda("residual_ln_fwd", x):
         return residual_ln_fwd_plain(x, r, scale, bias)
     tensors, ints = _fwd_args(x, r, scale, bias)
     _run("residual_ln_fwd", tensors, ints)
@@ -219,7 +192,7 @@ def residual_ln_bwd(x, r, scale, mu, rstd, g):
     """Recompute-backward (replaces `bwd_kernel`). x, r, g: (M, H); scale:
     H values; mu, rstd: (M, 1) f32. Returns (ds in x's dtype, dscale (H,)
     f32, dbias (H,) f32); ds is the gradient of both x and r."""
-    if not _on_device("residual_ln_bwd", x):
+    if not on_cuda("residual_ln_bwd", x):
         return residual_ln_bwd_plain(x, r, scale, mu, rstd, g)
     tensors, ints = _bwd_args(x, r, scale, mu, rstd, g)
     _run("residual_ln_bwd", tensors, ints)
