@@ -15,6 +15,17 @@ namespace flash {
 // masked still gives a finite answer (paddle_tpu _NEG_INF = -1e30).
 constexpr float kNeg = -1e30f;
 
+// The masked score of the tensor-core kernels: scale, then the per-key add
+// (bias, or 0), then the causal mask (row < col), in the plain version's
+// order and with no contraction into an FMA, so that every pass over a
+// score computes the same value.
+__device__ __forceinline__ float masked_score(float s, float scale,
+                                              float add, int row, int col,
+                                              int causal) {
+  const float x = __fadd_rn(__fmul_rn(s, scale), add);
+  return (causal && row < col) ? kNeg : x;
+}
+
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }

@@ -26,8 +26,8 @@ import threading
 import time
 from typing import Dict, List
 
-__all__ = ["KERNEL_SOURCES", "build_all", "load_library", "nvcc_path",
-           "on_cuda", "launch"]
+__all__ = ["KERNEL_SOURCES", "build_all", "library_path", "load_library",
+           "nvcc_path", "on_cuda", "launch"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
@@ -66,9 +66,9 @@ def nvcc_path() -> str:
     return found
 
 
-def _target(name: str) -> str:
-    """Library path keyed by the source, every shared header and the
-    flags."""
+def library_path(name: str) -> str:
+    """Where kernel library `name` is (or will be) built: a path keyed by
+    the source, every shared header and the flags."""
     h = hashlib.sha256()
     headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
     for fname in [KERNEL_SOURCES[name]] + headers:
@@ -91,7 +91,7 @@ def build_all(names=None) -> Dict[str, float]:
     os.makedirs(_BUILD, exist_ok=True)
     procs = {}
     for name in names:
-        out = _target(name)
+        out = library_path(name)
         if os.path.exists(out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
@@ -127,7 +127,7 @@ def load_library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            out = _target(name)
+            out = library_path(name)
             if not os.path.exists(out):
                 build_all([name])
             lib = ctypes.CDLL(out)

@@ -126,13 +126,14 @@ def flash_fwd_plain(q, k, v, bias=None, causal=False, sm_scale=1.0,
 
 def flash_small_fwd_plain(q, k, v, bias=None, causal=False, sm_scale=1.0):
     """The single-pass kernel's function: exact softmax over whole score
-    rows (row max, then exp-sum), then P.V. Same arguments and returns as
-    `flash_fwd_plain`."""
+    rows (row max, then exp-sum), then P.V with the normalised P = p / l
+    rounded to v's dtype first, as the JAX kernel does (:272; a no-op in
+    fp32). Same arguments and returns as `flash_fwd_plain`."""
     s = _masked_scores(q, k, bias, causal, sm_scale)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
     l = p.sum(dim=-1)
-    o = torch.matmul(p, v.float()) / l[..., None]
+    o = torch.matmul((p / l[..., None]).to(v.dtype).float(), v.float())
     return o.to(q.dtype), m + torch.log(l)
 
 
@@ -325,8 +326,9 @@ def flash_small_fwd(q, k, v, bias=None, causal=False, sm_scale=1.0):
         return flash_small_fwd_plain(q, k, v, bias, causal, sm_scale)
     _no_kernel("flash_small_fwd", q)
     if k.shape[1] > 2048:
-        raise ValueError("flash_small_fwd: sk > 2048 does not fit the "
-                         "kernel's shared-memory score rows")
+        raise ValueError("flash_small_fwd: sk > 2048 is past the "
+                         "single-pass kernel's range; flash_fwd takes "
+                         "long sequences")
     out = _launch_fwd("flash_small_fwd", q, k, v, bias, causal, sm_scale)
     flash_small_fwd.launches += 1
     return out

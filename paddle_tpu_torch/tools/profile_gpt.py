@@ -46,6 +46,7 @@ card: without one it exits non-zero.
 import argparse
 import json
 import os
+import re
 import sys
 import time
 
@@ -491,12 +492,15 @@ def profile_train(seed, iters, sink, model="gpt"):
                    "device_time": "not measured (the profiler recorded no "
                                   "device events)"}, sink)
             continue
-        by_group, by_op, other = {}, {}, {}
+        by_group, by_op, other, flash = {}, {}, {}, {}
         for k in kernels:
             us = k.time_range.end - k.time_range.start
             op, replay = where[id(k)]
             g = _train_group(k.name, op, replay)
             by_group[g] = by_group.get(g, 0.0) + us
+            if g.startswith("flash"):
+                name = re.search(r"flash_\w+", k.name).group(0)
+                flash[name] = flash.get(name, 0.0) + us
             key = op + (" (replay)" if replay else "")
             by_op[key] = by_op.get(key, 0.0) + us
             if g == "other":
@@ -510,6 +514,8 @@ def profile_train(seed, iters, sink, model="gpt"):
                "device_ms_per_step_by_group": {
                    k: v / 2e3 for k, v in sorted(by_group.items(),
                                                  key=lambda kv: -kv[1])},
+               "flash_kernels_ms_per_step": {
+                   k: v / 2e3 for k, v in sorted(flash.items())},
                "device_ms_per_step_by_op": {
                    k: v / 2e3 for k, v in sorted(
                        by_op.items(), key=lambda kv: -kv[1])[:16]},
