@@ -12,7 +12,10 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 static shared memory, spills), and the HGMMA (wgmma)
                 instructions in the two single-pass libraries' SASS
                 (cuobjdump -sass), which must be nonzero: their bf16
-                paths run on the tensor cores;
+                paths run on the tensor cores; likewise the HMMA
+                (mma.sync) instructions of each tensor-core kernel of the
+                tiled backward pair (flash_bwd_dkv_kernel_tc,
+                flash_bwd_dq_kernel_tc), with their registers and spills;
   2. kernels -- each kernel against its plain PyTorch version on the card:
                 fp32 and bf16, causal or not, with and without a per-key
                 bias, head dims from 4 to 256 (the kernels pad d to a
@@ -23,8 +26,10 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 at head dims 24, 40 and 96 must launch a kernel, and at 264
                 (no kernel build) must raise, not run the plain path. Then
                 the three backward kernels over the same kinds of cases
-                (dQ, dK, dV and the bias grad db), each case launched twice
-                and required to give the same bits. Then the two residual +
+                and GPT-2's main-path shape (24, 1024, 64, fp32, causal,
+                with and without a bias) (dQ, dK, dV and the bias grad db),
+                each case launched twice and required to give the same
+                bits. Then the two residual +
                 LayerNorm kernels, fp32 and bf16, H 200/768/1024, M
                 1/1000/16384, random or unit scale and bias, and bf16 at
                 the spike's other shapes (8192 and 131072 rows of 768), the
@@ -104,7 +109,14 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 (67 TFLOP/s fp32 non-tensor, 989.4 TFLOP/s bf16), bytes
                 / 3.35 TB/s) of an H100 SXM (NVIDIA's data sheet); the two
                 single-pass flash kernels also at BERT's shape, bf16 with a
-                bias, and the conv + BN kernels at all five spike shapes.
+                bias, the tiled forward also in bf16, and the conv + BN
+                kernels at all five spike shapes. The tiled backward pair's
+                rows add its blocks, blocks an SM and waves, and, where its
+                fp32 body runs on the tensor cores, bound_tc_ms (three TF32
+                products a product at 495 TFLOP/s); then one row for the
+                whole tiled backward (_flash_bwd: delta, the layout copies
+                and both kernels) beside SDPA's backward on the same inputs
+                and the kernels that SDPA runs.
 
 The line before the last is the {"kernels": [...]} summary; the last line is
 {"ok": true, "device": {...}}. Full results go to chiprun_out/chip_smoke.json.
@@ -130,6 +142,7 @@ WORK_DIR = os.path.join(HERE, "_smoke_work")   # saved models, removed at exit
 # whatever the kernel itself runs on.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989.4e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 # Kernel vs plain version. Both compute in f32 from the same inputs and
@@ -142,7 +155,10 @@ PEAK_BYTES = 3.35e12
 # sum of such steps times |V| (tie_slack), zero for the ~99 % of P values
 # that are not near a tie, and zero in fp32. The kernels phase reads the
 # kernel's rounded P and fails if a P rounded apart lay further than
-# TIE_REL from its tie (_p_flips).
+# TIE_REL from its tie (_p_flips). The tiled forward rounds the
+# unnormalised p = exp(s - m) of each reference-sized k-block, likewise;
+# its bf16 O gets the same allowance, each step rescaled as its block's
+# accumulator is and divided by l (tie_slack_tiled).
 FP32_TOL = 2e-5
 BF16_ULP = 2.0 ** -7
 TIE_REL = 2.0 ** -16
@@ -334,16 +350,32 @@ def _ptxas_summary(log):
     return out
 
 
-def _hgmma_count(lib):
-    """HGMMA (wgmma) instructions in a built library's SASS, by
+def _tensor_core_counts(lib):
+    """{kernel tag: {"HGMMA": n, "HMMA": m}}: the tensor-core instructions
+    (wgmma and mma.sync) of each kernel in a built library's SASS, by
     cuobjdump -sass."""
+    import re
     from paddle_tpu_torch.ops import cuda_build
     tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
     r = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
                        timeout=300)
     if r.returncode != 0:
         fail(f"cuobjdump -sass {lib} failed: {r.stderr.strip()}")
-    return sum(1 for ln in r.stdout.splitlines() if "HGMMA" in ln)
+    out, cur = {}, None
+    for ln in r.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = out.setdefault(_kernel_tag(m.group(1)),
+                                 {"HGMMA": 0, "HMMA": 0})
+        elif cur is not None:
+            for op in ("HGMMA", "HMMA"):
+                cur[op] += bool(re.search(rf"\b{op}\b", ln))
+    return out
+
+
+def _hgmma_count(lib):
+    """HGMMA (wgmma) instructions in a built library's SASS."""
+    return sum(c["HGMMA"] for c in _tensor_core_counts(lib).values())
 
 
 def phase_build():
@@ -370,8 +402,20 @@ def phase_build():
     for n, c in hgmma.items():
         if c == 0:
             fail(f"{n}'s library holds no HGMMA instruction")
+    # the tiled backward pair's fp32 bodies run on the tensor cores
+    # (mma.sync, HMMA): each of their _tc kernels must hold some
+    tc = {}
+    for n in ("flash_bwd_dkv", "flash_bwd_dq"):
+        counts = _tensor_core_counts(cuda_build.library_path(n))
+        tc[n] = {tag: c for tag, c in counts.items() if "_kernel_tc" in tag}
+        emit({"phase": "build", "kernel": n, "tensor_core_instructions":
+              tc[n], "ptxas": {tag: ln for tag, ln in ptxas.get(n, {})
+                               .items() if "_kernel_tc" in tag}})
+        if not tc[n] or any(c["HMMA"] == 0 for c in tc[n].values()):
+            fail(f"{n}'s tensor-core kernels hold no HMMA instruction: "
+                 f"{tc[n]}")
     return {"wall_s": wall, "per_source_s": took, "ptxas": ptxas,
-            "hgmma": hgmma}
+            "hgmma": hgmma, "bwd_tensor_core_instructions": tc}
 
 
 # ---------------------------------------------------------------------------
@@ -428,6 +472,40 @@ def tie_slack(q, k, v, bias=None, causal=False, sm=1.0):
     return torch.matmul(step, v.float().abs())
 
 
+def tie_slack_tiled(q, k, v, bias=None, causal=False, sm=1.0):
+    """tie_slack for the tiled forward (flash_fwd_plain, as the reference's
+    `_fwd_kernel`): there the unnormalised p = exp(s - m) of each k-block
+    (fwd_block_k keys, m the running max up to that block) is rounded to
+    v's dtype, and the accumulator is rescaled as m grows. A p within
+    TIE_REL of a tie may round apart by one step, which moves O by that
+    step times |V|, rescaled as the accumulator is and divided by l.
+    (bn, sq, d) f32; zero in fp32."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    if v.dtype == torch.float32:
+        return torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    sq, sk = q.shape[1], k.shape[1]
+    bk = fa.fwd_block_k(sk)
+    m = torch.full(q.shape[:2], -1e30, device=q.device)
+    l = torch.zeros(q.shape[:2], device=q.device)
+    slack = torch.zeros(q.shape, device=q.device)
+    nk = -(-sk // bk)
+    if causal:
+        nk = min(nk, (sq - 1) // bk + 1)
+    for k0 in range(0, nk * bk, bk):
+        s = fa._masked_scores(q, k[:, k0:k0 + bk], bias, causal, sm, 0, k0)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        step = ((p * (1 + TIE_REL)).to(v.dtype).float()
+                - (p * (1 - TIE_REL)).to(v.dtype).float())
+        l = l * alpha + p.sum(dim=-1)
+        slack = slack * alpha[..., None] + torch.matmul(
+            step, v[:, k0:k0 + bk].float().abs())
+        m = m_new
+    return slack / torch.where(l == 0.0, torch.ones_like(l), l)[..., None]
+
+
 def _p_flips(q, k, bias, causal, sm):
     """The bf16 single-pass kernel's rounded P against the plain
     version's. With V the one-hot columns of d keys, O = P.V is those
@@ -465,10 +543,12 @@ def _p_flips(q, k, bias, causal, sm):
 
 
 def _compare(kernel, plain, q, k, v, bias, causal, sm):
-    """(ok, max |dO|, max |dlse|, O's rtol, tie): tie (single-pass
-    forward, bf16; else None) holds the O elements that needed the tie
-    allowance, the largest such |dO| past the strict bound as a fraction
-    of that bound, and _p_flips' reading of the kernel's P."""
+    """(ok, max |dO|, max |dlse|, O's rtol, tie): tie (bf16; else None)
+    holds the O elements that needed the tie allowance, the largest such
+    |dO| past the strict bound as a fraction of that bound, and, for the
+    single-pass forward, _p_flips' reading of the kernel's P (the tiled
+    forward rescales its rounded p afterwards, so O does not give it
+    back)."""
     import torch
     from paddle_tpu_torch.ops import flash_attention as fa
     o, lse = kernel(q, k, v, bias, causal, sm)
@@ -480,14 +560,17 @@ def _compare(kernel, plain, q, k, v, bias, causal, sm):
     err_l = (lse - lse_ref).abs().max().item()
     bound = FP32_TOL + o_rtol * orf.abs()
     tie, p_ok = None, True
-    if plain is fa.flash_small_fwd_plain and q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16:
         excess = ((of - orf).abs() - bound).clamp_min(0) / bound
-        flips, worst, p_ok = _p_flips(q, k, bias, causal, sm)
         tie = {"o_elements": int((excess > 0).sum()),
-               "o_excess_of_bound": excess.max().item(),
-               "p_flips": flips, "p_flip_max_tie_rel": worst,
-               "p_flips_within_tie_rel": p_ok}
+               "o_excess_of_bound": excess.max().item()}
+    if plain is fa.flash_small_fwd_plain and q.dtype == torch.bfloat16:
+        flips, worst, p_ok = _p_flips(q, k, bias, causal, sm)
+        tie.update({"p_flips": flips, "p_flip_max_tie_rel": worst,
+                    "p_flips_within_tie_rel": p_ok})
         bound = bound + tie_slack(q, k, v, bias, causal, sm)
+    elif plain is fa.flash_fwd_plain and q.dtype == torch.bfloat16:
+        bound = bound + tie_slack_tiled(q, k, v, bias, causal, sm)
     ok = (bool(torch.isfinite(of).all()) and bool(torch.isfinite(lse).all())
           and bool(((of - orf).abs() <= bound).all())
           and bool(((lse - lse_ref).abs()
@@ -626,6 +709,9 @@ def phase_bwd_kernels(seed):
                     for causal, bias in ((False, False), (True, True)):
                         cases.append((name, 4, s, s, d, dtype, causal, bias))
     for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        # GPT-2's main-path shape (b2 x 12 heads, s1024, d64, fp32, causal)
+        cases += [(name, 24, 1024, 1024, 64, torch.float32, True, False),
+                  (name, 24, 1024, 1024, 64, torch.float32, True, True)]
         cases += [(name, 8, 512, 1024, 64, torch.float32, True, False),
                   (name, 8, 1024, 512, 64, torch.float32, True, True),
                   (name, 4, 1000, 1000, 64, torch.float32, True, True),
@@ -1675,7 +1761,7 @@ def _resnet_timed(exe, seed, rng):
     startup.random_seed = main.random_seed = seed
     scope = ptt.Scope()
     exe.run(startup, scope=scope)
-    feed = bench.feed(rng, 128)
+    feed = bench.to_device(bench.feed(rng, 128))   # on the card once
     _bert_steps(exe, main, {"loss": loss}, scope, [feed], [])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1781,7 +1867,12 @@ def _bound(name, bn, sq, sk, d, causal, elem, bias=False):
     at the peak of the operands' type, against its inputs read once and
     outputs written once (with a bias,
     its f32 (b*n, sk) read, and the bias grad written by the backward
-    kernels that own keys)."""
+    kernels that own keys). This stays the bound of fp32 work at the FMA
+    rate also where a kernel runs it on the tensor cores: flash_bwd_dkv
+    and flash_bwd_dq at d <= 64 take each fp32 product as three TF32
+    products of split operands, and their times rows give beside it
+    bound_tc_ms (_bound_tc), so that no row reads above 100 % of a bound
+    its kernel no longer has."""
     flop_mult, q_io, k_io = {
         # (FLOPs per pair and column, (b*n, sq, d) tensors moved,
         #  (b*n, sk, d) tensors moved); every kernel also reads or writes
@@ -1801,14 +1892,31 @@ def _bound(name, bn, sq, sk, d, causal, elem, bias=False):
                                        else "bytes"), flops, nbytes
 
 
-def _sdpa_bwd_ms(q, k, v, do, n, causal=True, bias=None):
-    """The backward alone of F.scaled_dot_product_attention on the same
-    (b*n, s, d) inputs (with a per-key bias as its additive mask), through
-    torch.autograd.grad: a yardstick only, the port never calls it. It
-    computes dQ, dK and dV together."""
+def _bound_tc(flops):
+    """Least time (ms) of fp32 FLOPs run as three TF32 tensor-core products
+    each (hi.hi + hi.lo + lo.hi), at the H100's 495 TFLOP/s TF32 peak."""
+    return 3 * flops / PEAK_TF32_FLOPS * 1e3
+
+
+def _waves(name, bn, sq, sk, d, dtype):
+    """(blocks an SM holds, whether the body is the tensor-core one, blocks,
+    waves = blocks / (blocks an SM holds x SMs)) of a tiled backward
+    kernel's launch, as its library reports them."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    per_sm, tensor_cores = fa.bwd_body(name, d, dtype)
+    blocks = bn * -(-(sk if name == "flash_bwd_dkv" else sq) // 64)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return per_sm, tensor_cores, blocks, blocks / (per_sm * sms)
+
+
+def _sdpa_bwd(q, k, v, do, n, causal=True, bias=None):
+    """A call of the backward alone of F.scaled_dot_product_attention on the
+    same (b*n, s, d) inputs (with a per-key bias as its additive mask),
+    through torch.autograd.grad: a yardstick only, the port never calls it.
+    It computes dQ, dK and dV together."""
     import torch
     import torch.nn.functional as F
-    from paddle_tpu_torch.tools.profile_gpt import time_ms
     bn, s, d = q.shape
     q4, k4, v4 = (t.detach().view(bn // n, n, s, d).requires_grad_()
                   for t in (q, k, v))
@@ -1816,8 +1924,32 @@ def _sdpa_bwd_ms(q, k, v, do, n, causal=True, bias=None):
     out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
                                          is_causal=causal)
     do4 = do.view(bn // n, n, s, d)
-    return time_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), do4,
-                                               retain_graph=True))
+    return lambda: torch.autograd.grad(out, (q4, k4, v4), do4,
+                                       retain_graph=True)
+
+
+def _sdpa_bwd_ms(q, k, v, do, n, causal=True, bias=None):
+    from paddle_tpu_torch.tools.profile_gpt import time_ms
+    return time_ms(_sdpa_bwd(q, k, v, do, n, causal, bias))
+
+
+def _kernel_names(fn):
+    """{kernel name: device ms} of one call of `fn`, from a torch.profiler
+    trace: which kernels a library call runs."""
+    import torch
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+    return out
 
 
 def _sdpa_mask(bias, n):
@@ -1828,19 +1960,25 @@ def _sdpa_mask(bias, n):
 
 def _flash_rows(serve, train, bert, seed):
     """The five flash kernels at their GPT main-path shapes (fp32, causal),
-    then the two single-pass ones at BERT's (bf16, per-key bias)."""
+    then the two single-pass ones at BERT's (bf16, per-key bias) and the
+    tiled forward at GPT's in bf16."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.tools.profile_gpt import time_ms
     n, d = serve["heads"], serve["head_dim"]
     sm = d ** -0.5
-    rows = []
-    cases = [(name, train["shapes"][name], torch.float32, True, False)
+    rows, pair = [], {}
+    # (kernel, shape, dtype, causal, bias, a row of the kernels line)
+    cases = [(name, train["shapes"][name], torch.float32, True, False, True)
              for name in FLASH_KERNELS]
-    cases += [(name, bert["shapes"][name], torch.bfloat16, False, True)
-              for name in ("flash_small_fwd", "flash_small_bwd")]
-    for name, (bn, s), dtype, causal, with_bias in cases:
+    cases += [(name, bert["shapes"][name], torch.bfloat16, False, True,
+               False) for name in ("flash_small_fwd", "flash_small_bwd")]
+    # the tiled forward in bf16 at GPT's shape: its two-pass walk at the
+    # reference's rounding point (no model runs it)
+    cases += [("flash_fwd", train["shapes"]["flash_fwd"], torch.bfloat16,
+               True, False, False)]
+    for name, (bn, s), dtype, causal, with_bias, in_line in cases:
         kernel = getattr(fa, name)
         plain = getattr(fa, name + "_plain")
         b = bn // n
@@ -1869,24 +2007,69 @@ def _flash_rows(serve, train, bert, seed):
             with_bias)
         launches = train["launches"][name] + serve["launches"].get(name, 0) \
             + bert["launches"][name]
+        extra = {}
+        if name in ("flash_bwd_dkv", "flash_bwd_dq"):
+            per_sm, tensor_cores, blocks, waves = _waves(name, bn, s, s,
+                                                         d, dtype)
+            extra = {"blocks_per_sm": per_sm, "blocks": blocks,
+                     "waves": waves, "tensor_cores": tensor_cores}
+            if extra["tensor_cores"]:
+                extra["bound_tc_ms"] = _bound_tc(flops)
+            pair[name] = (ms, bound_ms, extra.get("bound_tc_ms"), args)
         emit({"phase": "time", "kernel": name, "bn": bn, "sq": s, "sk": s,
               "d": d, "dtype": str(dtype).split(".")[-1], "causal": causal,
               "bias": with_bias, "flops": flops, "bytes": nbytes, "ms": ms,
               "plain_ms": plain_ms, "library_ms": lib_ms,
-              "bound_ms": bound_ms, "bound_by": bound_by,
+              "bound_ms": bound_ms, "bound_by": bound_by, **extra,
               "launches_serve": serve["launches"].get(name, 0),
               "launches_train": train["launches"][name],
               "launches_bert": bert["launches"][name],
               "tflops_per_s": flops / (ms * 1e-3) / 1e12})
-        if with_bias:
-            continue   # the kernels line keeps the GPT shapes' rows
+        if not in_line:
+            continue   # the kernels line keeps the GPT shapes' fp32 rows
         rows.append({"name": name, "route": "cuda",
                      "source": KERNELS[name]["source"],
                      "replaces": KERNELS[name]["replaces"],
                      "launches": launches, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib_ms})
+    _whole_bwd_row(pair, n, sm)
     return rows
+
+
+def _whole_bwd_row(pair, n, sm):
+    """The whole tiled backward as the GPT train step runs it,
+    `_flash_bwd` (delta = rowsum(dO * O), the layout copies to and from
+    (b*n, s, d), flash_bwd_dkv and flash_bwd_dq), on the inputs of the two
+    kernels' rows in GPT's (b, s, n, d) layout, beside the backward alone
+    of scaled_dot_product_attention on the same inputs (with the kernels it
+    runs, by a profiler trace: whether the yardstick is on the tensor
+    cores) and the two kernels' times from their rows."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.tools.profile_gpt import time_ms
+    (dkv_ms, dkv_b, dkv_tc, args), (dq_ms, dq_b, dq_tc, _) = \
+        pair["flash_bwd_dkv"], pair["flash_bwd_dq"]
+    q, k, v, bias, do, lse, _ = args
+    bn, s, d = q.shape
+    b = bn // n
+    o, _ = fa.flash_small_fwd_plain(q, k, v, bias, True, sm)
+    to4 = lambda x: x.view(b, n, s, d).permute(0, 2, 1, 3).contiguous()
+    q4, k4, v4, o4, do4 = (to4(x) for x in (q, k, v, o, do))
+    ms = time_ms(lambda: fa._flash_bwd(q4, k4, v4, None, o4, lse, do4, True,
+                                       sm))
+    call = _sdpa_bwd(q, k, v, do, n, True, bias)
+    sdpa = time_ms(call)
+    rec = {"phase": "time", "kernel": "tiled backward (_flash_bwd)",
+           "b": b, "s": s, "n": n, "d": d, "dtype": "float32",
+           "causal": True, "ms": ms, "kernels_ms": dkv_ms + dq_ms,
+           "flash_bwd_dkv_ms": dkv_ms, "flash_bwd_dq_ms": dq_ms,
+           "library_ms": sdpa, "pair_vs_library": (dkv_ms + dq_ms) / sdpa,
+           "whole_vs_library": ms / sdpa, "bound_ms": dkv_b + dq_b,
+           "bound_by": "operations", "library_kernels": _kernel_names(call)}
+    if dkv_tc is not None and dq_tc is not None:
+        rec["bound_tc_ms"] = dkv_tc + dq_tc
+    emit(rec)
 
 
 # FLOPs a value of the residual + LayerNorm kernels: forward add, sum,

@@ -3,7 +3,9 @@
 // Replaces the TPU kernel `_fwd_kernel` of paddle_tpu/ops/flash_attention.py
 // (launched by `_flash_call`). Same function: for each (b*n) row and query
 // row, O = softmax(scale * q.K^T + bias, causal/kv_len masks) . V and the
-// row log-sum-exp, with scores, running max/sum and the accumulator in f32.
+// row log-sum-exp, with scores, running max/sum and the accumulator in f32;
+// in bf16 each k-block's unnormalised p is rounded to bf16 before P.V at
+// the reference's block size and rounding point (flash_fwd_body.cuh).
 //
 // Layout: q (bn, sq, d), k/v (bn, sk, d), row-major, fp32 or bf16; bias
 // (bn, sk) f32 per-key additive, or null; O (bn, sq, d) in the input type;

@@ -6,7 +6,18 @@
 // rows x DP/16 columns, a 4 x 4 score micro-tile per k-tile, P transposed
 // through shared memory for P.V). Causal runs stop at the last tile that
 // touches the diagonal. flash_fwd.cu's note gives the bound and design.
+//
+// bf16 follows the reference's rounding point: `_fwd_kernel` steps its
+// running max over k-blocks of `_pick_blocks` keys and rounds each block's
+// unnormalised p = exp(s - m) to bf16 before P.V, summing l from the f32 p
+// (JAX flash_attention.py:106-111). So in bf16 each such block is walked
+// twice as 64-key tiles: the first pass takes the block's row max, the
+// second recomputes S, adds p to l, rounds it and multiplies by V (6 FLOP
+// a pair and column instead of 4). fp32, where the rounding is a no-op,
+// keeps the one-pass online softmax over 64-key tiles.
 #pragma once
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 
@@ -16,6 +27,64 @@ namespace tiled {
 constexpr int BQ = 64;   // query rows per block
 constexpr int BK = 64;   // keys per k-tile
 constexpr int NT = 256;  // 16 row groups (4 rows) x 16 column groups
+
+// Keys of one step of the reference's running max (`_pick_blocks`, JAX
+// :420-423): all of sk up to 512, else 512 where it divides sk, else 128.
+__device__ __forceinline__ int ref_block_keys(int sk) {
+  return sk <= 512 ? sk : (sk % 512 == 0 ? 512 : 128);
+}
+
+// s[r][c] = q row (rg*4 + r) . k row (cg + 16 c) over DP columns of the
+// staged tiles (row stride DP + 4).
+template <int DP>
+__device__ __forceinline__ void score_tile(float (&s)[4][4], const float* qs,
+                                           const float* ks, int rg, int cg) {
+  constexpr int LD = DP + 4;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
+#pragma unroll 4
+  for (int i = 0; i < DP; i += 4) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[r] = *reinterpret_cast<const float4*>(qs + (rg * 4 + r) * LD + i);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      b[c] = *reinterpret_cast<const float4*>(ks + (cg + 16 * c) * LD + i);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float x = s[r][c];
+        x = fmaf(a[r].x, b[c].x, x);
+        x = fmaf(a[r].y, b[c].y, x);
+        x = fmaf(a[r].z, b[c].z, x);
+        x = fmaf(a[r].w, b[c].w, x);
+        s[r][c] = x;
+      }
+  }
+}
+
+// The masked scores of the bf16 two-pass walk: scale, per-key bias, kv
+// length and causal masks, with no contraction into an FMA, so that both
+// passes over a tile compute the same values.
+__device__ __forceinline__ void mask_tile(float (&s)[4][4],
+                                          const float* brow, int q0, int k0,
+                                          int rg, int cg, int sk, int causal,
+                                          float sm_scale) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = k0 + cg + 16 * c;
+      const float b = (brow != nullptr && col < sk) ? brow[col] : 0.f;
+      s[r][c] = col < sk ? masked_score(s[r][c], sm_scale, b, q0 + rg * 4 + r,
+                                        col, causal)
+                         : kNeg;
+    }
+}
 
 // The body of a __global__ kernel of NT threads. Each library that runs it
 // wraps it in a kernel of its own name (flash_fwd_kernel,
@@ -58,78 +127,8 @@ __device__ __forceinline__ void fwd_body(
   int nk = (sk + BK - 1) / BK;
   if (causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);  // skip tiles above the diagonal
 
-  for (int t = 0; t < nk; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile's K/V/P are no longer read
-    load_rows<BK, DP, NT>(ks, k + koff, k0, sk, d, tid);
-    load_rows<BK, DP, NT>(vs, v + koff, k0, sk, d, tid);
-    __syncthreads();
-
-    // S = q . k^T for 4 rows x 4 columns
-    float s[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-#pragma unroll 4
-    for (int i = 0; i < DP; i += 4) {
-      float4 a[4], b[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        a[r] = *reinterpret_cast<const float4*>(qs + (rg * 4 + r) * LD + i);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        b[c] = *reinterpret_cast<const float4*>(ks + (cg + 16 * c) * LD + i);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          float x = s[r][c];
-          x = fmaf(a[r].x, b[c].x, x);
-          x = fmaf(a[r].y, b[c].y, x);
-          x = fmaf(a[r].z, b[c].z, x);
-          x = fmaf(a[r].w, b[c].w, x);
-          s[r][c] = x;
-        }
-    }
-
-    // scale, bias, masks, then the online-softmax update of each row
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = q0 + rg * 4 + r;
-      float mx = kNeg;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = k0 + cg + 16 * c;
-        float x = s[r][c] * sm_scale;
-        if (brow != nullptr && col < sk) x += brow[col];
-        if (col >= sk) x = kNeg;
-        if (causal && row < col) x = kNeg;
-        s[r][c] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = max16(mx);
-      const float m_new = fmaxf(m[r], mx);
-      const float alpha = expf(m[r] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[r][c] = expf(s[r][c] - m_new);
-        rs += s[r][c];
-      }
-      rs = sum16(rs);
-      l[r] = l[r] * alpha + rs;
-      m[r] = m_new;
-#pragma unroll
-      for (int j = 0; j < OC::CPT; ++j) acc[r][j] *= alpha;
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      *reinterpret_cast<float4*>(ps + (cg + 16 * c) * LP + rg * 4) =
-          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
-    __syncthreads();
-
-    // acc += P . V
+  // acc += P . V over the keys of the staged V tile, P transposed in ps
+  auto accumulate_pv = [&]() {
 #pragma unroll 4
     for (int j = 0; j < BK; ++j) {
       const float4 p = *reinterpret_cast<const float4*>(ps + j * LP + rg * 4);
@@ -153,6 +152,115 @@ __device__ __forceinline__ void fwd_body(
           acc[3][j2] = fmaf(p.w, vv[e], acc[3][j2]);
         }
       }
+    }
+  };
+
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // two passes over each reference k-block of gk 64-key tiles
+    const int gk = (ref_block_keys(sk) + BK - 1) / BK;
+    for (int g0 = 0; g0 < nk; g0 += gk) {
+      const int g1 = min(g0 + gk, nk);
+      float mb[4] = {kNeg, kNeg, kNeg, kNeg};
+      for (int t = g0; t < g1; ++t) {
+        const int k0 = t * BK;
+        __syncthreads();  // the previous tile's K/V/P are no longer read
+        load_rows<BK, DP, NT>(ks, k + koff, k0, sk, d, tid);
+        __syncthreads();
+        float s[4][4];
+        score_tile<DP>(s, qs, ks, rg, cg);
+        mask_tile(s, brow, q0, k0, rg, cg, sk, causal, sm_scale);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) mb[r] = fmaxf(mb[r], s[r][c]);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float m_new = fmaxf(m[r], max16(mb[r]));
+        const float alpha = expf(m[r] - m_new);
+        l[r] *= alpha;
+        m[r] = m_new;
+#pragma unroll
+        for (int j = 0; j < OC::CPT; ++j) acc[r][j] *= alpha;
+      }
+      for (int t = g0; t < g1; ++t) {
+        const int k0 = t * BK;
+        __syncthreads();
+        load_rows<BK, DP, NT>(ks, k + koff, k0, sk, d, tid);
+        load_rows<BK, DP, NT>(vs, v + koff, k0, sk, d, tid);
+        __syncthreads();
+        float s[4][4];
+        score_tile<DP>(s, qs, ks, rg, cg);
+        mask_tile(s, brow, q0, k0, rg, cg, sk, causal, sm_scale);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float rs = 0.f;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float p = expf(s[r][c] - m[r]);
+            rs += p;  // l sums the f32 p
+            s[r][c] = __bfloat162float(__float2bfloat16_rn(p));
+          }
+          l[r] += sum16(rs);
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          *reinterpret_cast<float4*>(ps + (cg + 16 * c) * LP + rg * 4) =
+              make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
+        __syncthreads();
+        accumulate_pv();
+      }
+    }
+  } else {
+    // fp32: one pass, online softmax over 64-key tiles
+    for (int t = 0; t < nk; ++t) {
+      const int k0 = t * BK;
+      __syncthreads();  // the previous tile's K/V/P are no longer read
+      load_rows<BK, DP, NT>(ks, k + koff, k0, sk, d, tid);
+      load_rows<BK, DP, NT>(vs, v + koff, k0, sk, d, tid);
+      __syncthreads();
+
+      // S = q . k^T for 4 rows x 4 columns
+      float s[4][4];
+      score_tile<DP>(s, qs, ks, rg, cg);
+
+      // scale, bias, masks, then the online-softmax update of each row
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = q0 + rg * 4 + r;
+        float mx = kNeg;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int col = k0 + cg + 16 * c;
+          float x = s[r][c] * sm_scale;
+          if (brow != nullptr && col < sk) x += brow[col];
+          if (col >= sk) x = kNeg;
+          if (causal && row < col) x = kNeg;
+          s[r][c] = x;
+          mx = fmaxf(mx, x);
+        }
+        mx = max16(mx);
+        const float m_new = fmaxf(m[r], mx);
+        const float alpha = expf(m[r] - m_new);
+        float rs = 0.f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[r][c] = expf(s[r][c] - m_new);
+          rs += s[r][c];
+        }
+        rs = sum16(rs);
+        l[r] = l[r] * alpha + rs;
+        m[r] = m_new;
+#pragma unroll
+        for (int j = 0; j < OC::CPT; ++j) acc[r][j] *= alpha;
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        *reinterpret_cast<float4*>(ps + (cg + 16 * c) * LP + rg * 4) =
+            make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
+      __syncthreads();
+
+      accumulate_pv();
     }
   }
 

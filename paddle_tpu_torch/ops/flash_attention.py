@@ -48,11 +48,10 @@ __all__ = ["attention", "attention_fwd_lse", "attention_bwd_saved",
            "flash_fwd", "flash_small_fwd", "flash_bwd_dkv", "flash_bwd_dq",
            "flash_small_bwd", "flash_fwd_plain", "flash_small_fwd_plain",
            "flash_bwd_dkv_plain", "flash_bwd_dq_plain",
-           "flash_small_bwd_plain"]
+           "flash_small_bwd_plain", "fwd_block_k", "bwd_body"]
 
 _NEG_INF = -1e30
 _KERNEL_MAX_HEAD_DIM = 256   # csrc/flash_common.cuh kMaxHeadDim
-_BLOCK_K = 64                # flash_fwd's k-tile (csrc BK)
 _BWD_TILE = 64               # rows a backward block owns (csrc kBwdOwn)
 
 
@@ -95,15 +94,28 @@ def _masked_scores(q, k, bias, causal, sm_scale, q0=0, k0=0):
     return s
 
 
-def flash_fwd_plain(q, k, v, bias=None, causal=False, sm_scale=1.0,
-                    block_k: int = _BLOCK_K):
-    """The tiled kernel's function, written as its arithmetic: an online
-    softmax over k-tiles of `block_k` keys with running max m, sum l and an
-    f32 accumulator; tiles strictly above the causal diagonal are skipped.
-    q: (bn, sq, d); k/v: (bn, sk, d); bias: (bn, sk) f32 or None.
-    Returns (o (bn, sq, d) in q's dtype, lse (bn, sq) f32)."""
+def fwd_block_k(sk: int) -> int:
+    """Keys of one step of the reference's tiled forward: `_pick_blocks`'s
+    rule (JAX :420-423), all of sk up to 512 keys, 512 where that divides
+    sk, else 128. The running
+    max, and so the value at which p is rounded to v's dtype, steps at these
+    blocks; the kernel (csrc/flash_fwd_body.cuh) reads the same rule."""
+    b = min(512, sk)
+    return b if sk % b == 0 else 128
+
+
+def flash_fwd_plain(q, k, v, bias=None, causal=False, sm_scale=1.0):
+    """The tiled kernel's function, written as the reference's arithmetic
+    (`_fwd_kernel`, :106-111): an online softmax over k-blocks of
+    `fwd_block_k(sk)` keys with running max m, sum l and an f32
+    accumulator; each block's p = exp(s - m_new) is summed into l in f32
+    and rounded to v's dtype before P.V (a no-op in fp32); blocks strictly
+    above the causal diagonal are skipped. q: (bn, sq, d); k/v: (bn, sk,
+    d); bias: (bn, sk) f32 or None. Returns (o (bn, sq, d) in q's dtype,
+    lse (bn, sq) f32)."""
     bn, sq, d = q.shape
     sk = k.shape[1]
+    block_k = fwd_block_k(sk)
     m = torch.full((bn, sq), _NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((bn, sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((bn, sq, d), dtype=torch.float32, device=q.device)
@@ -118,7 +130,8 @@ def flash_fwd_plain(q, k, v, bias=None, causal=False, sm_scale=1.0,
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
         l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.matmul(p, vt.float())
+        acc = acc * alpha[..., None] + torch.matmul(p.to(v.dtype).float(),
+                                                    vt.float())
         m = m_new
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
     return (acc / l_safe[..., None]).to(q.dtype), m + torch.log(l_safe)
@@ -390,6 +403,25 @@ def flash_small_bwd(q, k, v, bias, do, lse, delta, causal=False,
             (do, lse, delta) + outs, causal, sm_scale)
     flash_small_bwd.launches += 1
     return outs
+
+
+def bwd_body(name: str, d: int, dtype):
+    """(blocks an SM holds, tensor cores) of the kernel that `name`
+    ("flash_bwd_dkv" or "flash_bwd_dq") launches at head dim d and dtype on
+    the current card: the blocks from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor, and whether the library
+    picks its tensor-core body (csrc/flash_bwd_tc.cuh) rather than the FMA
+    body of csrc/flash_bwd_common.cuh. Both come from the library, which
+    alone holds the rule."""
+    from .cuda_build import load_library
+    fn = getattr(load_library(name), f"{name}_blocks_per_sm")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    tensor_cores = ctypes.c_int(-1)
+    n = fn(d, int(dtype == torch.bfloat16), ctypes.byref(tensor_cores))
+    if n <= 0:
+        raise RuntimeError(f"{name}: occupancy query failed ({n})")
+    return n, bool(tensor_cores.value)
 
 
 flash_fwd.launches = 0

@@ -442,10 +442,12 @@ def profile_train(seed, iters, sink, model="gpt"):
     import numpy as np
     import torch
     import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.tools.bench_resnet50 import to_device
 
     exe = ptt.Executor(ptt.CUDAPlace(0))
     rng = np.random.RandomState(seed)
     for label, seq, batch, build, feed in _train_cells(model, rng):
+        feed = to_device(feed)   # on the card once, as the benchmarks do
         with ptt.unique_name_guard():
             main, startup, fetch = build()
         startup.random_seed = main.random_seed = seed

@@ -60,3 +60,18 @@ def test_kernel_names_are_unique_and_headers_define_none():
             assert f.endswith(".cu"), (f, n)
             assert n not in seen, (n, f, seen.get(n))
             seen[n] = f
+
+
+@pytest.mark.parametrize("src", ("flash_bwd_dkv.cu", "flash_bwd_dq.cu"))
+def test_tensor_core_backward_kernels_are_counted(src):
+    """The tiled backward pair's tensor-core kernels (`<library>_kernel_tc`)
+    sit beside the FMA ones, land in the flash backward group, and keep
+    their own name in the per-kernel flash breakdown."""
+    lib = src[:-len(".cu")]
+    names = _kernels(src)
+    assert f"{lib}_kernel" in names and f"{lib}_kernel_tc" in names
+    sym = (f"void (anonymous namespace)::{lib}_kernel_tc<64>(float const*, "
+           "float const*, int, float)")
+    assert profile_gpt._train_group(sym, "fused_attention_grad", False) \
+        == "flash backward (ours)"
+    assert re.search(r"flash_\w+", sym).group(0) == f"{lib}_kernel_tc"
