@@ -15,15 +15,20 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 paths run on the tensor cores; likewise the HMMA
                 (mma.sync) instructions of each tensor-core kernel of the
                 tiled backward pair (flash_bwd_dkv_kernel_tc,
-                flash_bwd_dq_kernel_tc), with their registers and spills;
+                flash_bwd_dq_kernel_tc) and of the tiled forward's fp32
+                body (flash_fwd_kernel_tc), and the HGMMA instructions of
+                its bf16 body (flash_fwd_kernel_wgmma), with their
+                registers and spills;
   2. kernels -- each kernel against its plain PyTorch version on the card:
                 fp32 and bf16, causal or not, with and without a per-key
                 bias, head dims from 4 to 256 (the kernels pad d to a
                 multiple of 16), sq != sk and ragged lengths, and the
                 single-pass pair at BERT-base's exact shape (192, 512, 64,
                 bf16, the padding mask as the bias); one JSON line
-                per case. Then attention_fwd_lse with the default dispatch
-                at head dims 24, 40 and 96 must launch a kernel, and at 264
+                per case, each flash_fwd case naming the body its library
+                launched and launched twice more for the same bits. Then
+                attention_fwd_lse with the default dispatch at head dims
+                24, 40 and 96 must launch a kernel, and at 264
                 (no kernel build) must raise, not run the plain path. Then
                 the three backward kernels over the same kinds of cases
                 and GPT-2's main-path shape (24, 1024, 64, fp32, causal,
@@ -59,7 +64,14 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 the shape 12 times a step, the others never. Held against
                 the attn_impl="xla" program run from a copy of the same
                 scope: losses, step-1 gradients and the parameters after 3
-                steps, to the tolerances stated below;
+                steps, to the tolerances stated below. Then GPT-2 small
+                at s=1024 b=2 under the bf16 AMP rewrite (dropout 0): 3
+                Adam steps of the flash program (the bf16 flash_fwd on
+                wgmma, 12 launches a step, and the tiled backward pair)
+                against the plain-attention AMP program, with the BERT AMP
+                run's checks: losses, the parameters after 3 steps, and
+                step-1 gradients against the fp32 flash program's from the
+                same values and feed;
   5. bert    -- BERT-base (BertConfig(): vocab 30522, hidden 768, 12
                 layers, 12 heads, ffn 3072) MLM pretrain steps through
                 Executor.run on CUDAPlace(0). Held run at s=512 b=16 with
@@ -110,13 +122,17 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 / 3.35 TB/s) of an H100 SXM (NVIDIA's data sheet); the two
                 single-pass flash kernels also at BERT's shape, bf16 with a
                 bias, the tiled forward also in bf16, and the conv + BN
-                kernels at all five spike shapes. The tiled backward pair's
-                rows add its blocks, blocks an SM and waves, and, where its
-                fp32 body runs on the tensor cores, bound_tc_ms (three TF32
-                products a product at 495 TFLOP/s); then one row for the
-                whole tiled backward (_flash_bwd: delta, the layout copies
-                and both kernels) beside SDPA's backward on the same inputs
-                and the kernels that SDPA runs.
+                kernels at all five spike shapes. The rows of the tiled
+                forward and backward pair add their blocks, blocks an SM
+                and waves, and, where an fp32 body runs on the tensor
+                cores, bound_tc_ms (three TF32 products a product at 495
+                TFLOP/s); the tiled forward's rows (fp32 and bf16) also
+                name the body that ran and give their own and SDPA's
+                forward device time (a profiler trace; SDPA's kernel
+                names too) beside the CUDA-event times; then one row for
+                the whole tiled backward (_flash_bwd: delta, the layout
+                copies and both kernels) beside SDPA's backward on the same
+                inputs and the kernels that SDPA runs.
 
 The line before the last is the {"kernels": [...]} summary; the last line is
 {"ok": true, "device": {...}}. Full results go to chiprun_out/chip_smoke.json.
@@ -402,20 +418,27 @@ def phase_build():
     for n, c in hgmma.items():
         if c == 0:
             fail(f"{n}'s library holds no HGMMA instruction")
-    # the tiled backward pair's fp32 bodies run on the tensor cores
-    # (mma.sync, HMMA): each of their _tc kernels must hold some
+    # the tiled pair's fp32 bodies and the tiled forward's fp32 body run on
+    # the tensor cores (mma.sync, HMMA): each of their _tc kernels must hold
+    # some; the tiled forward's bf16 body (_kernel_wgmma) must hold HGMMA
     tc = {}
-    for n in ("flash_bwd_dkv", "flash_bwd_dq"):
+    for n, want in (("flash_bwd_dkv", {"_kernel_tc": "HMMA"}),
+                    ("flash_bwd_dq", {"_kernel_tc": "HMMA"}),
+                    ("flash_fwd", {"_kernel_tc": "HMMA",
+                                   "_kernel_wgmma": "HGMMA"})):
         counts = _tensor_core_counts(cuda_build.library_path(n))
-        tc[n] = {tag: c for tag, c in counts.items() if "_kernel_tc" in tag}
+        tc[n] = {tag: c for tag, c in counts.items()
+                 if any(f"{s}<" in tag for s in want)}
         emit({"phase": "build", "kernel": n, "tensor_core_instructions":
-              tc[n], "ptxas": {tag: ln for tag, ln in ptxas.get(n, {})
-                               .items() if "_kernel_tc" in tag}})
-        if not tc[n] or any(c["HMMA"] == 0 for c in tc[n].values()):
-            fail(f"{n}'s tensor-core kernels hold no HMMA instruction: "
-                 f"{tc[n]}")
+              tc[n], "ptxas": {tag: ptxas.get(n, {}).get(tag)
+                               for tag in tc[n]}})
+        for s, op in want.items():
+            mine = {tag: c for tag, c in tc[n].items() if f"{s}<" in tag}
+            if not mine or any(c[op] == 0 for c in mine.values()):
+                fail(f"{n}'s tensor-core kernels *{s} hold no {op} "
+                     f"instruction: {mine}")
     return {"wall_s": wall, "per_source_s": took, "ptxas": ptxas,
-            "hgmma": hgmma, "bwd_tensor_core_instructions": tc}
+            "hgmma": hgmma, "tensor_core_instructions": tc}
 
 
 # ---------------------------------------------------------------------------
@@ -579,6 +602,20 @@ def _compare(kernel, plain, q, k, v, bias, causal, sm):
     return ok, err_o, err_l, o_rtol, tie
 
 
+def fwd_body_name(d, dtype):
+    """The kernel flash_fwd's library launches at head dim d and dtype:
+    flash_fwd_kernel_tc (fp32, split TF32 on mma.sync),
+    flash_fwd_kernel_wgmma (bf16 on wgmma) or flash_fwd_kernel (the FMA
+    body), as the library reports it."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    _, tensor_cores = fa.tiled_body("flash_fwd", d, dtype)
+    if not tensor_cores:
+        return "flash_fwd_kernel"
+    return ("flash_fwd_kernel_tc" if dtype == torch.float32
+            else "flash_fwd_kernel_wgmma")
+
+
 def phase_kernels(seed):
     import torch
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -630,6 +667,14 @@ def phase_kernels(seed):
                "max_abs_err_o": err_o, "max_abs_err_lse": err_l,
                "atol": FP32_TOL, "o_rtol": o_rtol, "lse_rtol": FP32_TOL,
                "tie": tie, "ok": ok}
+        if name == "flash_fwd":
+            # the body the library picked, and a rerun for the same bits
+            rec["body"] = fwd_body_name(d, dtype)
+            o1, l1 = kernel(q, k, v, bias, causal, d ** -0.5)
+            o2, l2 = kernel(q, k, v, bias, causal, d ** -0.5)
+            rec["rerun_bitwise"] = bool(torch.equal(o1, o2)
+                                        and torch.equal(l1, l2))
+            ok = rec["ok"] = ok and rec["rerun_bitwise"]
         emit(rec)
         results.append(rec)
         if not ok:
@@ -1268,12 +1313,129 @@ def phase_train(seed):
                  f"{param_diff} > {PARAM_TOL} after {TRAIN_STEPS} steps")
         del g1, rg1, scope, ref_scope
         torch.cuda.empty_cache()
+    amp = _gpt_amp(exe, seed, rng)
+    summaries.append(amp["summary"])
     for n in names:
+        launches[n] += amp["launches"][n]
         if launches[n] == 0:
             fail(f"kernel {n} was not launched on the train path")
     return {"summaries": summaries, "launches": launches,
+            "launches_amp": amp["launches"],
             "shapes": {n: (batch * cfg.heads, seq)
                        for seq, batch, knames in shapes for n in knames}}
+
+
+def _gpt_amp(exe, seed, rng):
+    """GPT-2 small at s=1024 b=2 under the bf16 AMP rewrite, dropout 0,
+    with the BERT AMP run's checks and tolerances: 3 Adam steps of the
+    flash program (the bf16 flash_fwd and the tiled backward pair, 12
+    launches each a step) against the plain-attention AMP program from a
+    copy of the same scope (losses to BERT_AMP_LOSS_RTOL, parameters after
+    3 steps to 2 * lr * 3); step-1 gradients against the exact ones, the
+    fp32 flash program's from the same values and feed, to
+    BERT_AMP_GRAD_RTOL * max |g| + GRAD_ATOL (the plain AMP program's
+    beside them, for the record)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models.gpt import GPTConfig, gpt_lm_program
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    seq, batch = 1024, 2
+    cfg = GPTConfig(dropout=0.0)
+    names = FLASH_KERNELS
+    t0 = time.perf_counter()
+    progs = {}
+    for key, impl, amp in (("flash", "fused", True), ("plain", "xla", True),
+                           ("fp32", "fused", False)):
+        with ptt.unique_name_guard():
+            progs[key] = gpt_lm_program(
+                GPTConfig(attn_impl=impl, dropout=0.0), seq,
+                learning_rate=TRAIN_LR, amp=amp)
+    main, startup, fetch = progs["flash"]
+    attn_dtypes = {main.global_block.var(op.input("Q")[0]).dtype
+                   for op in main.global_block.ops
+                   if op.type == "fused_attention"}
+    if attn_dtypes != {"bfloat16"}:
+        fail(f"gpt amp: fused_attention takes {attn_dtypes}, not bfloat16")
+    startup.random_seed = seed
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope)
+    ref_scope, exact_scope = _clone_scope(scope), _clone_scope(scope)
+    params = [p.name for p in main.global_block.all_parameters()]
+    grads = [p + "@GRAD" for p in params]
+    feeds = [{"tokens": rng.randint(0, cfg.vocab_size, (batch, seq))
+              .astype("int64")} for _ in range(TRAIN_STEPS)]
+    # the exact step-1 gradients: the fp32 flash program, same values, feed
+    fmain, _, ffetch = progs["fp32"]
+    _, _, exact = _bert_steps(exe, fmain, ffetch, exact_scope, feeds[:1],
+                              grads)
+    exact = {n: g.clone() for n, g in exact.items()}
+    del exact_scope
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    for n in names:
+        getattr(fa, n).launches = 0
+    # ---- the main path: counts zeroed just before, read just after ----
+    losses, step_ms, g1 = _bert_steps(exe, main, fetch, scope, feeds, grads)
+    delta = {n: getattr(fa, n).launches for n in names}
+    # -------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    want = {n: TRAIN_STEPS * cfg.layers if n in ("flash_fwd", "flash_bwd_dkv",
+                                                 "flash_bwd_dq") else 0
+            for n in names}
+    if delta != want:
+        fail(f"gpt amp s={seq} b={batch} launched {delta}, expected {want}")
+
+    rmain, _, rfetch = progs["plain"]
+    ref_losses, ref_ms, rg1 = _bert_steps(exe, rmain, rfetch, ref_scope,
+                                          feeds, grads)
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    param_diff, param_worst = max(
+        ((scope.find_var(n) - ref_scope.find_var(n)).abs().max().item(), n)
+        for n in params)
+    param_tol = 2 * TRAIN_LR * TRAIN_STEPS + 1e-6
+    ratio, var, diff, tol = _grad_worst(g1, exact, BERT_AMP_GRAD_RTOL)
+    rratio, rvar, rdiff, rtol_ = _grad_worst(rg1, exact, BERT_AMP_GRAD_RTOL)
+    # the key biases' exact gradient is 0 (softmax is invariant to a
+    # per-row constant): what the two programs give there is their noise
+    kb = {n: g for n, g in exact.items() if n.endswith("/k.b@GRAD")}
+    kb_worst = [_grad_worst(g, kb, BERT_AMP_GRAD_RTOL)[:2] for g in (g1, rg1)]
+    med = sorted(step_ms)[len(step_ms) // 2]
+    rec = {"phase": "train", "model": "gpt2-small", "seq": seq,
+           "batch": batch, "amp": True, "attn_dtype": "bfloat16",
+           "optimizer": "adam", "lr": TRAIN_LR, "dropout": 0.0,
+           "steps": TRAIN_STEPS, "setup_s": setup_s, "step_ms": step_ms,
+           "median_step_ms": med, "tokens_per_s": batch * seq / (med / 1e3),
+           "max_memory_allocated": peak, "launches": delta,
+           "losses": losses, "plain_losses": ref_losses,
+           "plain_step_ms": ref_ms, "loss_rel_diff": loss_rel,
+           "loss_rtol": BERT_AMP_LOSS_RTOL, "grad_rtol": BERT_AMP_GRAD_RTOL,
+           "grad_atol": GRAD_ATOL, "grad_against": "fp32 flash run",
+           "grad_worst": {"var": var, "max_abs_diff": diff, "tol": tol,
+                          "ratio": ratio},
+           "plain_grad_worst": {"var": rvar, "max_abs_diff": rdiff,
+                                "tol": rtol_, "ratio": rratio},
+           "key_bias_grad_worst": {"flash": kb_worst[0],
+                                   "plain": kb_worst[1]},
+           "param_max_abs_diff": param_diff, "param_worst": param_worst,
+           "param_tol": param_tol}
+    emit(rec)
+    if not all(np.isfinite(losses + ref_losses)) \
+            or max(loss_rel) > BERT_AMP_LOSS_RTOL:
+        fail(f"gpt amp: losses {losses} vs the plain-attention AMP "
+             f"program's {ref_losses}")
+    if ratio > 1.0:
+        fail(f"gpt amp: step-1 gradient {var} differs by {diff} > {tol} "
+             "from the fp32 run's")
+    if param_diff > param_tol:
+        fail(f"gpt amp: parameter {param_worst} differs by {param_diff} "
+             f"after {TRAIN_STEPS} steps")
+    del g1, rg1, exact, scope, ref_scope, progs
+    torch.cuda.empty_cache()
+    return {"summary": rec, "launches": delta}
 
 
 # ---------------------------------------------------------------------------
@@ -1899,13 +2061,17 @@ def _bound_tc(flops):
 
 
 def _waves(name, bn, sq, sk, d, dtype):
-    """(blocks an SM holds, whether the body is the tensor-core one, blocks,
-    waves = blocks / (blocks an SM holds x SMs)) of a tiled backward
-    kernel's launch, as its library reports them."""
+    """(blocks an SM holds, whether the body is a tensor-core one, blocks,
+    waves = blocks / (blocks an SM holds x SMs)) of a launch of the tiled
+    forward or of a tiled backward kernel, as its library reports them (a
+    block owns 64 query rows or keys; 128 query rows in the bf16 forward
+    on wgmma)."""
     import torch
     from paddle_tpu_torch.ops import flash_attention as fa
-    per_sm, tensor_cores = fa.bwd_body(name, d, dtype)
-    blocks = bn * -(-(sk if name == "flash_bwd_dkv" else sq) // 64)
+    per_sm, tensor_cores = fa.tiled_body(name, d, dtype)
+    rows = 128 if (name == "flash_fwd" and tensor_cores
+                   and dtype == torch.bfloat16) else 64
+    blocks = bn * -(-(sk if name == "flash_bwd_dkv" else sq) // rows)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return per_sm, tensor_cores, blocks, blocks / (per_sm * sms)
 
@@ -1965,7 +2131,7 @@ def _flash_rows(serve, train, bert, seed):
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import flash_attention as fa
-    from paddle_tpu_torch.tools.profile_gpt import time_ms
+    from paddle_tpu_torch.tools.profile_gpt import device_time_ms, time_ms
     n, d = serve["heads"], serve["head_dim"]
     sm = d ** -0.5
     rows, pair = [], {}
@@ -1975,7 +2141,7 @@ def _flash_rows(serve, train, bert, seed):
     cases += [(name, bert["shapes"][name], torch.bfloat16, False, True,
                False) for name in ("flash_small_fwd", "flash_small_bwd")]
     # the tiled forward in bf16 at GPT's shape: its two-pass walk at the
-    # reference's rounding point (no model runs it)
+    # reference's rounding point (GPT-2's AMP train step runs it)
     cases += [("flash_fwd", train["shapes"]["flash_fwd"], torch.bfloat16,
                True, False, False)]
     for name, (bn, s), dtype, causal, with_bias, in_line in cases:
@@ -1990,8 +2156,9 @@ def _flash_rows(serve, train, bert, seed):
             args = (q, k, v, bias)
             q4, k4, v4 = (t.view(b, n, s, d) for t in (q, k, v))
             mask = None if bias is None else _sdpa_mask(bias, n).to(dtype)
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, attn_mask=mask, is_causal=causal))
+            sdpa = lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask, is_causal=causal)
+            lib_ms = time_ms(sdpa)
         else:
             args = _bwd_inputs(bn, s, s, d, dtype, with_bias, causal, seed)
             ok, err, _ = _compare_bwd(name, args, causal, sm)
@@ -2008,13 +2175,24 @@ def _flash_rows(serve, train, bert, seed):
         launches = train["launches"][name] + serve["launches"].get(name, 0) \
             + bert["launches"][name]
         extra = {}
-        if name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        if name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
             per_sm, tensor_cores, blocks, waves = _waves(name, bn, s, s,
                                                          d, dtype)
             extra = {"blocks_per_sm": per_sm, "blocks": blocks,
                      "waves": waves, "tensor_cores": tensor_cores}
-            if extra["tensor_cores"]:
+            if extra["tensor_cores"] and dtype == torch.float32:
                 extra["bound_tc_ms"] = _bound_tc(flops)
+        if name == "flash_fwd":
+            # device times too: the CUDA-event times of SDPA's forward moved
+            # 10-35 % between calls on slow hosts, and where the wrapper's
+            # host path takes longer than the kernel they measure the host
+            lib_kernels = _kernel_names(sdpa)
+            extra.update({"body": fwd_body_name(d, dtype),
+                          "device_ms": device_time_ms(
+                              lambda: kernel(*args, causal, sm)),
+                          "library_device_ms": sum(lib_kernels.values()),
+                          "library_kernels": lib_kernels})
+        if name in ("flash_bwd_dkv", "flash_bwd_dq"):
             pair[name] = (ms, bound_ms, extra.get("bound_tc_ms"), args)
         emit({"phase": "time", "kernel": name, "bn": bn, "sq": s, "sk": s,
               "d": d, "dtype": str(dtype).split(".")[-1], "causal": causal,
@@ -2023,6 +2201,7 @@ def _flash_rows(serve, train, bert, seed):
               "bound_ms": bound_ms, "bound_by": bound_by, **extra,
               "launches_serve": serve["launches"].get(name, 0),
               "launches_train": train["launches"][name],
+              "launches_train_amp": train["launches_amp"][name],
               "launches_bert": bert["launches"][name],
               "tflops_per_s": flops / (ms * 1e-3) / 1e12})
         if not in_line:

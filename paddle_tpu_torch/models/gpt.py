@@ -8,9 +8,9 @@ causal=True, which dispatches to the Hopper flash kernels on CUDA
 (flash_fwd at s >= 640, flash_small_fwd at 256 <= s <= 512).
 
 `gpt_lm_program` builds the train step (is_test=False, the JAX default:
-append_backward + SGD or Adam) or the inference form (is_test=True). Not
-ported yet: amp=True, recompute=True, optimizer="lamb" (each raises) and
-`tp_shardings`.
+append_backward + SGD or Adam, amp=True for the bf16 AMP rewrite) or the
+inference form (is_test=True). Not ported yet: recompute=True,
+optimizer="lamb" (each raises) and `tp_shardings`.
 """
 
 from __future__ import annotations
@@ -103,11 +103,13 @@ def gpt_lm_program(cfg: GPTConfig, seq_len: int, is_test=False,
     """(main, startup, fetches) for a causal-LM step: next-token CE with
     the tied wte head, loss over positions 0..seq-2 predicting 1..seq-1.
     With is_test=False the backward and the optimizer (`optimizer`:
-    "adam" or "sgd") are appended. Fetches carry "loss" and "logits"."""
-    if amp or recompute or optimizer not in ("adam", "sgd"):
+    "adam" or "sgd") are appended; amp=True wraps the optimizer in the
+    bf16 AMP rewrite (contrib.mixed_precision.decorate), as the JAX
+    package does. Fetches carry "loss" and "logits"."""
+    if recompute or optimizer not in ("adam", "sgd"):
         raise NotImplementedError(
-            "gpt_lm_program: amp=True, recompute=True and optimizers other "
-            f"than adam/sgd (got {optimizer!r}) are not ported to "
+            "gpt_lm_program: recompute=True and optimizers other than "
+            f"adam/sgd (got {optimizer!r}) are not ported to "
             "paddle_tpu_torch yet")
     main, startup = pt.Program(), pt.Program()
     with pt.program_guard(main, startup):
@@ -125,6 +127,9 @@ def gpt_lm_program(cfg: GPTConfig, seq_len: int, is_test=False,
             opt = pt.optimizer.Adam(learning_rate)
         else:
             opt = pt.optimizer.SGD(learning_rate)
+        if amp:
+            from ..contrib.mixed_precision import decorate
+            opt = decorate(opt)
         if not is_test:
             opt.minimize(mean_loss)
     return main, startup, {"loss": mean_loss, "logits": logits}

@@ -110,4 +110,35 @@ constexpr int kMaxHeadDim = 256;
   X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128) X(144) X(160) X(176)    \
   X(192) X(208) X(224) X(240) X(256)
 
+// Kernel launch helpers of the flash libraries, whose launches pick one
+// of several bodies.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kern, size_t smem) {
+  return cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// Launches `kern` with `smem` bytes of dynamic shared memory; a cudaError_t.
+template <typename Kernel, typename... Args>
+inline int launch_kernel(Kernel kern, dim3 grid, int threads, size_t smem,
+                         cudaStream_t stream, Args... args) {
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, threads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// Blocks of `kern` that fit on one SM at `threads` threads and `smem`
+// bytes of dynamic shared memory (after allowing that much), or minus a
+// cudaError_t.
+template <typename Kernel>
+inline int blocks_per_sm(Kernel kern, int threads, size_t smem) {
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return -(int)err;
+  int n = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, threads,
+                                                      smem);
+  return err != cudaSuccess ? -(int)err : n;
+}
+
 }  // namespace flash

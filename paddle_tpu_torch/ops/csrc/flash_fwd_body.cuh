@@ -289,15 +289,21 @@ __device__ __forceinline__ void fwd_body(
   }
 }
 
+// Dynamic shared memory of fwd_body<T, DP>: the q, k and v tiles and the
+// transposed P tile, in f32.
+template <int DP>
+constexpr size_t smem_bytes() {
+  return (size_t)(BQ * (DP + 4) + 2 * BK * (DP + 4) + BK * (BQ + 4)) *
+         sizeof(float);
+}
+
 // Launches `kern`, a __global__ wrapper of fwd_body<T, DP>.
 template <typename T, int DP, typename Kernel>
 inline int launch_fwd(Kernel kern, const void* q, const void* k,
                       const void* v, const void* bias, void* o, void* lse,
                       int bn, int sq, int sk, int d, int causal,
                       float sm_scale, cudaStream_t stream) {
-  constexpr int LD = DP + 4;
-  const size_t smem =
-      (size_t)(BQ * LD + 2 * BK * LD + BK * (BQ + 4)) * sizeof(float);
+  const size_t smem = smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

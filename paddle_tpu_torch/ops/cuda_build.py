@@ -34,8 +34,9 @@ _BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 
 # kernel library name -> source file under csrc/ (the flash sources also
 # include shared bodies from csrc/*.cuh: flash_fwd_body.cuh, wgmma.cuh,
-# flash_bwd_common.cuh and, for the tiled backward pair's fp32 tensor-core
-# bodies, flash_bwd_tc.cuh; every header keys every library's path)
+# flash_bwd_common.cuh, and the tensor-core bodies of the tiled forward,
+# flash_fwd_tc.cuh, and of the tiled backward pair, flash_bwd_tc.cuh;
+# every header keys every library's path)
 KERNEL_SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "flash_small_fwd": "flash_small_fwd.cu",

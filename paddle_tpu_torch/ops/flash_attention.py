@@ -48,7 +48,7 @@ __all__ = ["attention", "attention_fwd_lse", "attention_bwd_saved",
            "flash_fwd", "flash_small_fwd", "flash_bwd_dkv", "flash_bwd_dq",
            "flash_small_bwd", "flash_fwd_plain", "flash_small_fwd_plain",
            "flash_bwd_dkv_plain", "flash_bwd_dq_plain",
-           "flash_small_bwd_plain", "fwd_block_k", "bwd_body"]
+           "flash_small_bwd_plain", "fwd_block_k", "tiled_body"]
 
 _NEG_INF = -1e30
 _KERNEL_MAX_HEAD_DIM = 256   # csrc/flash_common.cuh kMaxHeadDim
@@ -405,14 +405,15 @@ def flash_small_bwd(q, k, v, bias, do, lse, delta, causal=False,
     return outs
 
 
-def bwd_body(name: str, d: int, dtype):
+def tiled_body(name: str, d: int, dtype):
     """(blocks an SM holds, tensor cores) of the kernel that `name`
-    ("flash_bwd_dkv" or "flash_bwd_dq") launches at head dim d and dtype on
-    the current card: the blocks from
+    ("flash_fwd", "flash_bwd_dkv" or "flash_bwd_dq") launches at head dim d
+    and dtype on the current card: the blocks from
     cudaOccupancyMaxActiveBlocksPerMultiprocessor, and whether the library
-    picks its tensor-core body (csrc/flash_bwd_tc.cuh) rather than the FMA
-    body of csrc/flash_bwd_common.cuh. Both come from the library, which
-    alone holds the rule."""
+    picks a tensor-core body (csrc/flash_fwd_tc.cuh, csrc/flash_bwd_tc.cuh)
+    rather than the FMA body (csrc/flash_fwd_body.cuh,
+    csrc/flash_bwd_common.cuh). Both come from the library, which alone
+    holds the rule."""
     from .cuda_build import load_library
     fn = getattr(load_library(name), f"{name}_blocks_per_sm")
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]

@@ -178,8 +178,7 @@ def test_scope_tensors_are_ordinary_and_updated_by_rebinding(tmp_path):
     w2.add_(1.0)   # in place, outside the executor
 
 
-@pytest.mark.parametrize("kw", [{"amp": True}, {"recompute": True},
-                                {"optimizer": "lamb"}])
+@pytest.mark.parametrize("kw", [{"recompute": True}, {"optimizer": "lamb"}])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="not ported"):
         tgpt.gpt_lm_program(_cfg(tgpt.GPTConfig, "fused"), 256, **kw)

@@ -75,3 +75,21 @@ def test_tensor_core_backward_kernels_are_counted(src):
     assert profile_gpt._train_group(sym, "fused_attention_grad", False) \
         == "flash backward (ours)"
     assert re.search(r"flash_\w+", sym).group(0) == f"{lib}_kernel_tc"
+
+
+@pytest.mark.parametrize("kernel,args", [
+    ("flash_fwd_kernel_tc", "<64>(float const*, float const*, int, float)"),
+    ("flash_fwd_kernel_wgmma", "<64>(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, int, float)")])
+def test_tensor_core_forward_kernels_are_counted(kernel, args):
+    """The tiled forward's tensor-core kernels (fp32 split TF32,
+    `flash_fwd_kernel_tc`; bf16 wgmma, `flash_fwd_kernel_wgmma`) sit beside
+    the FMA one, land in the flash forward group of a train step and in
+    the flash attention group of a request, and keep their own name in the
+    per-kernel flash breakdown."""
+    assert {"flash_fwd_kernel", kernel} <= set(_kernels("flash_fwd.cu"))
+    sym = f"void (anonymous namespace)::{kernel}{args}"
+    assert profile_gpt._train_group(sym, "fused_attention", False) \
+        == "flash forward (ours)"
+    assert profile_gpt._group(sym) == "flash attention (ours)"
+    assert re.search(r"flash_\w+", sym).group(0) == kernel
