@@ -18,7 +18,10 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 flash_bwd_dq_kernel_tc) and of the tiled forward's fp32
                 body (flash_fwd_kernel_tc), and the HGMMA instructions of
                 its bf16 body (flash_fwd_kernel_wgmma), with their
-                registers and spills;
+                registers and spills; every conv_bn_stats_kernel<64|128>
+                must hold HGMMA too (the product on wgmma), and the
+                registers and spills of each conv_bn_stats and
+                residual_ln_bwd instantiation are printed;
   2. kernels -- each kernel against its plain PyTorch version on the card:
                 fp32 and bf16, causal or not, with and without a per-key
                 bias, head dims from 4 to 256 (the kernels pad d to a
@@ -36,15 +39,19 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 each case launched twice and required to give the same
                 bits. Then the two residual +
                 LayerNorm kernels, fp32 and bf16, H 200/768/1024, M
-                1/1000/16384, random or unit scale and bias, and bf16 at
-                the spike's other shapes (8192 and 131072 rows of 768), the
-                backward launched twice for the same bits, and fused_ln's
-                autograd against autograd of torch_ln. Then the conv + BN
-                kernels at the spike's five shapes, a ragged M (6272, 1000)
-                and C = 200, conv_bn_stats launched twice for the same bits,
-                and bn_apply_relu's one-value path (C % 8 != 0); then the
-                head-slice Gram kernel at the repro's shape, a ragged one
-                and a strided view;
+                1/1000/16384, random or unit scale and bias, bf16 at the
+                spike's other shapes (8192 and 131072 rows of 768), and
+                odd H = 1023 and H = 770 (H % 8 == 2: the one-value and
+                pair loads) in both dtypes at M 1/1000/16384, the backward
+                launched twice for the same bits and naming its grid, and
+                fused_ln's autograd against autograd of torch_ln. Then the
+                conv + BN kernels at the spike's five shapes, a ragged M
+                (6272, 1000), C = 200, M = 1, (130, 8, 8) and (6144, 2048,
+                200), conv_bn_stats launched twice for the same bits and
+                naming the tile its library picked, and bn_apply_relu's
+                one-value path (C % 8 != 0); then the head-slice Gram
+                kernel at the repro's shape, a ragged one and a strided
+                view;
   3. serve   -- GPT-2 small (GPTConfig(): vocab 50257, hidden 768, 12
                 layers, 12 heads) built with the port's DSL, initialized on
                 CUDAPlace(0) from --seed, saved with save_inference_model at
@@ -134,7 +141,9 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 copies and both kernels) beside SDPA's backward on the same
                 inputs and the kernels that SDPA runs.
 
-The line before the last is the {"kernels": [...]} summary; the last line is
+The line before the last is the {"kernels": [...]} summary, in which
+conv_bn_stats has a row at each of the five spike shapes and every row its
+share of bound (bound_ms / ms); the last line is
 {"ok": true, "device": {...}}. Full results go to chiprun_out/chip_smoke.json.
 It exits non-zero before printing any result when no CUDA card is present
 or when the paddle_tpu_torch package is not beside it.
@@ -437,6 +446,19 @@ def phase_build():
             if not mine or any(c[op] == 0 for c in mine.values()):
                 fail(f"{n}'s tensor-core kernels *{s} hold no {op} "
                      f"instruction: {mine}")
+    # the two kernels redesigned in the conv + BN and residual LN spikes:
+    # every conv_bn_stats_kernel<BN> on wgmma (HGMMA), and both kernels'
+    # registers and spills per instantiation
+    counts = _tensor_core_counts(cuda_build.library_path("conv_bn_stats"))
+    tc["conv_bn_stats"] = {tag: c for tag, c in counts.items()
+                           if tag.startswith("conv_bn_stats_kernel<")}
+    for n in ("conv_bn_stats", "residual_ln_bwd"):
+        emit({"phase": "build", "kernel": n, "tensor_core_instructions":
+              tc.get(n), "ptxas": ptxas.get(n)})
+    if not tc["conv_bn_stats"] or any(
+            c["HGMMA"] == 0 for c in tc["conv_bn_stats"].values()):
+        fail(f"conv_bn_stats' kernels hold no HGMMA instruction: "
+             f"{tc['conv_bn_stats']}")
     return {"wall_s": wall, "per_source_s": took, "ptxas": ptxas,
             "hgmma": hgmma, "tensor_core_instructions": tc}
 
@@ -815,9 +837,9 @@ def phase_ln_kernels(seed):
     """The residual + LayerNorm kernels against their plain versions in
     every combination of dtype, H, M (1000 is ragged against the TPU
     kernel's 256-row blocks) and scale/bias (random, or 1 and 0), then at
-    the spike's bf16 shapes the grid leaves out; each backward launched
-    twice for the same bits. Then fused_ln's autograd against autograd of
-    torch_ln."""
+    the spike's bf16 shapes the grid leaves out, then odd H = 1023 and H =
+    770 (H % 8 == 2) in both dtypes; each backward launched twice for the
+    same bits. Then fused_ln's autograd against autograd of torch_ln."""
     import itertools
     import torch
     from paddle_tpu_torch.tools import spike_residual_ln as srl
@@ -828,6 +850,11 @@ def phase_ln_kernels(seed):
                                    (False, True)))
     cases += [(torch.bfloat16, h, m, False) for m, h in srl.SHAPES
               if (torch.bfloat16, h, m, False) not in cases]
+    # the paths the 16-byte vectors do not take: odd H (one value a load)
+    # and H % 8 == 2 (pairs; in fp32 H % 4 != 0 as well)
+    cases += list(itertools.product((torch.float32, torch.bfloat16),
+                                    (1023, 770), (1, 1000, 16384),
+                                    (False,)))
     for i, (dtype, h, m, unit) in enumerate(cases, 1):
         x, r, sc, b = srl.spike_inputs(m, h, dtype, seed + 3000 + i, unit)
         g = torch.randn(x.shape, device=x.device).to(dtype)
@@ -851,6 +878,7 @@ def phase_ln_kernels(seed):
         ok = bitwise and all(c[0] for c in checks.values())
         rec = {"phase": "ln_kernel", "M": m, "H": h,
                "dtype": str(dtype).split(".")[-1],
+               "bwd_blocks": srl.bwd_blocks(m, h, dtype, x.device),
                "scale_bias": "1/0" if unit else "random",
                "max_abs_err": {k: c[1] for k, c in checks.items()},
                "atol": LN_TOL, "rtol": rtol,
@@ -913,13 +941,17 @@ def _cbn_sum_close(a, b):
 def phase_conv_bn_kernels(seed):
     """The conv + BN spike's kernels against their plain versions at the
     spike's five shapes, the unfloored ragged M = 6272, M = 1000 with K and
-    C that are multiples of 8 but not of the kernel's tiles, each
-    conv_bn_stats launched twice for the same bits; bn_apply_relu also with
-    C % 8 != 0 (its one-value path)."""
+    C that are multiples of 8 but not of the kernel's tiles, M = 1, (130, 8,
+    8) and (6144, 2048, 200), each conv_bn_stats launched twice for the
+    same bits and naming the tile its library picked; bn_apply_relu also
+    with C % 8 != 0 (its one-value path)."""
     import torch
     from paddle_tpu_torch.tools import spike_conv_bn as scb
+    # the spike's shapes, a ragged M, K and C past the tiles' edges, one
+    # row, a second row block of K = C = 8, and C = 200 at the deepest K
     cases = list(scb.SHAPES) + [(6272, 2048, 512), (1000, 72, 200),
-                                (1000, 64, 64)]
+                                (1000, 64, 64), (1, 64, 64), (130, 8, 8),
+                                (6144, 2048, 200)]
     results, worst = [], {}
     for i, (m, k, c) in enumerate(cases):
         x, w, _, _ = scb.spike_inputs(m, k, c, seed + 5000 + i)
@@ -940,6 +972,7 @@ def phase_conv_bn_kernels(seed):
         ok = bitwise and all(v[0] for v in checks.values())
         rec = {"phase": "conv_bn_kernel", "M": m, "K": k, "C": c,
                "dtype": "bfloat16",
+               "config": scb.stats_config(m, k, c, x.device),
                "max_abs_err": {n: v[1] for n, v in checks.items()},
                "atol": CBN_TOL, "rtol": BF16_ULP,
                "sum_rtol_of_max": CBN_SUM_RTOL, "bitwise_rerun": bitwise,
@@ -2354,7 +2387,7 @@ def _alone_row(name, alone, kern, plain, lib, bound, launches, err, extra,
 
 def _conv_bn_rows(spike, seed):
     """conv_bn_stats at every spike shape and bn_apply_relu on its output;
-    the kernels line keeps conv_bn_stats at (401408, 64, 64) and
+    the kernels line keeps conv_bn_stats at all five shapes and
     bn_apply_relu at (401408, 256). Library yardsticks (compositions, no
     single call computes either): torch.matmul then the two f32 column
     reductions; torch.addcmul then relu."""
@@ -2383,7 +2416,8 @@ def _conv_bn_rows(spike, seed):
             lambda: scb.fused_conv_bn_stats(x, w),
             lambda: scb.fused_conv_bn_stats_plain(x, w), lib6,
             scb.stats_bound(m, k, c), spike["launches"]["conv_bn_stats"],
-            err6, {"M": m, "K": k, "C": c, "dtype": "bfloat16"})
+            err6, {"M": m, "K": k, "C": c, "dtype": "bfloat16",
+                   "config": scb.stats_config(m, k, c, x.device)})
         r7 = _alone_row(
             "bn_apply_relu", alone[1],
             lambda: scb.bn_apply_relu(y, s_, q, gamma, beta),
@@ -2391,11 +2425,11 @@ def _conv_bn_rows(spike, seed):
             lambda: F.relu(torch.addcmul(sh, y, sc)).to(y.dtype),
             scb.apply_bound(m, c), spike["launches"]["bn_apply_relu"],
             err7, {"M": m, "C": c, "dtype": "bfloat16"})
-        rows.setdefault("conv_bn_stats", r6)
+        rows.setdefault("conv_bn_stats", []).append(r6)
         if (m, c) == (401408, 256):
             rows["bn_apply_relu"] = r7
         del x, w, y, out, ref
-    return [rows["conv_bn_stats"], rows["bn_apply_relu"]]
+    return rows["conv_bn_stats"] + [rows["bn_apply_relu"]]
 
 
 def _gram_row(spike, seed):
@@ -2420,8 +2454,13 @@ def _gram_row(spike, seed):
 
 
 def phase_times(serve, train, bert, spike, seed):
-    return (_flash_rows(serve, train, bert, seed) + _ln_rows(spike, seed)
+    """The kernels line's rows, each with its share of bound (bound_ms /
+    ms)."""
+    rows = (_flash_rows(serve, train, bert, seed) + _ln_rows(spike, seed)
             + _conv_bn_rows(spike, seed) + [_gram_row(spike, seed)])
+    for r in rows:
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    return rows
 
 
 def main():

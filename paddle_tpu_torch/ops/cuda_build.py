@@ -11,7 +11,9 @@ at import time: the first launch of a kernel builds it, and
 
 `on_cuda` and `launch` are the launch path of the kernels whose C entry
 `<name>_launch(pointers..., integers..., stream)` returns a cudaError_t
-(the spikes' kernels; the flash kernels have their own signature).
+(the spikes' kernels; the flash kernels have their own signature);
+`config` asks such a library for its launch configuration, where the
+library alone holds the rule (`<name>_config(integers..., int* out)`).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import time
 from typing import Dict, List
 
 __all__ = ["KERNEL_SOURCES", "build_all", "library_path", "load_library",
-           "nvcc_path", "on_cuda", "launch"]
+           "nvcc_path", "on_cuda", "launch", "config"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
@@ -36,6 +38,7 @@ _BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 # include shared bodies from csrc/*.cuh: flash_fwd_body.cuh, wgmma.cuh,
 # flash_bwd_common.cuh, and the tensor-core bodies of the tiled forward,
 # flash_fwd_tc.cuh, and of the tiled backward pair, flash_bwd_tc.cuh;
+# conv_bn_stats.cu includes hopper_tma.cuh, which includes wgmma.cuh;
 # every header keys every library's path)
 KERNEL_SOURCES = {
     "flash_fwd": "flash_fwd.cu",
@@ -175,3 +178,27 @@ def launch(name: str, tensors, ints, int_types: str = "") -> None:
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError "
                            f"{err} (ints {list(ints)})")
+
+
+@functools.lru_cache(maxsize=None)
+def _config_fn(name: str, n_ints: int):
+    fn = getattr(load_library(name), f"{name}_config")
+    fn.argtypes = [ctypes.c_int] * n_ints + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def config(name: str, ints: tuple, n_out: int, device_index: int) -> tuple:
+    """`<name>_config(*ints, out)` on CUDA device `device_index`: the
+    library's launch configuration, `n_out` integers; raise if it refuses
+    the arguments. Cached: the answer depends on its arguments only."""
+    import torch
+    out = (ctypes.c_int * n_out)()
+    fn = _config_fn(name, len(ints))
+    with torch.cuda.device(device_index):
+        err = fn(*ints, out)
+    if err != 0:
+        raise RuntimeError(f"{name}: no launch configuration for "
+                           f"{list(ints)} (cudaError {err})")
+    return tuple(out)

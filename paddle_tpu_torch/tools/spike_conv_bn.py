@@ -19,7 +19,9 @@ bound with ctypes:
 Each wrapper runs its kernel on CUDA tensors (checking device, dtype, shape
 and alignment, raising if the launch is refused, and adding one to its
 `launches` count) and its plain version (`<name>_plain`) on CPU tensors;
-anything else raises. `fused_block` is the JAX `fused_block` (:120) and
+anything else raises. `stats_config` reports the launch conv_bn_stats'
+library picks for a shape (tile width, persistent grid, partial rows, TMA
+ring slots, shared memory): the rule lives in the library alone. `fused_block` is the JAX `fused_block` (:120) and
 `torch_block` the plain composition (JAX `xla_block`, :125). No program
 calls them: the spike is its own entry point, as in the JAX package, and
 the port's ResNet-50 runs its convs through cuDNN.
@@ -41,18 +43,17 @@ import sys
 
 import torch
 
-from ..ops.cuda_build import launch, on_cuda
+from ..ops.cuda_build import config, launch, on_cuda
 
 __all__ = ["EPS", "SHAPES", "fused_conv_bn_stats", "bn_apply_relu",
            "fused_conv_bn_stats_plain", "bn_apply_relu_plain",
            "bn_scale_shift", "fused_block", "torch_block",
-           "prepared_launches", "stats_bound", "apply_bound", "block_bound",
-           "spike_table", "main"]
+           "prepared_launches", "stats_config", "stats_bound", "apply_bound",
+           "block_bound", "spike_table", "main"]
 
 EPS = 1e-5
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989.4e12  # H100 SXM bf16 dense tensor-core peak
-_BM = 128                   # rows of y a conv_bn_stats block computes (csrc)
 
 # (N*H*W, Cin, Cout) of ResNet-50's bottleneck 1x1 convs at batch 128, M
 # floored to a multiple of 512 as the JAX spike's main does (only the last
@@ -113,9 +114,26 @@ def _run(name, tensors, ints):
     _WRAPPERS[name].launches += 1
 
 
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def stats_config(m, k, c, device):
+    """conv_bn_stats' launch on `device` at (M, K, C), as its library picks
+    it (csrc/conv_bn_stats.cu `pick_tile`, the one home of the rule): a
+    dict of the tile width, the persistent grid, the partial workspace's
+    rows, the TMA ring's slots and the shared memory of a block."""
+    device = torch.device(device)
+    out = config("conv_bn_stats", (m, k, c, _sms(device)), 5,
+                 device.index if device.index is not None
+                 else torch.cuda.current_device())
+    return dict(zip(("tile_n", "grid", "rows", "stages", "smem_bytes"),
+                    out))
+
+
 def _stats_args(x, w):
     """conv_bn_stats' checks and allocation: (x, w, y, partial, s, q),
-    (M, K, C, row_blocks)."""
+    (M, K, C, SMs, rows)."""
     name = "conv_bn_stats"
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"{name}: x (M, K) and w (K, C) do not chain: "
@@ -127,18 +145,18 @@ def _stats_args(x, w):
                          f"multiples of 8; got M={m}, K={k}, C={c}")
     _check(name, "x", x, (m, k), torch.bfloat16, x.device)
     _check(name, "w", w, (k, c), torch.bfloat16, x.device)
-    blocks = -(-m // _BM)
+    rows = stats_config(m, k, c, x.device)["rows"]
     y = torch.empty((m, c), dtype=torch.bfloat16, device=x.device)
-    partial = torch.empty((blocks, 2, c), dtype=torch.float32,
+    partial = torch.empty((rows, 2, c), dtype=torch.float32,
                           device=x.device)
     s = torch.empty(c, dtype=torch.float32, device=x.device)
     q = torch.empty(c, dtype=torch.float32, device=x.device)
-    return [x, w, y, partial, s, q], [m, k, c, blocks]
+    return [x, w, y, partial, s, q], [m, k, c, _sms(x.device), rows]
 
 
 def _apply_blocks(device) -> int:
     """bn_apply_relu's grid: 16 blocks of 256 threads an SM, grid-stride."""
-    return 16 * torch.cuda.get_device_properties(device).multi_processor_count
+    return 16 * _sms(device)
 
 
 def _apply_args(y, scale, shift):

@@ -42,7 +42,7 @@ import sys
 
 import torch
 
-from ..ops.cuda_build import launch, on_cuda
+from ..ops.cuda_build import config, launch, on_cuda
 
 __all__ = ["EPS", "residual_ln_fwd", "residual_ln_bwd",
            "residual_ln_fwd_plain", "residual_ln_bwd_plain", "fused_ln",
@@ -50,7 +50,6 @@ __all__ = ["EPS", "residual_ln_fwd", "residual_ln_bwd",
            "main"]
 
 EPS = 1e-5
-_WARPS = 8               # rows a block runs at once (csrc kWarps)
 _MAX_H = 2048            # pair loads, 32 pairs a lane at most (csrc)
 _MAX_H_ODD = 1023        # single loads for odd H
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
@@ -149,11 +148,19 @@ def _fwd_args(x, r, scale, bias):
                                            int(x.dtype == torch.bfloat16)]
 
 
-def bwd_blocks(m: int, device) -> int:
-    """The backward's grid: two blocks an SM, no more than M / 8 rounded
-    up; also the rows of its (blocks, 2, H) partial-sum workspace."""
+def bwd_blocks(m: int, h: int, dtype, device) -> int:
+    """The backward's grid at (M, H, dtype) on `device`, as its library
+    picks it (csrc/residual_ln_bwd.cu `residual_ln_bwd_config`, the one
+    home of the rule): the blocks of 8 warps an SM holds (its occupancy,
+    with the prefetch's registers and the per-warp sums' shared memory)
+    times the SMs, no more than M / 8 rounded up; also the rows of its
+    (blocks, 2, H) partial-sum workspace."""
+    device = torch.device(device)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-m // _WARPS), 2 * sms))
+    return config("residual_ln_bwd",
+                  (m, h, int(dtype == torch.bfloat16), sms), 1,
+                  device.index if device.index is not None
+                  else torch.cuda.current_device())[0]
 
 
 def _bwd_args(x, r, scale, mu, rstd, g):
@@ -168,7 +175,7 @@ def _bwd_args(x, r, scale, mu, rstd, g):
             raise ValueError(f"residual_ln_bwd: {tn} must be a contiguous "
                              f"float32 (M, 1) = {(m, 1)} tensor on "
                              f"{x.device}, got {t.dtype} {tuple(t.shape)}")
-    nblk = bwd_blocks(m, x.device)
+    nblk = bwd_blocks(m, h, x.dtype, x.device)
     ds = torch.empty_like(x)
     partial = torch.empty((nblk, 2, h), dtype=torch.float32, device=x.device)
     dscale = torch.empty(h, dtype=torch.float32, device=x.device)
