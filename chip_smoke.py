@@ -21,7 +21,12 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 registers and spills; every conv_bn_stats_kernel<64|128>
                 must hold HGMMA too (the product on wgmma), and the
                 registers and spills of each conv_bn_stats and
-                residual_ln_bwd instantiation are printed;
+                residual_ln_bwd instantiation are printed; the head-slice
+                Gram's tensor-core body (headslice_gram_kernel_tc) must
+                hold tensor-core instructions and no spills, and its
+                library's launch configuration at the repro's and GPT-2's
+                shapes must agree with the Python twin: the body `route`
+                names, a block for each tile of `tile_walk`;
   2. kernels -- each kernel against its plain PyTorch version on the card:
                 fp32 and bf16, causal or not, with and without a per-key
                 bias, head dims from 4 to 256 (the kernels pad d to a
@@ -50,8 +55,11 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 200), conv_bn_stats launched twice for the same bits and
                 naming the tile its library picked, and bn_apply_relu's
                 one-value path (C % 8 != 0); then the head-slice Gram
-                kernel at the repro's shape, a ragged one and a strided
-                view;
+                kernel at GRAM_CASES (the repro's shape, a ragged one, a
+                strided view, GPT-2's attention shape in both layouts, and
+                two that TMA cannot address), each naming the body its
+                library launched, launched twice for the same bits, and
+                bitwise symmetric;
   3. serve   -- GPT-2 small (GPTConfig(): vocab 50257, hidden 768, 12
                 layers, 12 heads) built with the port's DSL, initialized on
                 CUDAPlace(0) from --seed, saved with save_inference_model at
@@ -115,15 +123,19 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 (paddle_tpu_torch.tools.spike_residual_ln) at its four bf16
                 shapes, the conv + BN spike's table (tools.spike_conv_bn)
                 at ResNet-50's five bottleneck 1x1 convs, and the head-slice
-                repro (tools.mosaic_repro_headslice), counts zeroed just
-                before and read just after;
+                repro (tools.mosaic_repro_headslice) at its shape and at
+                GPT-2's attention shape, counts zeroed just before and read
+                just after;
   8. times   -- each kernel at its main-path shape: CUDA-event time, the
                 plain version's time, a library call's time as a yardstick
                 only (the port never calls it: F.scaled_dot_product_attention
                 forward or its backward alone through autograd;
                 F.layer_norm(x + r) and aten's native_layer_norm_backward;
                 the compositions torch.matmul + two column sums and
-                torch.addcmul + relu; torch.bmm on the strided head slice),
+                torch.addcmul + relu; torch.bmm on the strided head slice,
+                the Gram at the repro's and GPT-2's shapes, its bound the
+                larger of the bytes and split TF32 (three products at 495
+                TFLOP/s) bounds, the fp32 FMA bound beside them),
                 and the bound max(FLOPs / the peak of the operands' type
                 (67 TFLOP/s fp32 non-tensor, 989.4 TFLOP/s bf16), bytes
                 / 3.35 TB/s) of an H100 SXM (NVIDIA's data sheet); the two
@@ -141,9 +153,10 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 copies and both kernels) beside SDPA's backward on the same
                 inputs and the kernels that SDPA runs.
 
-The line before the last is the {"kernels": [...]} summary, in which
-conv_bn_stats has a row at each of the five spike shapes and every row its
-share of bound (bound_ms / ms); the last line is
+The line before the last is the {"kernels": [...]} summary (15 rows), in
+which conv_bn_stats has a row at each of the five spike shapes,
+headslice_gram one at each of its two, and every row its share of bound
+(bound_ms / ms); the last line is
 {"ok": true, "device": {...}}. Full results go to chiprun_out/chip_smoke.json.
 It exits non-zero before printing any result when no CUDA card is present
 or when the paddle_tpu_torch package is not beside it.
@@ -212,6 +225,19 @@ CBN_SUM_RTOL = 1e-4
 # head-slice Gram kernel vs its plain version (einsum, f32, TF32 off): sums
 # over d in another order, GRAM_TOL atol and rtol
 GRAM_TOL = 2e-5
+# the Gram kernel's cases: (b, s, n, d), x's layout ("bsnd" contiguous,
+# "bnsd" a (b, s, n, d) view of a contiguous (b, n, s, d) tensor) and the
+# body the library must launch: the repro's shape, ragged s and d, other
+# strides, GPT-2's attention shape in both layouts, then one case outside
+# TMA's rules for the output (s % 4 != 0: its row stride is not a multiple
+# of 16 bytes) and one for the input (d = 33: x's strides are not)
+GRAM_CASES = (((4, 128, 12, 64), "bsnd", "tc"),
+              ((2, 200, 6, 40), "bsnd", "tc"),
+              ((3, 100, 4, 32), "bnsd", "tc"),
+              ((2, 1024, 12, 64), "bsnd", "tc"),
+              ((2, 1024, 12, 64), "bnsd", "tc"),
+              ((2, 99, 3, 36), "bsnd", "simt"),
+              ((2, 128, 3, 33), "bsnd", "simt"))
 
 # kernel -> its source, the TPU kernel it replaces, and whether the serving
 # path (forward only) launches it; the GPT train path launches all five
@@ -403,6 +429,47 @@ def _hgmma_count(lib):
     return sum(c["HGMMA"] for c in _tensor_core_counts(lib).values())
 
 
+def _gram_build_checks(ptxas):
+    """The Gram library's tensor-core body must hold tensor-core
+    instructions (HGMMA or HMMA) and no spills, and its launch
+    configuration at the repro's and GPT-2's shapes must agree with the
+    Python twin (`_gram_twin_agrees`)."""
+    import torch
+    from paddle_tpu_torch.ops import cuda_build
+    from paddle_tpu_torch.tools import mosaic_repro_headslice as mrh
+    tag = "headslice_gram_kernel_tc"
+    counts = _tensor_core_counts(cuda_build.library_path("headslice_gram"))
+    line = ptxas.get(tag) or ""
+    configs = []
+    for shape in (mrh.SHAPE, mrh.GPT_SHAPE):
+        x = torch.empty(shape, device="cuda")
+        configs.append({"shape": list(shape), "config": mrh.gram_config(x),
+                        "strides": list(x.stride()),
+                        "misalign": x.data_ptr() % 16})
+    emit({"phase": "build", "kernel": "headslice_gram",
+          "tensor_core_instructions": counts, "ptxas": ptxas,
+          "configs": configs})
+    if sum(counts.get(tag, {}).values()) == 0:
+        fail(f"{tag} holds no tensor-core instruction: {counts}")
+    if not line.startswith("0B spill stores"):
+        fail(f"{tag} spills or has no ptxas line: {line!r}")
+    for c in configs:
+        if not _gram_twin_agrees(c["config"], c["shape"], c["strides"],
+                                 c["misalign"]):
+            fail(f"headslice_gram_config differs from the Python twin: {c}")
+    return counts
+
+
+def _gram_twin_agrees(cfg, shape, strides, misalign):
+    """The library's config for x (b, s, n, d) names the body the twin's
+    `route` picks and, on the tensor-core body, launches a block for each
+    tile of the twin's `tile_walk`."""
+    from paddle_tpu_torch.tools import mosaic_repro_headslice as mrh
+    body = mrh.route(*shape, strides, misalign)
+    return cfg["body"] == body and (body != "tc" or cfg["tiles"] == cfg[
+        "grid"] == len(mrh.tile_walk(shape[0], shape[1])))
+
+
 def phase_build():
     from paddle_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
@@ -459,6 +526,8 @@ def phase_build():
             c["HGMMA"] == 0 for c in tc["conv_bn_stats"].values()):
         fail(f"conv_bn_stats' kernels hold no HGMMA instruction: "
              f"{tc['conv_bn_stats']}")
+    tc["headslice_gram"] = _gram_build_checks(ptxas.get("headslice_gram",
+                                                        {}))
     return {"wall_s": wall, "per_source_s": took, "ptxas": ptxas,
             "hgmma": hgmma, "tensor_core_instructions": tc}
 
@@ -1008,40 +1077,53 @@ def phase_conv_bn_kernels(seed):
     return results
 
 
+def gram_input(shape, layout, gen, device):
+    """x ~ U(0, 1) of (b, s, n, d) `shape` in `layout` (GRAM_CASES)."""
+    import torch
+    b, s_, n, d = shape
+    if layout == "bnsd":
+        return torch.rand((b, n, s_, d), generator=gen,
+                          device=device).permute(0, 2, 1, 3)
+    return torch.rand(shape, generator=gen, device=device)
+
+
 def phase_gram_kernels(seed):
-    """The head-slice Gram kernel against its plain version at the repro's
-    shape, a ragged one, and a (b, s, n, d) view of a (b, n, s, d) tensor
-    (other strides); each launched twice for the same bits."""
+    """The head-slice Gram kernel against its plain version at GRAM_CASES:
+    the body the library launched (its config, held against the Python
+    twin and the case's body), each case launched twice for the same bits
+    and the result bitwise symmetric."""
     import torch
     from paddle_tpu_torch.tools import mosaic_repro_headslice as mrh
     results = []
-    for i, (shape, view) in enumerate(((mrh.SHAPE, False),
-                                       ((2, 200, 6, 40), False),
-                                       ((3, 100, 4, 32), True))):
+    for i, (shape, layout, body) in enumerate(GRAM_CASES):
         g = torch.Generator(device="cuda")
         g.manual_seed(seed + 6000 + i)
-        b, s_, n, d = shape
-        if view:
-            x = torch.rand((b, n, s_, d), generator=g,
-                           device="cuda").permute(0, 2, 1, 3)
-        else:
-            x = torch.rand(shape, generator=g, device="cuda")
+        x = gram_input(shape, layout, g, "cuda")
+        cfg = mrh.gram_config(x)
         got = mrh.headslice_gram(x)
         again = mrh.headslice_gram(x)
         torch.cuda.synchronize()
         want = mrh.headslice_gram_plain(x)
         diff = (got - want).abs()
         bitwise = torch.equal(got, again)
-        ok = bitwise and bool(torch.isfinite(got).all()) and bool(
+        symmetric = torch.equal(got, got.transpose(1, 2))
+        routed = cfg["body"] == body and _gram_twin_agrees(
+            cfg, shape, x.stride(), x.data_ptr() % 16)
+        ok = bitwise and symmetric and routed and bool(
+            torch.isfinite(got).all()) and bool(
             (diff <= GRAM_TOL + GRAM_TOL * want.abs()).all())
         rec = {"phase": "gram_kernel", "shape": list(shape),
-               "strides": list(x.stride()), "max_abs_err": diff.max().item(),
-               "atol": GRAM_TOL, "rtol": GRAM_TOL, "bitwise_rerun": bitwise,
-               "ok": ok}
+               "layout": layout, "strides": list(x.stride()),
+               "body": cfg["body"], "config": cfg,
+               "max_abs_err": diff.max().item(), "atol": GRAM_TOL,
+               "rtol": GRAM_TOL, "bitwise_rerun": bitwise,
+               "bitwise_symmetric": symmetric, "ok": ok}
         emit(rec)
         results.append(rec)
         if not ok:
-            fail(f"headslice_gram disagrees with its plain version: {rec}")
+            fail(f"headslice_gram disagrees with its plain version, is not "
+                 f"reproducible or symmetric, or ran another body than "
+                 f"{body}: {rec}")
     return results
 
 
@@ -2026,7 +2108,7 @@ def phase_spike(seed):
     # ---- the spikes' paths: counts zeroed just before, read just after ----
     rows = srl.spike_table(seed, emit)
     cbn_rows = scb.spike_table(seed, emit)
-    ok, err = mrh.run(seed)
+    ok, err, gram_launches = mrh.run(seed)
     launches = read_counts(names)
     # -----------------------------------------------------------------------
     if not ok:
@@ -2034,9 +2116,13 @@ def phase_spike(seed):
     for n, c in launches.items():
         if c == 0:
             fail(f"kernel {n} was not launched on the spike's path")
-    emit({"phase": "spike_launches", "launches": launches})
+    if 0 in gram_launches:
+        fail(f"headslice_gram was not launched at each repro shape: "
+             f"{gram_launches}")
+    emit({"phase": "spike_launches", "launches": launches,
+          "headslice_gram_by_shape": gram_launches})
     return {"rows": rows, "conv_bn_rows": cbn_rows, "headslice_err": err,
-            "launches": launches}
+            "launches": launches, "gram_launches": gram_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -2132,9 +2218,9 @@ def _sdpa_bwd_ms(q, k, v, do, n, causal=True, bias=None):
     return time_ms(_sdpa_bwd(q, k, v, do, n, causal, bias))
 
 
-def _kernel_names(fn):
-    """{kernel name: device ms} of one call of `fn`, from a torch.profiler
-    trace: which kernels a library call runs."""
+def _device_events(fn):
+    """[(name, device ms)] of the device events of one call of `fn`, from a
+    torch.profiler trace."""
     import torch
     from torch.autograd import DeviceType
     fn()
@@ -2143,11 +2229,16 @@ def _kernel_names(fn):
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _kernel_names(fn):
+    """{kernel name: device ms} of one call of `fn`: which kernels a
+    library call runs."""
     out = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            out[e.name] = out.get(e.name, 0.0) + (
-                e.time_range.end - e.time_range.start) / 1e3
+    for name, ms in _device_events(fn):
+        out[name] = out.get(name, 0.0) + ms
     return out
 
 
@@ -2364,17 +2455,23 @@ def _alone_row(name, alone, kern, plain, lib, bound, launches, err, extra,
     wrapper, its plain version and the library yardstick. With `device`,
     the kernel's time is its device time in a profiler trace, the launch
     path's host work being longer than the kernel (`event_ms` keeps the
-    CUDA-event time of back-to-back launches)."""
+    CUDA-event time of back-to-back launches), and the library
+    yardstick's is its device time too (`library_event_ms` its CUDA-event
+    time), so that `ms` and `library_ms` read the same clock."""
     from paddle_tpu_torch.tools.profile_gpt import device_time_ms, time_ms
-    ms = time_ms(alone)
+    ms, lib_ms = time_ms(alone), time_ms(lib)
     bound_ms, bound_by, flops, nbytes = bound
     extra = dict(extra)
     if device:
-        extra["event_ms"], ms = ms, device_time_ms(alone)
+        events = _device_events(lib)
+        extra.update({"event_ms": ms, "library_event_ms": lib_ms,
+                      "library_kernels": [n for n, _ in events]})
+        ms = device_time_ms(alone, kernels=1)
+        lib_ms = device_time_ms(lib, kernels=len(events))
     rec = {"phase": "time", "kernel": name, **extra, "flops": flops,
            "bytes": nbytes, "ms": ms, "wrapper_ms": time_ms(kern),
            "plain_ms": time_ms(plain, iters=5),
-           "library_ms": time_ms(lib), "bound_ms": bound_ms,
+           "library_ms": lib_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "launches_spike": launches,
            "bytes_per_s": nbytes / (ms * 1e-3)}
     emit(rec)
@@ -2432,32 +2529,42 @@ def _conv_bn_rows(spike, seed):
     return rows["conv_bn_stats"] + [rows["bn_apply_relu"]]
 
 
-def _gram_row(spike, seed):
-    """headslice_gram at the repro's shape, its time the device time of the
-    kernel (a launch costs the host more); library yardstick torch.bmm on
-    the strided slice and its transpose."""
+def _gram_rows(spike, seed):
+    """headslice_gram at the repro's shape and at GPT-2's attention shape,
+    its time the device time of the kernel (a launch costs the host more);
+    library yardstick torch.bmm on the strided slice and its transpose, by
+    device time too; launches the spike's at that shape; bound_ms the
+    larger of the bytes and split TF32 bounds, the fp32 FMA bound beside
+    them."""
     import torch
     from paddle_tpu_torch.tools import mosaic_repro_headslice as mrh
-    b, s_, n, d = mrh.SHAPE
-    g = torch.Generator(device="cuda")
-    g.manual_seed(seed)
-    x = torch.rand(mrh.SHAPE, generator=g, device="cuda")
-    xs = x[:, :, -1]
-    err = (mrh.headslice_gram(x) - mrh.headslice_gram_plain(x)).abs().max() \
-        .item()
-    return _alone_row(
-        "headslice_gram", mrh.prepared_launch(x),
-        lambda: mrh.headslice_gram(x), lambda: mrh.headslice_gram_plain(x),
-        lambda: torch.bmm(xs, xs.transpose(1, 2)), mrh.gram_bound(b, s_, d),
-        spike["launches"]["headslice_gram"], err,
-        {"b": b, "s": s_, "n": n, "d": d, "dtype": "float32"}, device=True)
+    rows = []
+    for shape, launches in zip((mrh.SHAPE, mrh.GPT_SHAPE),
+                               spike["gram_launches"]):
+        b, s_, n, d = shape
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed)
+        x = torch.rand(shape, generator=g, device="cuda")
+        xs = x[:, :, -1]
+        err = (mrh.headslice_gram(x) - mrh.headslice_gram_plain(x)).abs() \
+            .max().item()
+        ms, by, flops, nbytes, bounds = mrh.gram_bound(b, s_, d)
+        rows.append(_alone_row(
+            "headslice_gram", mrh.prepared_launch(x),
+            lambda: mrh.headslice_gram(x),
+            lambda: mrh.headslice_gram_plain(x),
+            lambda: torch.bmm(xs, xs.transpose(1, 2)),
+            (ms, by, flops, nbytes), launches, err,
+            {"b": b, "s": s_, "n": n, "d": d, "dtype": "float32",
+             "config": mrh.gram_config(x), **bounds}, device=True))
+    return rows
 
 
 def phase_times(serve, train, bert, spike, seed):
     """The kernels line's rows, each with its share of bound (bound_ms /
     ms)."""
     rows = (_flash_rows(serve, train, bert, seed) + _ln_rows(spike, seed)
-            + _conv_bn_rows(spike, seed) + [_gram_row(spike, seed)])
+            + _conv_bn_rows(spike, seed) + _gram_rows(spike, seed))
     for r in rows:
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
     return rows

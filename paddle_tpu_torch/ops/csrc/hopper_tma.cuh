@@ -1,8 +1,10 @@
 // Hopper asynchronous-copy and tensor-core building blocks of the
-// persistent GEMM kernels (conv_bn_stats.cu): mbarriers, TMA tile loads and
-// stores through host-built tensor maps, shared-memory matrix descriptors
-// of 128-byte-swizzled tiles, and the wgmma products with a transposed
-// (MN-major) B operand, as raw PTX so that a build takes seconds (no CuTe).
+// persistent GEMM kernels (conv_bn_stats.cu) and the head-slice Gram
+// (headslice_gram.cu): mbarriers, TMA tile loads and stores through
+// host-built tensor maps (2-D bf16; rank-N f32), shared-memory matrix
+// descriptors of 128-byte-swizzled tiles, and the wgmma products with a
+// transposed (MN-major) B operand, as raw PTX so that a build takes seconds
+// (no CuTe).
 //
 // Layout. A TMA box whose inner dimension is 64 bf16 values (128 bytes),
 // loaded with CU_TENSOR_MAP_SWIZZLE_128B into a 1024-byte-aligned buffer,
@@ -97,6 +99,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "r"(c1)
       : "memory");
 }
+// the 4-D box at (c0 innermost, c1, c2, c3), as tma_load_2d
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
 // shared memory at src to the box at (c0, c1); parts past the tensor's
 // edge are not written
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
@@ -106,6 +119,16 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
       "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+// the 3-D box at (c0 innermost, c1, c2), as tma_store_2d
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {
@@ -248,6 +271,24 @@ inline bool make_map_bf16(CUtensorMap* map, const void* ptr, int rows,
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// An f32 tensor of `rank` dims (1..5) at ptr (16-byte aligned): dims[0]
+// the innermost, of stride one element, strides[i] the byte stride of dim
+// i + 1 (each a multiple of 16), as boxes of box[] elements (box[0] * 4 <=
+// 128 bytes), 128-byte swizzled, zeros past the edge. False if it cannot
+// be encoded.
+inline bool make_map_f32(CUtensorMap* map, const void* ptr, int rank,
+                         const cuuint64_t* dims, const cuuint64_t* strides,
+                         const cuuint32_t* box) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr || rank < 1 || rank > 5) return false;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, (cuuint32_t)rank,
+            const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

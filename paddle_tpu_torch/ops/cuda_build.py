@@ -181,21 +181,24 @@ def launch(name: str, tensors, ints, int_types: str = "") -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _config_fn(name: str, n_ints: int):
+def _config_fn(name: str, int_types: str):
     fn = getattr(load_library(name), f"{name}_config")
-    fn.argtypes = [ctypes.c_int] * n_ints + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [_INT_TYPES[t] for t in int_types] + [
+        ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=None)
-def config(name: str, ints: tuple, n_out: int, device_index: int) -> tuple:
+def config(name: str, ints: tuple, n_out: int, device_index: int,
+           int_types: str = "") -> tuple:
     """`<name>_config(*ints, out)` on CUDA device `device_index`: the
     library's launch configuration, `n_out` integers; raise if it refuses
-    the arguments. Cached: the answer depends on its arguments only."""
+    the arguments. `int_types` as `launch`'s. Cached: the answer depends on
+    its arguments only."""
     import torch
     out = (ctypes.c_int * n_out)()
-    fn = _config_fn(name, len(ints))
+    fn = _config_fn(name, int_types or "i" * len(ints))
     with torch.cuda.device(device_index):
         err = fn(*ints, out)
     if err != 0:

@@ -117,26 +117,32 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_time_ms(fn, iters=20, warmup=3):
+def device_time_ms(fn, iters=20, warmup=3, kernels=None):
     """Mean device time, in ms, of the kernels one call of `fn` launches,
     from a torch.profiler trace: the kernel's own time where the host's
     launch path takes longer than the kernel, so that `time_ms` measures
-    the host."""
+    the host. With `kernels` (the launches one call makes), a trace that
+    holds another number of device events is taken again, and after three
+    such traces this raises: a trace that dropped kernels gives no time."""
     import torch
     from torch.autograd import DeviceType
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        raise RuntimeError("the profiler recorded no device events")
-    return sum(e.time_range.end - e.time_range.start
-               for e in kernels) / iters / 1e3
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if events and (kernels is None or len(events) == kernels * iters):
+            return sum(e.time_range.end - e.time_range.start
+                       for e in events) / iters / 1e3
+    raise RuntimeError(f"the profiler recorded {len(events)} device events "
+                       f"for {iters} calls"
+                       + (f" of {kernels} kernels" if kernels else ""))
 
 
 def profile_requests(seed, iters, sink):
