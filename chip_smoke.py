@@ -71,7 +71,35 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 times. Each request's logits are held against the same
                 program built with attn_impl="xla" (plain attention on the
                 card) on the same scope: max abs difference <= 1e-3;
-  4. train   -- GPT-2 small (dropout 0.1) train programs with Adam through
+  4. engine  -- GPT-2 small (fp32, weights from --seed) saved with
+                save_inference_model and served by
+                inference.create_engine on the card (ServingConfig:
+                8 slots, buckets 64-512, max_len 1024, decode_chunk 8,
+                block_size 16, prefix cache on; the paged arena 12 x 2 x
+                513 blocks x 12 heads x 16 x 64 fp32, ~605 MB): 16
+                requests from the seed, prompts 32-512 tokens, four
+                sharing a 256-token prefix, budgets 64-128 with no EOS,
+                8 greedy and 8 at temperature 0.8 with a seed each, all
+                submitted at once and drained after one warm-up request
+                a prefill bucket. Params and arena must be
+                on the card, every request must emit its whole budget,
+                every greedy token must lie within 1e-3 of the maximum
+                of a teacher-forced gpt_forward_logits over prompt +
+                stream (TF32 off), a second engine with decode_chunk 4
+                and overlap off must emit bitwise the same seeded
+                streams, and prefix-cache hits must be > 0. Prints TTFT
+                and TPOT p50/p99, output tokens/s, decode dispatches,
+                prefix-hit blocks, arena MB, the device events and
+                kernels of one decode iteration (a torch.profiler
+                trace of one dispatch) with its device busy and wall
+                time, the host's cost of issuing one small torch op,
+                and the phase's wall time. It runs in a child
+                process (this script with --engine-only; see
+                engine_in_child). This path runs no
+                hand-written kernel (decode attention is einsums, as in
+                the JAX package); the counts, zeroed just before the
+                requests and read just after, are printed;
+  5. train   -- GPT-2 small (dropout 0.1) train programs with Adam through
                 Executor.run on CUDAPlace(0): 3 steps at s=1024 b=2
                 (flash_fwd, flash_bwd_dkv, flash_bwd_dq) and 3 at s=512
                 b=4 (flash_small_fwd, flash_small_bwd). Counts are zeroed
@@ -87,7 +115,7 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 run's checks: losses, the parameters after 3 steps, and
                 step-1 gradients against the fp32 flash program's from the
                 same values and feed;
-  5. bert    -- BERT-base (BertConfig(): vocab 30522, hidden 768, 12
+  6. bert    -- BERT-base (BertConfig(): vocab 30522, hidden 768, 12
                 layers, 12 heads, ffn 3072) MLM pretrain steps through
                 Executor.run on CUDAPlace(0). Held run at s=512 b=16 with
                 each row's last 10-40 % padded, dropout 0: the
@@ -103,7 +131,7 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 others. Then bench.py's shape (s=128 b=128, einsum, AMP,
                 dropout 0.1, no flash kernel) for 3 steps. Step ms, tokens/s,
                 peak memory and MFU for each run;
-  6. resnet  -- ResNet-50 as tools/bench_resnet50.py builds it (224x224,
+  7. resnet  -- ResNet-50 as tools/bench_resnet50.py builds it (224x224,
                 1000 classes, NCHW, Momentum) through Executor.run and the
                 inference Predictor on CUDAPlace(0): 3 fp32 steps at batch 4
                 (lr 1e-3) held against the same program run on CPUPlace
@@ -119,14 +147,14 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 median step, img/s, MFU, peak memory. No hand-written
                 kernel runs on this path (its convs go to cuDNN): every
                 count zeroed just before it and read just after stays 0;
-  7. spike   -- the residual + LayerNorm spike's table
+  8. spike   -- the residual + LayerNorm spike's table
                 (paddle_tpu_torch.tools.spike_residual_ln) at its four bf16
                 shapes, the conv + BN spike's table (tools.spike_conv_bn)
                 at ResNet-50's five bottleneck 1x1 convs, and the head-slice
                 repro (tools.mosaic_repro_headslice) at its shape and at
                 GPT-2's attention shape, counts zeroed just before and read
                 just after;
-  8. times   -- each kernel at its main-path shape: CUDA-event time, the
+  9. times   -- each kernel at its main-path shape: CUDA-event time, the
                 plain version's time, a library call's time as a yardstick
                 only (the port never calls it: F.scaled_dot_product_attention
                 forward or its backward alone through autograd;
@@ -1285,7 +1313,233 @@ def phase_serve(seed):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: GPT-2 small training steps
+# phase 4: GPT-2 small through the continuous-batching serving engine
+# ---------------------------------------------------------------------------
+
+ENGINE_REQUESTS = 16
+ENGINE_PREFIX = 256      # tokens the shared-prefix requests have in common
+
+
+def _engine_requests(seed, vocab):
+    """16 requests from the seed: prompt lengths 32..512, four sharing a
+    256-token prefix, budgets 64..128 with no EOS, 8 greedy and 8 at
+    temperature 0.8 with a seed each."""
+    import numpy as np
+    rng = np.random.RandomState(seed + 1)
+    lens = rng.permutation(
+        np.linspace(32, 512, ENGINE_REQUESTS).astype(int))
+    prefix = rng.randint(0, vocab, ENGINE_PREFIX)
+    shared = [i for i in range(ENGINE_REQUESTS)
+              if lens[i] > ENGINE_PREFIX + 16][:4]
+    reqs = []
+    for i, n in enumerate(lens):
+        p = rng.randint(0, vocab, int(n))
+        if i in shared:
+            p[:ENGINE_PREFIX] = prefix
+        reqs.append({"prompt": p.astype("int32"),
+                     "max_new": int(rng.randint(64, 129)),
+                     "temperature": 0.0 if i % 2 == 0 else 0.8,
+                     "seed": 1000 + i, "shared": i in shared})
+    return reqs
+
+
+def _engine_warmup(engine, seed, vocab):
+    """One request at each prefill bucket through `engine` (every family
+    called once: the card's first launches and the allocator's growth
+    stay out of the measured run). Random prompts: the measured requests
+    cannot hash-hit their blocks."""
+    import numpy as np
+    rng = np.random.RandomState(seed + 2)
+    for i, n in enumerate(engine.buckets):
+        engine.submit(rng.randint(0, vocab, n).astype("int32"), 9,
+                      temperature=0.8 * (i % 2), seed=i)
+    engine.run_until_drained()
+
+
+def _op_cost_us():
+    """Host microseconds to issue one small torch op on the card (an
+    in-place add on one value, 2000 in a row, no sync between)."""
+    import torch
+    x = torch.zeros(1, device="cuda")
+    for _ in range(100):
+        x.add_(1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(2000):
+        x.add_(1)
+    host = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return host / 2000 * 1e6
+
+
+def _engine_run(engine, reqs):
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = [engine.submit(r["prompt"], r["max_new"],
+                         temperature=r["temperature"], seed=r["seed"])
+           for r in reqs]
+    steps = engine.run_until_drained()
+    torch.cuda.synchronize()
+    return out, steps, time.perf_counter() - t
+
+
+def _launches_per_iteration(engine):
+    """Device events and kernels of one decode dispatch (every slot
+    frozen after the drain: the same ops as a live one), each divided by
+    the chunk; the dispatch's device busy time and its wall time; the
+    device events of one sampler call over the whole pool."""
+    import torch
+    sched = engine.scheduler
+    chunk = sched.decode_chunk
+
+    def one():
+        with torch.no_grad():
+            sched._chunk_family()
+
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    events = _device_events(one)
+    kernels = [e for e in events
+               if not e[0].startswith(("Memcpy", "Memset"))]
+    s_dim, vocab = sched.kv.num_slots, engine.cfg.vocab_size
+    logits = torch.zeros((s_dim, vocab), device="cuda")
+    temps = torch.full((s_dim,), 0.8, device="cuda")
+    keys = sched._keys.clone()
+    sampler = _device_events(lambda: sched._sample(keys, logits, temps))
+    return {"host_us_per_small_op": _op_cost_us(),
+            "sampler_kernels_per_iteration": len(sampler),"device_events_per_iteration": len(events) / chunk,
+            "kernels_per_iteration": len(kernels) / chunk,
+            "device_busy_ms_per_iteration":
+                sum(ms for _, ms in events) / chunk,
+            "wall_ms_per_iteration": sorted(walls)[1] / chunk}
+
+
+def phase_engine(seed):
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import gpt_decode as gd
+    from paddle_tpu_torch.models.gpt import GPTConfig, gpt_lm_program
+    from paddle_tpu_torch.serving import ServingConfig
+
+    t_phase = time.perf_counter()
+    cfg = GPTConfig()                      # GPT-2 small, full width/depth
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    scope = ptt.Scope()
+    with ptt.unique_name_guard():
+        main, startup, fetch = gpt_lm_program(cfg, 1024, is_test=True)
+    startup.random_seed = seed
+    exe.run(startup, scope=scope)
+    d = os.path.join(WORK_DIR, "gpt2_engine")
+    ptt.io.save_inference_model(d, ["tokens"], [fetch["logits"]], exe,
+                                main_program=main, scope=scope)
+    del scope
+
+    def engine(**kw):
+        sc = dict(num_slots=8, max_queue=32,
+                  prefill_buckets=(64, 128, 256, 512), max_len=1024,
+                  decode_chunk=8, block_size=16, prefix_cache=True)
+        sc.update(kw)
+        return ptt.inference.create_engine(
+            ptt.inference.Config(d), cfg, ServingConfig(**sc))
+
+    eng = engine()
+    params = gd.param_tensors(eng.scheduler.params)
+    if not all(p.is_cuda for p in params) or not eng.kv.kv.is_cuda:
+        fail("engine: params or arena not on the card")
+    reqs = _engine_requests(seed, cfg.vocab_size)
+    _engine_warmup(eng, seed, cfg.vocab_size)
+    before = eng.stats()
+    names = list(KERNELS)
+    zero_counts(names)
+    # ---- the engine's main path: counts zeroed just before ----
+    out, steps, wall = _engine_run(eng, reqs)
+    hand = read_counts(names)
+    # ----------------------------------------------------------
+    for i, (r, q) in enumerate(zip(reqs, out)):
+        if not q.finished or len(q.tokens) != r["max_new"]:
+            fail(f"engine: request {i} emitted {len(q.tokens)} of "
+                 f"{r['max_new']} tokens (state {q.state})")
+    stats = eng.stats()
+    hits = stats["prefix_hits"] - before["prefix_hits"]
+    if hits <= 0:
+        fail("engine: no prefix-cache hits on the shared-prefix requests")
+
+    # greedy tokens against a teacher-forced full forward on the card
+    not_argmax, worst = 0, 0.0
+    with torch.no_grad():
+        for r, q in zip(reqs, out):
+            if r["temperature"] != 0.0:
+                continue
+            seq = q.output()
+            p_len = r["prompt"].size
+            logits = gd.gpt_forward_logits(eng.scheduler.params, cfg,
+                                           seq[None, :-1])[0, p_len - 1:]
+            toks = torch.as_tensor(seq[p_len:], device=logits.device).long()
+            gap = (logits.max(-1).values
+                   - logits.gather(-1, toks[:, None])[:, 0]).cpu().numpy()
+            worst = max(worst, float(gap.max()))
+            not_argmax += int((gap > 0).sum())
+    if not worst <= LOGIT_TOL:
+        fail(f"engine: a greedy token lies {worst} below the teacher-forced "
+             f"maximum (> {LOGIT_TOL})")
+    launches = _launches_per_iteration(eng)
+    ttft = np.array([q.metrics.ttft for q in out]) * 1e3
+    tpot = np.array([q.metrics.tpot for q in out]) * 1e3
+    n_tokens = sum(len(q.tokens) for q in out)
+    eng.close()
+    del eng, params
+    torch.cuda.empty_cache()
+
+    # a second engine, chunk 4 and no overlap: the same seeded streams
+    eng2 = engine(decode_chunk=4, overlap=False)
+    _engine_warmup(eng2, seed, cfg.vocab_size)
+    out2, steps2, wall2 = _engine_run(eng2, reqs)
+    diff = [i for i, (r, a, b) in enumerate(zip(reqs, out, out2))
+            if r["temperature"] != 0.0 and a.tokens != b.tokens]
+    greedy_same = sum(a.tokens == b.tokens for r, a, b in
+                      zip(reqs, out, out2) if r["temperature"] == 0.0)
+    eng2.close()
+    del eng2
+    torch.cuda.empty_cache()
+    shutil.rmtree(d, ignore_errors=True)
+    if diff:
+        fail(f"engine: seeded streams {diff} differ between decode_chunk 8 "
+             "with overlap and decode_chunk 4 without")
+    summary = {
+        "phase": "engine", "model": "gpt2-small", "requests": len(reqs),
+        "num_slots": 8, "decode_chunk": 8, "block_size": 16,
+        "ttft_p50_ms": float(np.percentile(ttft, 50)),
+        "ttft_p99_ms": float(np.percentile(ttft, 99)),
+        "tpot_p50_ms": float(np.percentile(tpot, 50)),
+        "tpot_p99_ms": float(np.percentile(tpot, 99)),
+        "output_tokens": n_tokens, "drain_s": wall, "steps": steps,
+        "output_tokens_per_s": n_tokens / wall,
+        "decode_dispatches": stats["dispatches"] - before["dispatches"],
+        "prefix_hit_blocks": hits,
+        "arena_mb": stats["pool_bytes"] / 2 ** 20,
+        "compiled_executables": stats["compiled_executables"],
+        **launches,
+        "greedy_tokens_not_exact_argmax": not_argmax,
+        "greedy_worst_gap": worst,
+        "seeded_identical_chunk4_no_overlap": True,
+        "greedy_identical_chunk4_no_overlap": greedy_same,
+        "chunk4_no_overlap_drain_s": wall2,
+        "chunk4_no_overlap_tokens_per_s": n_tokens / wall2,
+        "hand_kernel_launches": hand,
+        "wall_s": time.perf_counter() - t_phase}
+    emit(summary)
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 5: GPT-2 small training steps
 # ---------------------------------------------------------------------------
 
 TRAIN_STEPS = 3
@@ -1554,7 +1808,7 @@ def _gpt_amp(exe, seed, rng):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: BERT-base pretrain steps
+# phase 6: BERT-base pretrain steps
 # ---------------------------------------------------------------------------
 
 BERT_LR = 1e-4
@@ -1794,7 +2048,7 @@ def phase_bert(seed):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: ResNet-50, bench_resnet50's train program, and its serving
+# phase 7: ResNet-50, bench_resnet50's train program, and its serving
 # ---------------------------------------------------------------------------
 
 RESNET_LR = 1e-3
@@ -2094,7 +2348,7 @@ def phase_resnet(seed):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the spikes: residual + LayerNorm, conv + BN, the head-slice repro
+# phase 8: the spikes: residual + LayerNorm, conv + BN, the head-slice repro
 # ---------------------------------------------------------------------------
 
 def phase_spike(seed):
@@ -2126,7 +2380,7 @@ def phase_spike(seed):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: times at the main-path shapes
+# phase 9: times at the main-path shapes
 # ---------------------------------------------------------------------------
 
 def _pairs(sq, sk, causal):
@@ -2570,13 +2824,45 @@ def phase_times(serve, train, bert, spike, seed):
     return rows
 
 
+def engine_in_child(seed):
+    """Phase 4 in a process of its own (this script with --engine-only),
+    its JSON lines passed through, its summary returned. After the
+    engine's run, torch.profiler traces taken later in the same process
+    lost one kernel record a trace (PERF.md §6, the engine's calls 2-7),
+    which the times phase's device-time checks refuse; the child's exit
+    takes that state with it."""
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--seed", str(seed), "--engine-only"],
+                       cwd=HERE, capture_output=True, text=True,
+                       timeout=900)
+    sys.stderr.write(r.stderr)
+    lines = r.stdout.splitlines()
+    for line in lines:
+        print(line, flush=True)
+    if r.returncode != 0 or not lines:
+        fail(f"engine phase: the child process exited {r.returncode}")
+    return json.loads(lines[-1])
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--engine-only", action="store_true",
+                    help="run phase 4 alone and print its summary last "
+                         "(how the full run starts it, in a child "
+                         "process)")
     args = ap.parse_args()
     preflight()
     import torch
 
+    if args.engine_only:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            phase_engine(args.seed)
+        finally:
+            shutil.rmtree(WORK_DIR, ignore_errors=True)
+        return
     card = card_line()
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2596,6 +2882,7 @@ def main():
         build = phase_build()
         kernels = phase_kernels(args.seed)
         serve = phase_serve(args.seed)
+        engine = engine_in_child(args.seed)
         train = phase_train(args.seed)
         bert = phase_bert(args.seed)
         resnet = phase_resnet(args.seed)
@@ -2607,7 +2894,8 @@ def main():
         json.dump({"card": card, "seed": args.seed,
                    "wall_s": time.perf_counter() - t0, "build": build,
                    "kernel_cases": kernels, "serve": serve["summary"],
-                   "train": train["summaries"], "bert": bert["runs"],
+                   "engine": engine, "train": train["summaries"],
+                   "bert": bert["runs"],
                    "resnet": resnet, "spike": spike["rows"],
                    "spike_conv_bn": spike["conv_bn_rows"],
                    "requests": serve["requests"], "kernels": rows}, f,

@@ -7,8 +7,11 @@ nor paddle_tpu. It covers GPT-2 inference (Program -> Executor ->
 fused_attention, the native io format and the inference Predictor), the
 GPT-2 training step (append_backward, SGD/Adam, the attention backward on
 three Hopper kernels), the BERT MLM pretrain step with the bf16 AMP
-rewrite (`contrib.mixed_precision`) and ResNet training (Momentum, fp32 or
-AMP) and serving (`models.resnet`; convolutions through cuDNN).
+rewrite (`contrib.mixed_precision`), ResNet training (Momentum, fp32 or
+AMP) and serving (`models.resnet`; convolutions through cuDNN), and the
+continuous-batching GPT serving engine (`serving`,
+`inference.create_engine`) over the paged KV decode path of
+`models.gpt_decode`.
 
 Places are real: `Executor()` runs on `CUDAPlace(0)` and raises when no GPU
 is present; `Executor(CPUPlace())` runs on the CPU.
@@ -29,6 +32,8 @@ from . import io
 from . import observability
 from . import inference
 from . import contrib
+from . import profiler
+from . import serving
 
 __version__ = "0.1.0"
 
@@ -38,4 +43,5 @@ __all__ = ["Program", "Block", "Operator", "Variable", "Parameter",
            "name_scope", "Executor", "Scope", "global_scope", "scope_guard",
            "CPUPlace", "CUDAPlace", "append_backward", "gradients",
            "LayerHelper", "ParamAttr", "layers", "optimizer", "initializer",
-           "io", "observability", "inference", "contrib"]
+           "io", "observability", "inference", "contrib", "profiler",
+           "serving"]

@@ -9,7 +9,8 @@ Here the predictor loads a native model directory (`io.load_inference_model`)
 and runs it with the port's eager Executor. The place is real:
 `enable_use_gpu()` is the default and runs on `CUDAPlace(device_id)`;
 `disable_gpu()` runs on the CPU. A GPU config on a machine without one
-raises when the predictor is created. Not ported yet: `create_engine`,
+raises when the predictor is created. `create_engine` builds the
+continuous-batching serving engine on the same place. Not ported yet:
 `PredictorPool` and the `export_*` functions.
 """
 
@@ -19,7 +20,8 @@ from typing import List, Optional
 
 import numpy as np
 
-__all__ = ["Config", "AnalysisConfig", "Predictor", "create_predictor"]
+__all__ = ["Config", "AnalysisConfig", "Predictor", "create_predictor",
+           "create_engine"]
 
 
 class Config:
@@ -133,3 +135,38 @@ class Predictor:
 def create_predictor(config: Config) -> Predictor:
     """create_paddle_predictor analog."""
     return Predictor(config)
+
+
+def create_engine(config, gpt_config, serving=None, dtype=None,
+                  debug_port=None):
+    """Build a continuous-batching `serving.ServingEngine` from a saved
+    GPT model dir. Port of `paddle_tpu/inference/__init__.py:134`: the
+    model loads through the Predictor, and the engine reads the decode
+    weights out of the predictor's scope by the var names models/gpt.py's
+    programs create, so it serves on the predictor's place — the card
+    unless the Config says `disable_gpu()` (and a GPU config raises
+    without one).
+
+    config: inference.Config (or a model_dir string); gpt_config: the
+    models.gpt.GPTConfig the saved model was built with; serving: a
+    serving.ServingConfig (defaults apply when None). Not ported yet,
+    each raising NotImplementedError: dtype (ROADMAP A.1.4) and
+    debug_port (A.11)."""
+    from ..models.gpt_decode import collect_gpt_params
+    from ..serving import ServingConfig, ServingEngine
+
+    if dtype is not None:
+        raise NotImplementedError(
+            "create_engine(dtype=...) is not ported to paddle_tpu_torch "
+            "yet (ROADMAP A.1.4)")
+    if debug_port is not None:
+        raise NotImplementedError(
+            "create_engine(debug_port=...) is not ported to "
+            "paddle_tpu_torch yet (ROADMAP A.11)")
+    if isinstance(config, str):
+        config = Config(config)
+    pred = Predictor(config)
+    params = collect_gpt_params(pred._scope, gpt_config)
+    return ServingEngine(params, gpt_config,
+                         serving if serving is not None
+                         else ServingConfig())

@@ -1,0 +1,463 @@
+"""Stall watchdog + flight recorder: capture the moment things wedge.
+
+A copy of `paddle_tpu/observability/watchdog.py` (pure Python). The
+default flight-record directory lies under the process's temporary
+directory (`tempfile.gettempdir()`, which honours `TMPDIR`).
+
+The reference's monitor surface (pserver monitor RPCs, profiler state
+dumps) let an operator ask a *stuck* job what it was doing; a serving
+deployment needs that to happen automatically — by the time a human
+attaches, the interesting state is gone. This module is that layer:
+
+* `ProgressMonitor` — reads the progress heartbeats the serving engine
+  and the executor already publish in the metrics registry (per-engine
+  `serving_decode_steps_total`/`serving_prefills_total`/
+  `serving_tokens_out_total` with the busy gauges, process-wide
+  `executor_runs_total` with `executor_inflight_runs`) and remembers
+  when each last advanced. "Stalled" = busy (work admitted or a run in
+  flight) with no counter movement for longer than the threshold — an
+  idle engine is never a stall.
+* `FlightRecorder` — dumps everything a post-mortem needs into a
+  timestamped `flight_<ts>/` directory: all-thread stacks
+  (`stacks.txt`), the tracer ring as a chrome trace (`spans.json`), a
+  registry snapshot (`metrics.json`), and `meta.json` (reason, stalled
+  keys, pid). Retention is bounded: the oldest records beyond
+  `max_records` are deleted, so a flapping stall can't fill a disk.
+  Every dump increments `watchdog_dumps_total{reason=...}`.
+* `Watchdog` — a daemon thread polling the monitor; on stall it fires
+  the recorder once per stall episode (re-arming only after the stalled
+  series moves again). `start_watchdog()` installs the process-wide
+  instance; `dump_flight_record()` drives the same dump path manually,
+  and `notify_overload()` (called by `ServingEngine.submit` when it
+  sheds) captures overload moments with a cooldown.
+
+Nothing here touches the serving hot path: the watchdog reads the
+registry from its own thread, and the overload hook is a None-check
+unless a watchdog opted in to overload dumps.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import shutil
+import sys
+import tempfile
+import threading
+import time
+import traceback
+from typing import Any, Dict, List, Optional
+
+from .export import export_chrome_trace
+from .metrics import MetricsRegistry, get_registry
+from .tracer import Tracer, get_tracer
+from . import request_log as _request_log
+
+__all__ = ["ProgressMonitor", "FlightRecorder", "Watchdog",
+           "start_watchdog", "stop_watchdog", "get_watchdog",
+           "dump_flight_record", "notify_overload", "notify_alert",
+           "format_all_stacks"]
+
+DEFAULT_FLIGHT_DIR = os.path.join(tempfile.gettempdir(),
+                                  "paddle_tpu_torch_flight")
+
+# registry series feeding the per-engine heartbeat (the engine publishes
+# these; dispatches counts at chunk LAUNCH, so a device-side hang with the
+# host blocked in the fetch still shows its last enqueue before freezing)
+_ENGINE_PROGRESS = ("serving_decode_steps_total", "serving_prefills_total",
+                    "serving_tokens_out_total", "serving_dispatches_total")
+_ENGINE_BUSY = ("serving_active_slots", "serving_queue_depth")
+
+
+def format_all_stacks() -> str:
+    """Every thread's current Python stack, named — what `/stacksz` serves
+    and what the flight recorder writes to `stacks.txt`."""
+    names = {t.ident: t.name for t in threading.enumerate()}
+    lines: List[str] = []
+    for tid, frame in sorted(sys._current_frames().items()):
+        lines.append(f"--- thread {names.get(tid, '?')} (ident {tid}) ---")
+        lines.extend(l.rstrip("\n")
+                     for l in traceback.format_stack(frame))
+        lines.append("")
+    return "\n".join(lines)
+
+
+def _series_values(snap: Dict[str, Any], name: str) -> Dict[str, float]:
+    """{engine label (or "" for unlabeled): value} for one counter/gauge
+    family in a registry snapshot."""
+    out: Dict[str, float] = {}
+    for row in snap.get(name, {}).get("series", []):
+        out[row["labels"].get("engine", "")] = float(row.get("value", 0.0))
+    return out
+
+
+class ProgressMonitor:
+    """Tracks heartbeat counters across polls and ages their last change.
+
+    One instance per consumer (the watchdog thread owns one; each debug
+    server owns another for `/healthz`) — last-change times are relative
+    to THIS monitor's observation history, so a monitor created after a
+    stall began still converges on the true age within one threshold."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None,
+                 clock=time.monotonic):
+        self._registry = registry or get_registry()
+        self._clock = clock
+        # key -> [value, busy, last_change_mono, last_change_wall];
+        # locked: a DebugServer shares one monitor across concurrent
+        # /healthz handler threads
+        self._lock = threading.Lock()
+        self._entries: Dict[str, List[Any]] = {}
+
+    def observe(self) -> Dict[str, Dict[str, Any]]:
+        """Poll the registry once; return {key: {value, busy, age_s,
+        last_progress_unix}} for every engine plus the executor."""
+        snap = self._registry.snapshot()
+        now, wall = self._clock(), time.time()
+
+        progress: Dict[str, tuple] = {}
+        engines: Dict[str, float] = {}
+        for fam in _ENGINE_PROGRESS:
+            for label, v in _series_values(snap, fam).items():
+                engines[label] = engines.get(label, 0.0) + v
+        for label, value in engines.items():
+            busy = any(_series_values(snap, fam).get(label, 0.0) > 0
+                       for fam in _ENGINE_BUSY)
+            progress[f"engine:{label}"] = (value, busy)
+
+        runs = _series_values(snap, "executor_runs_total").get("")
+        if runs is not None:
+            inflight = _series_values(
+                snap, "executor_inflight_runs").get("", 0.0)
+            progress["executor"] = (runs, inflight > 0)
+
+        out: Dict[str, Dict[str, Any]] = {}
+        with self._lock:
+            for key, (value, busy) in progress.items():
+                ent = self._entries.get(key)
+                if ent is None or value != ent[0]:
+                    ent = self._entries[key] = [value, busy, now, wall]
+                else:
+                    ent[1] = busy
+                out[key] = {"value": value, "busy": busy,
+                            "age_s": max(0.0, now - ent[2]),
+                            "last_progress_unix": ent[3]}
+            # retired engines (unregistered series) drop out of the
+            # snapshot; forget them so they can't be reported stalled
+            # forever
+            for key in list(self._entries):
+                if key not in progress:
+                    self._entries.pop(key, None)
+        return out
+
+    def stalled(self, threshold: float) -> Dict[str, Dict[str, Any]]:
+        """Keys busy with no progress for >= threshold seconds."""
+        return {k: e for k, e in self.observe().items()
+                if e["busy"] and e["age_s"] >= threshold}
+
+
+class FlightRecorder:
+    """Writes flight-record directories with bounded retention.
+
+    Retention is scoped to THIS recorder's own dumps: when several
+    writers share a base_dir (two processes on one host, or a watchdog
+    recorder next to a manual one), each keeps its newest `max_records`
+    without deleting anyone else's post-mortem evidence."""
+
+    def __init__(self, base_dir: str = DEFAULT_FLIGHT_DIR,
+                 max_records: int = 5,
+                 registry: Optional[MetricsRegistry] = None,
+                 tracer: Optional[Tracer] = None):
+        if max_records < 1:
+            raise ValueError(f"max_records must be >= 1, got {max_records}")
+        self.base_dir = base_dir
+        self.max_records = int(max_records)
+        self._registry = registry or get_registry()
+        self._tracer = tracer or get_tracer()
+        self._lock = threading.Lock()
+        self._last_stamp: Optional[str] = None
+        self._suffix = 0
+        self._written: List[str] = []   # this recorder's dumps, oldest first
+        self._dumps = self._registry.counter(
+            "watchdog_dumps_total", "flight records written, by reason")
+
+    def dump(self, reason: str = "manual",
+             details: Optional[Dict[str, Any]] = None) -> str:
+        """Write one `flight_<ts>/` record; returns its path. Thread-safe
+        (a manual dump can race the watchdog's)."""
+        with self._lock:
+            os.makedirs(self.base_dir, exist_ok=True)
+            stamp = time.strftime("%Y%m%d-%H%M%S")
+            # same-second dumps get a monotonic zero-padded suffix (never
+            # reset within the second, even if retention deleted earlier
+            # records — reusing a freed name would put a NEW record first
+            # in sort order and make retention evict the newest)
+            if stamp == self._last_stamp:
+                self._suffix += 1
+            else:
+                self._last_stamp, self._suffix = stamp, 0
+            while True:
+                name = (f"flight_{stamp}" if self._suffix == 0
+                        else f"flight_{stamp}-{self._suffix:03d}")
+                path = os.path.join(self.base_dir, name)
+                if not os.path.exists(path):  # another recorder's dump
+                    break
+                self._suffix += 1
+            os.makedirs(path)
+            with open(os.path.join(path, "stacks.txt"), "w") as f:
+                f.write(format_all_stacks())
+            export_chrome_trace(os.path.join(path, "spans.json"),
+                                self._tracer)
+            with open(os.path.join(path, "metrics.json"), "w") as f:
+                f.write(self._registry.to_json(indent=2))
+            meta = {"reason": reason, "pid": os.getpid(),
+                    "time_unix": time.time(),
+                    "time_iso": time.strftime("%Y-%m-%dT%H:%M:%S%z"),
+                    "details": details or {}}
+            # in-flight request ids at dump time (when a request log is
+            # installed): a stall/overload record joins against the
+            # request event log on these ids — which requests were live
+            # when things wedged, not just which series stopped moving
+            rlog = _request_log.get_request_log()
+            meta["inflight_request_ids"] = (rlog.inflight_ids()
+                                            if rlog is not None else [])
+            with open(os.path.join(path, "meta.json"), "w") as f:
+                json.dump(meta, f, indent=2, default=str)
+            self._written.append(path)
+            self._retain()
+            self._dumps.labels(reason=reason).inc()
+            return path
+
+    def _retain(self) -> None:
+        # bound only OUR dumps — a shared base_dir must not let one
+        # flapping recorder evict another writer's records
+        while len(self._written) > self.max_records:
+            shutil.rmtree(self._written.pop(0), ignore_errors=True)
+
+    def records(self) -> List[str]:
+        """Existing record paths, oldest first."""
+        try:
+            return [os.path.join(self.base_dir, d)
+                    for d in sorted(os.listdir(self.base_dir))
+                    if d.startswith("flight_")
+                    and os.path.isdir(os.path.join(self.base_dir, d))]
+        except OSError:
+            return []
+
+
+class Watchdog:
+    """Daemon thread firing the flight recorder on stalls (and, when
+    `dump_on_overload`, on admission-queue sheds via `notify_overload`).
+
+    One dump per stall episode: a stalled key is re-armed only after its
+    counter moves again, so a 10-minute hang produces one record, not
+    one per poll. `overload_cooldown` rate-limits shed dumps the same
+    way (sheds arrive per-request, not per-episode)."""
+
+    def __init__(self, stall_threshold: float = 30.0,
+                 poll_interval: Optional[float] = None,
+                 recorder: Optional[FlightRecorder] = None,
+                 base_dir: str = DEFAULT_FLIGHT_DIR, max_records: int = 5,
+                 registry: Optional[MetricsRegistry] = None,
+                 dump_on_overload: bool = True,
+                 overload_cooldown: Optional[float] = None):
+        if stall_threshold <= 0:
+            raise ValueError(
+                f"stall_threshold must be > 0, got {stall_threshold}")
+        self.stall_threshold = float(stall_threshold)
+        self.poll_interval = float(
+            poll_interval if poll_interval is not None
+            else max(0.01, stall_threshold / 4.0))
+        self.recorder = recorder or FlightRecorder(
+            base_dir, max_records, registry=registry)
+        self.dump_on_overload = bool(dump_on_overload)
+        self.overload_cooldown = float(
+            overload_cooldown if overload_cooldown is not None
+            else stall_threshold)
+        self._monitor = ProgressMonitor(registry)
+        self._stop = threading.Event()
+        self._wake = threading.Event()     # overload() nudges the thread
+        self._thread: Optional[threading.Thread] = None
+        self._dumped: set = set()          # keys in a dumped stall episode
+        self._last_overload = -math.inf
+        self._overload_lock = threading.Lock()
+        self._pending_overload: Optional[str] = None
+        self._last_alert = -math.inf
+        self._pending_alert: Optional[Dict[str, str]] = None
+
+    # -- lifecycle -----------------------------------------------------------
+
+    @property
+    def running(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    def start(self) -> "Watchdog":
+        if self.running:
+            return self
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._loop,
+                                        name="pt-watchdog", daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._wake.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None
+
+    def _loop(self) -> None:
+        while True:
+            self._wake.wait(self.poll_interval)
+            self._wake.clear()
+            if self._stop.is_set():
+                return
+            try:
+                self.check()
+            except Exception:
+                # the watchdog must never take the service down with it
+                traceback.print_exc()
+
+    # -- stall detection -----------------------------------------------------
+
+    def check(self) -> Optional[str]:
+        """One poll: dump a queued overload and/or a newly-detected
+        stall. Returns the last record path written this poll (also the
+        unit-test entry point)."""
+        with self._overload_lock:
+            pending, self._pending_overload = self._pending_overload, None
+            alert, self._pending_alert = self._pending_alert, None
+        path = None
+        if pending is not None:
+            path = self.recorder.dump("overload", {"engine": pending})
+        if alert is not None:
+            path = self.recorder.dump("alert", alert)
+        stalled = self._monitor.stalled(self.stall_threshold)
+        self._dumped &= set(stalled)        # progressed keys re-arm
+        fresh = {k: v for k, v in stalled.items() if k not in self._dumped}
+        if not fresh:
+            return path
+        path = self.recorder.dump(
+            "stall",
+            {"stalled": {k: {"age_s": round(v["age_s"], 3),
+                             "value": v["value"]} for k, v in fresh.items()},
+             "threshold_s": self.stall_threshold})
+        # mark AFTER the dump succeeded: a failed write (disk full) must
+        # retry next poll, not permanently swallow the episode's evidence
+        self._dumped |= set(fresh)
+        return path
+
+    # -- overload hook -------------------------------------------------------
+
+    def overload(self, engine_label: str) -> None:
+        """Called (via notify_overload) when an engine sheds a request.
+        Queues the flight record onto the watchdog's own thread — the
+        shedding caller is in an overloaded submit path and must not
+        pay for stack/span/registry serialization and disk I/O."""
+        if not self.dump_on_overload:
+            return
+        with self._overload_lock:
+            now = time.monotonic()
+            if now - self._last_overload < self.overload_cooldown:
+                return
+            self._last_overload = now
+            self._pending_overload = engine_label
+        self._wake.set()                    # dump promptly, not next poll
+
+    def alert(self, rule: str, severity: str = "warn") -> None:
+        """Called (via notify_alert) when an alert rule starts firing.
+        Same queue-onto-own-thread discipline as overload(): the alert
+        engine's evaluate pass must not pay for flight-record I/O, and
+        `overload_cooldown` rate-limits alert dumps the same way (the
+        engine already fires once per episode; the cooldown guards
+        against many rules firing together in one incident)."""
+        with self._overload_lock:
+            now = time.monotonic()
+            if now - self._last_alert < self.overload_cooldown:
+                return
+            self._last_alert = now
+            self._pending_alert = {"rule": rule, "severity": severity}
+        self._wake.set()
+
+    def status(self) -> Dict[str, Any]:
+        return {"running": self.running,
+                "stall_threshold_s": self.stall_threshold,
+                "poll_interval_s": self.poll_interval,
+                "flight_dir": self.recorder.base_dir,
+                "records": len(self.recorder.records())}
+
+
+# ---------------------------------------------------------------------------
+# process-wide instance + module-level entry points
+# ---------------------------------------------------------------------------
+
+_WATCHDOG: Optional[Watchdog] = None
+_WATCHDOG_LOCK = threading.Lock()
+# one recorder per base_dir: repeated dump_flight_record() calls share a
+# retention history, so the documented bound actually holds on this path
+_RECORDERS: Dict[str, FlightRecorder] = {}
+
+
+def get_watchdog() -> Optional[Watchdog]:
+    return _WATCHDOG
+
+
+def start_watchdog(**kw) -> Watchdog:
+    """Start (or return) the process-wide watchdog. kwargs are Watchdog's;
+    ignored when one is already running."""
+    global _WATCHDOG
+    with _WATCHDOG_LOCK:
+        if _WATCHDOG is None or not _WATCHDOG.running:
+            _WATCHDOG = Watchdog(**kw)
+            _WATCHDOG.start()
+        return _WATCHDOG
+
+
+def stop_watchdog() -> None:
+    global _WATCHDOG
+    with _WATCHDOG_LOCK:
+        if _WATCHDOG is not None:
+            _WATCHDOG.stop()
+            _WATCHDOG = None
+
+
+def dump_flight_record(reason: str = "manual",
+                       details: Optional[Dict[str, Any]] = None,
+                       base_dir: Optional[str] = None) -> str:
+    """Write a flight record NOW (operator escape hatch / incident hook).
+    Uses the running watchdog's recorder when one exists (same directory,
+    same retention); otherwise a process-cached recorder per base_dir —
+    repeated calls share retention, so records stay bounded."""
+    wd = _WATCHDOG
+    if wd is not None and base_dir is None:
+        return wd.recorder.dump(reason, details)
+    key = base_dir if base_dir is not None else DEFAULT_FLIGHT_DIR
+    with _WATCHDOG_LOCK:
+        rec = _RECORDERS.get(key)
+        if rec is None:
+            rec = _RECORDERS[key] = FlightRecorder(key)
+    return rec.dump(reason, details)
+
+
+def notify_overload(engine_label: str) -> None:
+    """ServingEngine.submit's shed-path hook: a None-check when no
+    watchdog is installed — the overload path stays allocation-free."""
+    wd = _WATCHDOG
+    if wd is not None:
+        try:
+            wd.overload(engine_label)
+        except Exception:
+            traceback.print_exc()  # shedding must still raise Overload
+
+
+def notify_alert(rule: str, severity: str = "warn") -> None:
+    """The alert engine's firing hook: one flight record per alert
+    episode when a watchdog is installed, a None-check otherwise."""
+    wd = _WATCHDOG
+    if wd is not None:
+        try:
+            wd.alert(rule, severity)
+        except Exception:
+            traceback.print_exc()  # alerting must outlive the recorder
