@@ -99,6 +99,32 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 hand-written kernel (decode attention is einsums, as in
                 the JAX package); the counts, zeroed just before the
                 requests and read just after, are printed;
+ 4b. server  -- the HTTP server tier over the same GPT-2 small (fp32,
+                weights from --seed, saved and loaded as in phase 4):
+                paddle_tpu_torch.server.serve with 2 replica engines on
+                the card (ServingConfig: 8 slots, buckets 64-512,
+                max_len 1024, decode_chunk 8, block_size 16, preempt on,
+                SERVER_KV_BLOCKS blocks an arena, about half of what 8
+                slots of the longest request need), on 127.0.0.1:0.
+                SERVER_REQUESTS streaming HTTP requests from client
+                threads (prompts 32-512, budgets 64-128, half greedy and
+                half at temperature 0.8 with a seed each, two tenants),
+                one Router.migrate of a live stream to the other replica
+                and one restart_replica while streams run. Every stream
+                must end with its whole budget; every greedy token must
+                lie within 1e-3 of the teacher-forced maximum (TF32 off);
+                every seeded stream must equal bitwise the same request
+                served by one engine with preempt off and the default
+                arena; preemptions and swap-ins > 0, the migration and
+                the restart counted once each, /metrics and /healthz
+                answer, params and arenas on the card. Prints TTFT and
+                TPOT p50/p99 as the client sees them, output tokens/s,
+                preemptions, swap-out and swap-in ms (mean, and the
+                histograms' p50), bytes a swap, the migration's and the
+                restart's wall ms and the phase's wall time. It runs in
+                a child process (--server-only), like phase 4; the
+                hand-kernel counts, zeroed before the requests and read
+                after, are printed (this path runs none);
   5. train   -- GPT-2 small (dropout 0.1) train programs with Adam through
                 Executor.run on CUDAPlace(0): 3 steps at s=1024 b=2
                 (flash_fwd, flash_bwd_dkv, flash_bwd_dq) and 3 at s=512
@@ -1317,6 +1343,10 @@ def phase_serve(seed):
 # ---------------------------------------------------------------------------
 
 ENGINE_REQUESTS = 16
+SERVER_REQUESTS = 20
+# blocks an arena of the server phase: 8 slots of the longest request
+# (512 + 128 positions, 40 blocks) would need 320
+SERVER_KV_BLOCKS = 160
 ENGINE_PREFIX = 256      # tokens the shared-prefix requests have in common
 
 
@@ -1532,6 +1562,334 @@ def phase_engine(seed):
         "greedy_identical_chunk4_no_overlap": greedy_same,
         "chunk4_no_overlap_drain_s": wall2,
         "chunk4_no_overlap_tokens_per_s": n_tokens / wall2,
+        "hand_kernel_launches": hand,
+        "wall_s": time.perf_counter() - t_phase}
+    emit(summary)
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the HTTP server tier (two preempting replicas on the card)
+# ---------------------------------------------------------------------------
+
+def _server_requests(seed, vocab):
+    """SERVER_REQUESTS requests from the seed: prompt lengths 32..512,
+    budgets 64..128 with no EOS, even ones greedy, odd ones at
+    temperature 0.8 with a seed each, tenants alternating."""
+    import numpy as np
+    rng = np.random.RandomState(seed + 3)
+    lens = rng.permutation(
+        np.linspace(32, 512, SERVER_REQUESTS).astype(int))
+    return [{"prompt": rng.randint(0, vocab, int(n)).astype("int32"),
+             "max_new": int(rng.randint(64, 129)),
+             "temperature": 0.0 if i % 2 == 0 else 0.8,
+             "seed": 2000 + i, "tenant": "gold" if i % 2 else "free"}
+            for i, n in enumerate(lens)]
+
+
+def _sse(port, payload, timeout=600):
+    """POST /v1/generate and read the SSE stream, stamping each token's
+    arrival. Returns (status, tokens, stamps, done)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", "/v1/generate", json.dumps(payload),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        if r.status != 200:
+            return r.status, [], [], r.read().decode()
+        tokens, stamps, done, event = [], [], None, "message"
+        for line in iter(r.readline, b""):
+            line = line.decode().rstrip("\n")
+            if not line:
+                event = "message"
+            elif line.startswith("event: "):
+                event = line[7:]
+            elif line.startswith("data: "):
+                obj = json.loads(line[6:])
+                if event == "done":
+                    done = obj
+                else:
+                    tokens.append(obj["token"])
+                    stamps.append(time.perf_counter())
+        return r.status, tokens, stamps, done
+    finally:
+        conn.close()
+
+
+def _http_get(port, path):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        return r.status, r.read().decode()
+    finally:
+        conn.close()
+
+
+def _live_handle(replica, min_emitted=2):
+    """A stream routed to `replica` that has emitted and not finished."""
+    with replica._lock:
+        live = [h for h in replica._handles
+                if h.finish_reason is None and h.emitted >= min_emitted]
+    return max(live, key=lambda h: h.submit_kw["max_new_tokens"]
+               - h.emitted) if live else None
+
+
+def _greedy_worst_gap(params, cfg, reqs, streams):
+    """(tokens not the exact argmax, worst gap below the maximum) of the
+    greedy streams against a teacher-forced full forward on the card."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import gpt_decode as gd
+    not_argmax, worst = 0, 0.0
+    with torch.no_grad():
+        for r, toks in zip(reqs, streams):
+            if r["temperature"] != 0.0:
+                continue
+            seq = np.concatenate([r["prompt"], np.asarray(toks, "int32")])
+            p_len = r["prompt"].size
+            logits = gd.gpt_forward_logits(params, cfg,
+                                           seq[None, :-1])[0, p_len - 1:]
+            t = torch.as_tensor(seq[p_len:], device=logits.device).long()
+            gap = (logits.max(-1).values
+                   - logits.gather(-1, t[:, None])[:, 0]).cpu().numpy()
+            worst = max(worst, float(gap.max()))
+            not_argmax += int((gap > 0).sum())
+    return not_argmax, worst
+
+
+def phase_server(seed):
+    import threading
+
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import gpt_decode as gd
+    from paddle_tpu_torch.models.gpt import GPTConfig, gpt_lm_program
+    from paddle_tpu_torch.server import ServerConfig
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    t_phase = time.perf_counter()
+    cfg = GPTConfig()                      # GPT-2 small, full width/depth
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    scope = ptt.Scope()
+    with ptt.unique_name_guard():
+        main, startup, fetch = gpt_lm_program(cfg, 1024, is_test=True)
+    startup.random_seed = seed
+    exe.run(startup, scope=scope)
+    d = os.path.join(WORK_DIR, "gpt2_server")
+    ptt.io.save_inference_model(d, ["tokens"], [fetch["logits"]], exe,
+                                main_program=main, scope=scope)
+    del scope
+    pred = ptt.inference.create_predictor(ptt.inference.Config(d))
+    params = gd.collect_gpt_params(pred._scope, cfg)
+    if not all(p.is_cuda for p in gd.param_tensors(params)):
+        fail("server: params not on the card")
+    serving = dict(num_slots=8, max_queue=32,
+                   prefill_buckets=(64, 128, 256, 512), max_len=1024,
+                   decode_chunk=8, block_size=16)
+    srv = ptt.server.serve(params, cfg, ServerConfig(
+        host="127.0.0.1", port=0, replicas=2,
+        serving=ServingConfig(preempt=True, kv_blocks=SERVER_KV_BLOCKS,
+                              **serving)))
+    router = srv.router
+    engines = [r.engine for r in router.replicas]
+    if not all(e.kv.kv.is_cuda for e in engines):
+        fail("server: a replica's arena is not on the card")
+    reqs = _server_requests(seed, cfg.vocab_size)
+    results = [None] * len(reqs)
+
+    def client(i, r, out):
+        t_sent = time.perf_counter()
+        status, toks, stamps, done = _sse(srv.port, {
+            "prompt": [int(t) for t in r["prompt"]],
+            "max_new_tokens": r["max_new"],
+            "temperature": r["temperature"], "seed": r["seed"],
+            "tenant": r["tenant"]})
+        out[i] = (status, toks, stamps, done, t_sent)
+
+    def run_clients(batch, out):
+        threads = [threading.Thread(target=client, args=(i, r, out))
+                   for i, r in enumerate(batch)]
+        for t in threads:
+            t.start()
+        return threads
+
+    # warm-up: two requests a prefill bucket through the wire (each
+    # replica's families called once), then the measured traffic
+    rng = np.random.RandomState(seed + 4)
+    warm = [{"prompt": rng.randint(0, cfg.vocab_size, n).astype("int32"),
+             "max_new": 9, "temperature": 0.8 * (i % 2), "seed": i,
+             "tenant": "warm"}
+            for i, n in enumerate(2 * list(serving["prefill_buckets"]))]
+    warm_out = [None] * len(warm)
+    for t in run_clients(warm, warm_out):
+        t.join()
+    if any(o is None or o[0] != 200 for o in warm_out):
+        fail(f"server: a warm-up request failed: {warm_out}")
+    names = list(KERNELS)
+    log = ptt.observability.RequestLog()
+    ptt.observability.install_request_log(log)
+    zero_counts(names)
+    # ---- the server's main path: counts zeroed just before ----
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    threads = run_clients(reqs, results)
+    # one migration of a live stream: the stream with the most tokens
+    # still to come; an order the stream outran (it finished during the
+    # fence: "aborted:...") moves nothing and is ordered again
+    deadline = time.monotonic() + 300
+    aborted = []
+    while True:
+        handle = mig_src = None
+        while handle is None and time.monotonic() < deadline:
+            for i, rep in enumerate(router.replicas):
+                handle = _live_handle(rep)
+                if handle is not None:
+                    mig_src = i
+                    break
+            time.sleep(0.01)
+        if handle is None:
+            fail(f"server: no live stream to migrate ({aborted})")
+        t_m = time.perf_counter()
+        order = router.migrate(handle, target=1 - mig_src)
+        if not order.done.wait(300):
+            fail("server: Router.migrate did not finish")
+        mig_ms = (time.perf_counter() - t_m) * 1e3
+        if order.outcome == "migrated":
+            break
+        if not str(order.outcome).startswith("aborted") or len(aborted) > 3:
+            fail(f"server: Router.migrate ended {order.outcome!r}")
+        aborted.append(order.outcome)
+    # restart the replica holding more live streams, while they run
+    loads = [r.load() for r in router.replicas]
+    restart_i = int(np.argmax(loads))
+    t_r = time.perf_counter()
+    if not router.restart_replica(restart_i, timeout=600):
+        fail(f"server: restart_replica({restart_i}) did not complete")
+    restart_ms = (time.perf_counter() - t_r) * 1e3
+    for t in threads:
+        t.join(timeout=900)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hand = read_counts(names)
+    # ----------------------------------------------------------
+    ptt.observability.uninstall_request_log()
+    engines.append(router.replicas[restart_i].engine)
+    for i, (r, res) in enumerate(zip(reqs, results)):
+        if res is None or res[0] != 200:
+            fail(f"server: request {i} got {res and res[0]}: "
+                 f"{res and res[3]}")
+        status, toks, stamps, done, _ = res
+        if len(toks) != r["max_new"] or done is None \
+                or done.get("finish_reason") != "length":
+            fail(f"server: request {i} streamed {len(toks)} of "
+                 f"{r['max_new']} tokens ({done})")
+    status_m, metrics_text = _http_get(srv.port, "/metrics")
+    status_h, healthz = _http_get(srv.port, "/healthz")
+    if status_m != 200 or "serving_preemptions_total" not in metrics_text:
+        fail(f"server: /metrics answered {status_m}")
+    if status_h != 200 or json.loads(healthz)["status"] != "ok":
+        fail(f"server: /healthz answered {status_h}: {healthz[:300]}")
+    migrations_in = sum(r.migrations_in for r in router.replicas)
+    restarts = [r.restarts_total for r in router.replicas]
+    rebal = router.metrics._registry.snapshot().get(
+        "server_migrations_total", {}).get("series", [])
+    n_rebalance = sum(row["value"] for row in rebal
+                      if row["labels"].get("router") == router.metrics.label
+                      and row["labels"].get("reason") == "rebalance")
+    srv.shutdown()
+    if n_rebalance != 1:
+        fail(f"server: {n_rebalance} rebalance migrations counted, not 1")
+    if sorted(restarts) != [0, 1]:
+        fail(f"server: replica restarts {restarts}, not one")
+    stats = [e.stats() for e in engines]
+    preemptions = sum(s["preemptions"] for s in stats)
+    swap_ins = sum(s["swap_ins"] for s in stats)
+    if preemptions <= 0 or swap_ins <= 0:
+        fail(f"server: preemptions {preemptions}, swap_ins {swap_ins}: "
+             "the arena did not force a swap")
+
+    def swap_ms(key, count):
+        """The engines' mean swap time (weighted by their counts) and
+        each engine's histogram p50, in ms."""
+        n = sum(st[count] for st in stats)
+        mean = sum(st[f"mean_{key}"] * st[count] for st in stats
+                   if st[count]) / n * 1e3
+        return mean, [st[f"p50_{key}"] * 1e3 for st in stats
+                      if st[count]]
+
+    out_ms, out_p50 = swap_ms("swap_out", "preemptions")
+    in_ms, in_p50 = swap_ms("swap_in", "swap_ins")
+    events = log.recent()
+    block_bytes = engines[0].kv.pool_bytes / engines[0].kv.num_blocks
+    swap_blocks = [e["blocks"] for e in events if e["kind"] == "preempted"]
+    mig_bytes = [e["bytes"] for e in events if e["kind"] == "migrate_out"]
+
+    # greedy tokens against the teacher-forced maximum; seeded streams
+    # against one engine with preempt off and the default arena
+    streams = [res[1] for res in results]
+    not_argmax, worst = _greedy_worst_gap(params, cfg, reqs, streams)
+    if not worst <= LOGIT_TOL:
+        fail(f"server: a greedy token lies {worst} below the teacher-forced "
+             f"maximum (> {LOGIT_TOL})")
+    # the same requests through one engine alone, called as a library:
+    # the yardstick of the server tier's cost
+    ref = ServingEngine(params, cfg, ServingConfig(**serving))
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter()
+    ref_out = [ref.submit(r["prompt"], r["max_new"],
+                          temperature=r["temperature"], seed=r["seed"])
+               for r in reqs]
+    ref.run_until_drained()
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t_ref
+    if ref.stats()["preemptions"]:
+        fail("server: the reference engine preempted")
+    diff = [i for i, (r, q) in enumerate(zip(reqs, ref_out))
+            if r["temperature"] > 0 and q.tokens != streams[i]]
+    ref_tpot = np.array([q.metrics.tpot for q in ref_out]) * 1e3
+    ref.close()
+    del ref, pred
+    torch.cuda.empty_cache()
+    shutil.rmtree(d, ignore_errors=True)
+    if diff:
+        fail(f"server: seeded streams {diff} differ from an unpreempted "
+             "engine's")
+    ttft = np.array([res[2][0] - res[4] for res in results]) * 1e3
+    tpot = np.array([(res[2][-1] - res[2][0]) / (len(res[2]) - 1)
+                     for res in results]) * 1e3
+    n_tokens = sum(len(s) for s in streams)
+    summary = {
+        "phase": "server", "model": "gpt2-small", "replicas": 2,
+        "requests": len(reqs), "num_slots": 8, "decode_chunk": 8,
+        "block_size": 16, "kv_blocks": SERVER_KV_BLOCKS,
+        "arena_mb": engines[0].kv.pool_bytes / 2 ** 20,
+        "client_ttft_p50_ms": float(np.percentile(ttft, 50)),
+        "client_ttft_p99_ms": float(np.percentile(ttft, 99)),
+        "client_tpot_p50_ms": float(np.percentile(tpot, 50)),
+        "client_tpot_p99_ms": float(np.percentile(tpot, 99)),
+        "output_tokens": n_tokens, "drain_s": wall,
+        "output_tokens_per_s": n_tokens / wall,
+        "preemptions": preemptions, "swap_ins": swap_ins,
+        "swap_out_ms_mean": out_ms, "swap_in_ms_mean": in_ms,
+        "swap_out_ms_p50_by_engine": out_p50,
+        "swap_in_ms_p50_by_engine": in_p50,
+        "swap_bytes_mean": (float(np.mean(swap_blocks)) * block_bytes
+                            if swap_blocks else None),
+        "migration_bytes": mig_bytes,
+        "migrate_wall_ms": mig_ms, "migrate_orders_aborted": aborted,
+        "restart_wall_ms": restart_ms,
+        "restart_replica": restart_i, "rebalance_migrations": n_rebalance,
+        "migrations_in": migrations_in, "replica_restarts": restarts,
+        "greedy_tokens_not_exact_argmax": not_argmax,
+        "greedy_worst_gap": worst,
+        "seeded_identical_to_unpreempted": True,
+        "one_engine_library_tokens_per_s": n_tokens / ref_wall,
+        "one_engine_library_tpot_p50_ms": float(np.percentile(ref_tpot,
+                                                              50)),
         "hand_kernel_launches": hand,
         "wall_s": time.perf_counter() - t_phase}
     emit(summary)
@@ -2824,15 +3182,15 @@ def phase_times(serve, train, bert, spike, seed):
     return rows
 
 
-def engine_in_child(seed):
-    """Phase 4 in a process of its own (this script with --engine-only),
-    its JSON lines passed through, its summary returned. After the
-    engine's run, torch.profiler traces taken later in the same process
-    lost one kernel record a trace (PERF.md §6, the engine's calls 2-7),
-    which the times phase's device-time checks refuse; the child's exit
-    takes that state with it."""
+def in_child(seed, flag):
+    """Phase 4 or 4b in a process of its own (this script with
+    --engine-only or --server-only), its JSON lines passed through, its
+    summary returned. After the engine's run, torch.profiler traces taken
+    later in the same process lost one kernel record a trace (PERF.md §6,
+    the engine's calls 2-7), which the times phase's device-time checks
+    refuse; the child's exit takes that state with it."""
     r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--seed", str(seed), "--engine-only"],
+                        "--seed", str(seed), flag],
                        cwd=HERE, capture_output=True, text=True,
                        timeout=900)
     sys.stderr.write(r.stderr)
@@ -2840,26 +3198,29 @@ def engine_in_child(seed):
     for line in lines:
         print(line, flush=True)
     if r.returncode != 0 or not lines:
-        fail(f"engine phase: the child process exited {r.returncode}")
+        fail(f"{flag} phase: the child process exited {r.returncode}")
     return json.loads(lines[-1])
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--engine-only", action="store_true",
-                    help="run phase 4 alone and print its summary last "
-                         "(how the full run starts it, in a child "
-                         "process)")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--engine-only", action="store_true",
+                      help="run phase 4 alone and print its summary last "
+                           "(how the full run starts it, in a child "
+                           "process)")
+    only.add_argument("--server-only", action="store_true",
+                      help="run phase 4b alone, likewise")
     args = ap.parse_args()
     preflight()
     import torch
 
-    if args.engine_only:
+    if args.engine_only or args.server_only:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         try:
-            phase_engine(args.seed)
+            (phase_engine if args.engine_only else phase_server)(args.seed)
         finally:
             shutil.rmtree(WORK_DIR, ignore_errors=True)
         return
@@ -2882,7 +3243,8 @@ def main():
         build = phase_build()
         kernels = phase_kernels(args.seed)
         serve = phase_serve(args.seed)
-        engine = engine_in_child(args.seed)
+        engine = in_child(args.seed, "--engine-only")
+        server = in_child(args.seed, "--server-only")
         train = phase_train(args.seed)
         bert = phase_bert(args.seed)
         resnet = phase_resnet(args.seed)
@@ -2894,7 +3256,8 @@ def main():
         json.dump({"card": card, "seed": args.seed,
                    "wall_s": time.perf_counter() - t0, "build": build,
                    "kernel_cases": kernels, "serve": serve["summary"],
-                   "engine": engine, "train": train["summaries"],
+                   "engine": engine, "server": server,
+                   "train": train["summaries"],
                    "bert": bert["runs"],
                    "resnet": resnet, "spike": spike["rows"],
                    "spike_conv_bn": spike["conv_bn_rows"],

@@ -11,7 +11,9 @@ rewrite (`contrib.mixed_precision`), ResNet training (Momentum, fp32 or
 AMP) and serving (`models.resnet`; convolutions through cuDNN), and the
 continuous-batching GPT serving engine (`serving`,
 `inference.create_engine`) over the paged KV decode path of
-`models.gpt_decode`.
+`models.gpt_decode`, with host-swap preemption and live migration, and
+the HTTP server tier over it (`server.serve`: router, replicas, the
+debug and alert planes of `observability`).
 
 Places are real: `Executor()` runs on `CUDAPlace(0)` and raises when no GPU
 is present; `Executor(CPUPlace())` runs on the CPU.
@@ -34,6 +36,7 @@ from . import inference
 from . import contrib
 from . import profiler
 from . import serving
+from . import server
 
 __version__ = "0.1.0"
 
@@ -44,4 +47,4 @@ __all__ = ["Program", "Block", "Operator", "Variable", "Parameter",
            "CPUPlace", "CUDAPlace", "append_backward", "gradients",
            "LayerHelper", "ParamAttr", "layers", "optimizer", "initializer",
            "io", "observability", "inference", "contrib", "profiler",
-           "serving"]
+           "serving", "server"]

@@ -149,9 +149,12 @@ def create_engine(config, gpt_config, serving=None, dtype=None,
 
     config: inference.Config (or a model_dir string); gpt_config: the
     models.gpt.GPTConfig the saved model was built with; serving: a
-    serving.ServingConfig (defaults apply when None). Not ported yet,
-    each raising NotImplementedError: dtype (ROADMAP A.1.4) and
-    debug_port (A.11)."""
+    serving.ServingConfig (defaults apply when None); debug_port: when
+    not None, start (or join) the observability debug HTTP server on
+    that port (0 = ephemeral) — the bound port lands on
+    `engine.debug_port`, each engine holds one server reference, and
+    the server stops when the last referencing engine closes. Not
+    ported yet, raising NotImplementedError: dtype (ROADMAP A.1.4)."""
     from ..models.gpt_decode import collect_gpt_params
     from ..serving import ServingConfig, ServingEngine
 
@@ -159,14 +162,23 @@ def create_engine(config, gpt_config, serving=None, dtype=None,
         raise NotImplementedError(
             "create_engine(dtype=...) is not ported to paddle_tpu_torch "
             "yet (ROADMAP A.1.4)")
-    if debug_port is not None:
-        raise NotImplementedError(
-            "create_engine(debug_port=...) is not ported to "
-            "paddle_tpu_torch yet (ROADMAP A.11)")
     if isinstance(config, str):
         config = Config(config)
     pred = Predictor(config)
     params = collect_gpt_params(pred._scope, gpt_config)
-    return ServingEngine(params, gpt_config,
-                         serving if serving is not None
-                         else ServingConfig())
+    engine = ServingEngine(params, gpt_config,
+                           serving if serving is not None
+                           else ServingConfig())
+    if debug_port is not None:
+        from ..observability.debug_server import acquire_debug_server
+        try:
+            # refcounted: each engine holds one reference; close()
+            # releases it and the shared server stops with the last one
+            engine.debug_port, engine._debug_server_ref = \
+                acquire_debug_server(port=debug_port)
+        except Exception:
+            # the engine already registered its metrics series; losing
+            # the handle here would leak them
+            engine.close()
+            raise
+    return engine

@@ -97,10 +97,10 @@ def bert_encoder(src_ids, sent_ids, input_mask, cfg: BertConfig,
     points) is not ported."""
     if cut_vars is not None:
         raise _not_ported("cut_vars (pipeline cut points)",
-                          "the parallelism slice (ROADMAP.md queue A.10)")
+                          "the parallelism slice (ROADMAP.md queue A.8)")
     if cfg.cp_axis:
         raise _not_ported("context parallelism (cp_axis)",
-                          "the parallelism slice (ROADMAP.md queue A.10)")
+                          "the parallelism slice (ROADMAP.md queue A.8)")
     seq = int(src_ids.shape[1])
     check_max_pos(seq, cfg)
 
@@ -148,13 +148,13 @@ def bert_pretrain_program(cfg: BertConfig, seq_len: int, is_test=False,
     applies the bf16 rewrite (f32 master weights); fetches carry "loss"."""
     if optimizer == "lamb":
         raise _not_ported("optimizer='lamb'",
-                          "the optimizer slice (ROADMAP.md queue A.3)")
+                          "the optimizer slice (ROADMAP.md queue A.5)")
     if pipeline_microbatches:
         raise _not_ported("pipeline_microbatches (PipelineOptimizer)",
-                          "the parallelism slice (ROADMAP.md queue A.10)")
+                          "the parallelism slice (ROADMAP.md queue A.8)")
     if recompute:
         raise _not_ported("recompute=True (transpiler/recompute.py)",
-                          "the transpiler slice (ROADMAP.md queue A.11)")
+                          "the transpiler slice (ROADMAP.md queue A.9)")
     main, startup = pt.Program(), pt.Program()
     with pt.program_guard(main, startup):
         src = pt.layers.data("src_ids", [seq_len], dtype="int64")

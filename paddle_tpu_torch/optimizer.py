@@ -203,7 +203,7 @@ class LambOptimizer(Optimizer):
     def __init__(self, *args, **kw):
         raise NotImplementedError(
             "Lamb is not ported to paddle_tpu_torch yet; it comes with the "
-            "optimizer slice (ROADMAP.md queue A.3)")
+            "optimizer slice (ROADMAP.md queue A.5)")
 
 
 SGD = SGDOptimizer

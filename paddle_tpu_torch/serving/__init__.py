@@ -6,15 +6,16 @@ hashed prefix sharing (`kv_cache`), an iteration-level scheduler that
 admits by pages needed and interleaves suffix prefills with fused
 chunked decode over a device-resident, overlapped pipeline
 (`scheduler`), a request-lifecycle engine with bounded admission and
-streaming callbacks (`engine`), request/engine metrics (`metrics`) and
-deterministic fault injection (`faults`).
+streaming callbacks, host-swap preemption and cross-engine migration
+(`engine`), the portable migration record (`migration`), request/engine
+metrics (`metrics`) and deterministic fault injection (`faults`).
 
 Entry points: `inference.create_engine(config, gpt_config)` to serve a
 saved model dir, or `ServingEngine(params, cfg)` over a parameter tree
 from `models.gpt_decode.collect_gpt_params`.
 
-Not ported yet (ROADMAP A.1): adapters, migration, preemption,
-speculation, quantized serving; the mesh (A.8).
+Not ported yet (ROADMAP A.1): adapters, speculation, quantized
+serving; the mesh (A.8).
 """
 
 from .engine import (DEFAULT_RETRY_AFTER_S, EngineOverloadError,
@@ -22,11 +23,15 @@ from .engine import (DEFAULT_RETRY_AFTER_S, EngineOverloadError,
 from .faults import FaultPlan, InjectedFault
 from .kv_cache import ShapeBuckets, SlotKVCache
 from .metrics import EngineMetrics, RequestMetrics
+from .migration import (TICKET_VERSION, MigrationError, MigrationTicket,
+                        TicketError)
 from .scheduler import (CompileJournal, ContinuousBatchingScheduler,
-                        SequenceEvent)
+                        SequenceEvent, SwappedSequence)
 
 __all__ = ["ServingEngine", "ServingConfig", "GenerationRequest",
            "EngineOverloadError", "DEFAULT_RETRY_AFTER_S",
            "ShapeBuckets", "SlotKVCache", "CompileJournal",
-           "ContinuousBatchingScheduler", "SequenceEvent", "FaultPlan",
-           "InjectedFault", "EngineMetrics", "RequestMetrics"]
+           "ContinuousBatchingScheduler", "SequenceEvent",
+           "SwappedSequence", "FaultPlan", "InjectedFault",
+           "EngineMetrics", "RequestMetrics", "MigrationTicket",
+           "MigrationError", "TicketError", "TICKET_VERSION"]

@@ -15,6 +15,14 @@ completed block; see scheduler.py); run_until_drained() loops — while
 submit() itself is lock-protected so producer threads can feed a driver
 loop.
 
+With `ServingConfig(preempt=True)` page pressure evicts a policy-chosen
+running sequence to a host swap pool (`scheduler.swap_out`) and resumes
+it, with strict priority over new admissions, once pages free; and
+`migrate_out`/`migrate_in` hand a running or parked sequence to another
+engine as a `migration.MigrationTicket` (the router's rebalancing and
+restarts). Resumed and migrated streams are bit-identical to
+never-preempted runs.
+
 The engine runs on its parameters' device (`inference.create_engine`
 puts them on the card unless the Config says `disable_gpu()`).
 `ServingConfig` keeps the JAX signature; each knob of a serving slice
@@ -101,10 +109,16 @@ class ServingConfig:
     (serving_tick_phase_seconds{phase}, a bounded per-tick ring, and the
     compile journal). Both off by default, adding no series.
 
+    Preemption knobs: preempt=True evicts, under page pressure, the
+    policy-chosen RUNNING sequence's pages to a host swap pool and
+    resumes it when pages free, instead of only queueing new
+    admissions. preempt_policy: "newest" (default), "oldest", or a
+    callable over the running table. Resumed streams are bit-identical
+    to never-preempted runs.
+
     Not ported yet, each raising NotImplementedError when set:
-    preempt/preempt_policy (ROADMAP A.1.2), speculate_k/speculate_ngram
-    (A.1.3), weight_dtype/kv_dtype (A.1.4), max_adapters/adapter_rank
-    (A.1.5), mesh_shape (A.8)."""
+    speculate_k/speculate_ngram (ROADMAP A.1.3), weight_dtype/kv_dtype
+    (A.1.4), max_adapters/adapter_rank (A.1.5), mesh_shape (A.8)."""
 
     def __init__(self, num_slots: int = 4, max_queue: int = 16,
                  prefill_buckets: Optional[Sequence[int]] = None,
@@ -129,9 +143,6 @@ class ServingConfig:
                  tick_profile: bool = False,
                  clock: Callable[[], float] = time.monotonic):
         for knob, set_, item in (
-                ("preempt=True", preempt, "A.1.2"),
-                (f"preempt_policy={preempt_policy!r}",
-                 preempt_policy != "newest", "A.1.2"),
                 (f"speculate_k={speculate_k}", speculate_k, "A.1.3"),
                 (f"speculate_ngram={speculate_ngram}",
                  speculate_ngram != 512, "A.1.3"),
@@ -156,6 +167,12 @@ class ServingConfig:
         self.block_size = int(block_size)
         self.kv_blocks = kv_blocks
         self.prefix_cache = bool(prefix_cache)
+        self.preempt = bool(preempt)
+        self.preempt_policy = preempt_policy
+        # speculation at its only accepted value (migration tickets
+        # check it)
+        self.speculate_k = 0
+        self.speculate_ngram = int(speculate_ngram)
         self.decode_chunk = int(decode_chunk)
         self.overlap = bool(overlap)
         if prefill_chunk is not None and int(prefill_chunk) < 1:
@@ -194,6 +211,7 @@ class GenerationRequest:
         self.state = "queued"
         self.metrics = RequestMetrics(clock)
         self.request_id = request_id
+        self.adapter_id = 0                    # no adapters (A.1.5)
         self._submit_ns: Optional[int] = None  # tracer queue-wait anchor
 
     @property
@@ -282,6 +300,9 @@ class ServingEngine:
         self.device = params["wte"].device
         self.weight_bytes = int(sum(t.numel() * t.element_size()
                                     for t in _gd.param_tensors(params)))
+        # no adapter pool (ROADMAP A.1.5): the server and migration
+        # tickets read this
+        self.adapters = None
         self._weight_dtype = str(params["wte"].dtype).replace("torch.", "")
         self.kv = SlotKVCache(cfg, serving.num_slots, max_len,
                               _gd.compute_dtype(params),
@@ -316,13 +337,32 @@ class ServingEngine:
             journal = CompileJournal()
             journal.on_compile = self._on_compile
             self.scheduler.compile_journal = journal
+            # /tickz + /compilez read through the debug server's
+            # perf-source registry; close() unregisters them
+            from ..observability import debug_server as _dbg
+            _dbg.register_perf_source(
+                "tick", self.metrics.engine_label, self._tick_records)
+            _dbg.register_perf_source(
+                "compile", self.metrics.engine_label,
+                self._compile_snapshot)
         self._sync_geometry_gauges()
         self._queue: List[GenerationRequest] = []
         self._pending_cancels: List[GenerationRequest] = []
+        # host swap pool: SwappedSequence records of preempted or
+        # adopted sequences, FIFO (oldest-preempted resumes first).
+        # Driver-thread state, like the scheduler.
+        self._swapped: List[Any] = []
         self.faults = serving.fault_plan
         self._step_no = 0
         self._lock = threading.Lock()
+        # drain flag (begin_drain): migration refuses on a draining
+        # engine; stepping and swap-in of parked sequences go on
+        self._draining = False
         self._rid_counter = itertools.count()
+        self.debug_port: Optional[int] = None   # set by create_engine
+        # debug-server release token from acquire_debug_server (None =
+        # this engine holds no reference); set by create_engine
+        self._debug_server_ref: Optional[int] = None
 
     @property
     def faults(self):
@@ -475,10 +515,34 @@ class ServingEngine:
             # apply deferred cancels first (scheduler state is only ever
             # touched from the driver thread; cancel() just marks)
             for req in self._pending_cancels:
-                self.scheduler.cancel(req)
+                if not self.scheduler.cancel(req):
+                    # not in a slot: the request may be parked in the
+                    # host swap pool — drop its record (its pages were
+                    # freed at swap-out)
+                    n = len(self._swapped)
+                    self._swapped = [s for s in self._swapped
+                                     if s.req is not req]
+                    if len(self._swapped) != n:
+                        self.metrics.swapped_slots = len(self._swapped)
             self._pending_cancels.clear()
         if tp is not None:
             tp.lap("bookkeeping")
+        # resume-first: parked sequences have strict priority over new
+        # admissions for freed pages and slots. FIFO scan — oldest
+        # first, but a record that does not fit yet does not block a
+        # later one that does.
+        if self._swapped:
+            for sw in list(self._swapped):
+                if not self.scheduler.can_swap_in(sw):
+                    continue
+                t0 = time.perf_counter()
+                slot = self.scheduler.swap_in(sw)
+                assert slot is not None  # checked, same thread
+                self._swapped.remove(sw)
+                self.metrics.swap_ins += 1
+                self.metrics.observe_swap("swap_in",
+                                          time.perf_counter() - t0)
+            self.metrics.swapped_slots = len(self._swapped)
         with self._lock:
             limit = self.config.max_admits_per_step
             can_take = self.kv.free_count
@@ -551,6 +615,7 @@ class ServingEngine:
         if tp is not None:
             tp.lap("stream")
         self.metrics.active_slots = self.kv.active_count
+        self.metrics.swapped_slots = len(self._swapped)
         self.metrics.kv_blocks_used = self.kv.blocks_used
         self.metrics.kv_blocks_cached = self.kv.blocks_cached
         self.metrics.prefix_cache_hits = self.kv.prefix_hits
@@ -564,11 +629,232 @@ class ServingEngine:
         return emitted
 
     def _admission_feasible(self, req, step_no: int) -> bool:
-        """Can `req` take a slot + pages RIGHT NOW? Injected page
-        shortages first (requeue), then the real allocator check."""
+        """Can `req` take a slot + pages RIGHT NOW? Applies, in order:
+        injected page shortages (requeue, never preempt — a forced
+        shortage simulates transient pressure), the swap-pool page
+        reservation (parked sequences have strict priority over new
+        admissions for freed pages), the real allocator check, and
+        finally — preemption on, nothing already parked — eviction of
+        running sequences until the admission fits."""
         if self.faults is not None and self.faults.deny_pages(step_no):
             return False
-        return self.scheduler.can_admit(req.prompt, req.max_new_tokens)
+        if self._swapped:
+            # reserve the parked sequences' blocks against what this
+            # admission would actually consume (prefix hits on live
+            # blocks are free)
+            reserved = sum(s.n_blocks for s in self._swapped)
+            need = self.kv.blocks_needed(
+                req.prompt, req.prompt.size + req.max_new_tokens)
+            if self.kv.blocks_available < reserved + need:
+                return False
+        if self.scheduler.can_admit(req.prompt, req.max_new_tokens):
+            return True
+        if not self.config.preempt or self._swapped:
+            # preempting while sequences already wait in the swap pool
+            # would ping-pong residents: pressure with a non-empty pool
+            # always queues
+            return False
+        while not self.scheduler.can_admit(req.prompt,
+                                           req.max_new_tokens):
+            if not self._preempt_once(req):
+                return False
+        return True
+
+    def _preempt_once(self, req) -> bool:
+        """Evict one policy-chosen RUNNING sequence to the host swap
+        pool. Returns True when admission should be re-checked: either
+        a victim moved out, or the fence's collected retirements already
+        freed the pages."""
+        if self.scheduler.active_count == 0:
+            return False
+        # swap_out needs an empty pipeline; the fence's tokens fan out
+        # NOW (and may retire slots — re-check before evicting)
+        self._fence()
+        if self.scheduler.can_admit(req.prompt, req.max_new_tokens):
+            return True
+        slot = self.scheduler.pick_victim(self.config.preempt_policy)
+        if slot is None:
+            return False
+        t0 = time.perf_counter()
+        sw = self.scheduler.swap_out(slot)
+        self._swapped.append(sw)
+        self.metrics.preemptions += 1
+        self.metrics.observe_swap("swap_out", time.perf_counter() - t0)
+        self.metrics.swapped_slots = len(self._swapped)
+        return True
+
+    def _fence(self) -> None:
+        """Drain the overlap pipeline and fan its tokens out NOW — the
+        precondition for swap_out/migrate_out (a block in flight could
+        still carry the victim's tokens). Per-dispatch batches feed the
+        same decode_steps / tokens-per-dispatch telemetry step() does."""
+        for batch in self.scheduler._sync_batches():
+            if batch:
+                self.metrics.decode_steps += 1
+                self.metrics.observe_dispatch_tokens(len(batch))
+            for event in batch:
+                self._emit(event)
+
+    @property
+    def swapped_count(self) -> int:
+        """Preempted sequences currently parked in the host swap pool
+        (they still owe tokens: drain loops count them as work)."""
+        return len(self._swapped)
+
+    @property
+    def mesh_shape(self):
+        """This engine's serving mesh geometry: (1,), one card."""
+        return self.kv.mesh_shape
+
+    # -- cross-replica migration ---------------------------------------------
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def begin_drain(self) -> None:
+        """Flag the engine as draining: from here on migrate_out and
+        migrate_in REFUSE with MigrationError — a sequence handed off
+        during drain could never resume. Stepping, run_until_drained
+        and swap-in of parked sequences go on. Idempotent."""
+        self._draining = True
+
+    def migrate_out(self, request) -> "Any":
+        """Extract one RUNNING or PARKED sequence into a portable
+        MigrationTicket: fence the pipeline (its tokens fan out
+        normally), copy the sequence's KV blocks + decode carry to the
+        host through the swap-out path, free its pages and slot, and
+        detach the stream (the GenerationRequest left behind goes
+        state="migrated" and never emits again). `request` is a
+        GenerationRequest or its request_id. DRIVER-THREAD ONLY.
+
+        Raises MigrationError, with the sequence left where it was, when
+        the engine is draining, when the request is not running or
+        parked here, or when the fence finishes it first. An injected
+        extract-phase fault fires after the fence and before any state
+        moves."""
+        from .migration import MigrationError, MigrationTicket
+
+        if self._draining:
+            raise MigrationError(
+                "engine is draining; migrate_out refused — the drain "
+                "loop finishes residents in place")
+        rid = request if isinstance(request, str) \
+            else getattr(request, "request_id", None)
+        rlog = _request_log.get_request_log()
+        # parked first: a swap-pool record is already on the host — the
+        # handoff is a pure host-side wrap, no fence, no device call
+        for sw in self._swapped:
+            if getattr(sw.req, "request_id", None) == rid:
+                if sw.req.state != "running":
+                    raise MigrationError(
+                        f"request {rid} is {sw.req.state}, not "
+                        "migratable")
+                if self.faults is not None:
+                    self.faults.migration_phase("extract")
+                self._swapped.remove(sw)
+                self.metrics.swapped_slots = len(self._swapped)
+                sw.req.state = "migrated"
+                ticket = MigrationTicket.from_swapped(
+                    sw, self.kv.block_size, mesh_shape=self.mesh_shape)
+                if rlog is not None:
+                    rlog.event("migrate_out", request_id=rid,
+                               replica=self.metrics.engine_label,
+                               phase="parked", blocks=ticket.n_blocks,
+                               bytes=ticket.swap_bytes,
+                               produced=ticket.produced,
+                               adapter_id=ticket.adapter_id)
+                return ticket
+
+        # mid-chunked-prefill: the fill cursor is not ticketable — a
+        # typed refusal; the sequence migrates once its first token
+        # lands
+        for pf in self.scheduler._prefilling.values():
+            if getattr(pf.req, "request_id", None) == rid:
+                raise MigrationError(
+                    f"request {rid} is mid-prefill (chunked-prefill "
+                    "cursor not yet ticketable); migrate_out refused — "
+                    "retry after its first token")
+
+        def _find_slot():
+            return next(
+                (s for s, st in self.scheduler._running.items()
+                 if getattr(st.req, "request_id", None) == rid
+                 and st.req.state == "running"), None)
+
+        if _find_slot() is None:
+            raise MigrationError(
+                f"request {rid} is not running or parked on this "
+                "engine (queued requests re-route without a ticket)")
+        # fence BEFORE extraction: in-flight blocks may still carry the
+        # sequence's tokens; they stream to the client normally
+        self._fence()
+        if self.faults is not None:
+            self.faults.migration_phase("extract")
+        slot = _find_slot()
+        if slot is None:
+            raise MigrationError(
+                f"request {rid} finished during the migration fence")
+        # journal=False: a handoff, not page pressure
+        sw = self.scheduler.swap_out(slot, journal=False)
+        sw.req.state = "migrated"
+        ticket = MigrationTicket.from_swapped(
+            sw, self.kv.block_size, mesh_shape=self.mesh_shape)
+        if rlog is not None:
+            rlog.event("migrate_out", request_id=rid,
+                       replica=self.metrics.engine_label,
+                       phase="running", blocks=ticket.n_blocks,
+                       bytes=ticket.swap_bytes,
+                       produced=ticket.produced,
+                       adapter_id=ticket.adapter_id)
+        return ticket
+
+    def migrate_in(self, ticket, on_token: Optional[Callable] = None
+                   ) -> GenerationRequest:
+        """Adopt a migrated sequence: validate the ticket (checksum +
+        geometry — TicketError rejects it whole, nothing mutated), mint
+        a fresh GenerationRequest continuing the SAME client stream
+        (emitted prefix pre-loaded, so budget math and finish_reason
+        land on the token a never-migrated run would), and park the
+        sequence in the host swap pool, whose resume-first rule gives it
+        strict priority over new admissions. The restored key row
+        continues the per-token split chain, so the resumed stream is
+        bit-identical wherever it lands. DRIVER-THREAD ONLY. Raises
+        MigrationError while draining; an injected adopt-phase fault
+        fires before any state changes."""
+        from .migration import MigrationError
+
+        if self._draining:
+            raise MigrationError(
+                "engine is draining; migrate_in refused — not adopting "
+                "new residents")
+        if self.faults is not None:
+            self.faults.migration_phase("adopt")
+        # a ticket with drafter rows, a scale plane or an adapter fails
+        # here (TicketError): this engine has none of them
+        ticket.validate_for(self)
+        req = GenerationRequest(
+            ticket.prompt, ticket.max_new, ticket.temperature,
+            ticket.seed, ticket.eos_id, on_token, self.config.clock,
+            request_id=f"{self.metrics.engine_label}-"
+                       f"{next(self._rid_counter)}")
+        req.tokens = list(ticket.tokens)
+        req.state = "running"
+        # adoption stamps: queue_wait/ttft here measure the handoff-to-
+        # next-token gap; client-facing SLO cuts live on the router's
+        # StreamHandle and span the whole migration
+        req.metrics.mark_submitted()
+        req.metrics.mark_admitted()
+        self._swapped.append(ticket.to_swapped(req))
+        self.metrics.swapped_slots = len(self._swapped)
+        rlog = _request_log.get_request_log()
+        if rlog is not None:
+            rlog.event("migrate_in", request_id=req.request_id,
+                       replica=self.metrics.engine_label,
+                       rerouted_from=ticket.request_id,
+                       bytes=ticket.swap_bytes,
+                       produced=ticket.produced, adapter_id=0)
+        return req
 
     def _on_dispatch_launched(self) -> None:
         self.metrics.dispatches += 1
@@ -589,11 +875,23 @@ class ServingEngine:
         None unless ServingConfig(tick_profile=True)."""
         return self.scheduler.compile_journal
 
-    def tick_records(self) -> List[Dict[str, Any]]:
-        """The bounded per-tick flight ring, oldest first (empty unless
-        tick_profile)."""
+    def _tick_records(self) -> List[Dict[str, Any]]:
+        """The /tickz perf-source provider: the bounded per-tick flight
+        ring, oldest first (empty unless tick_profile)."""
         return list(self._tick_ring) if self._tick_ring is not None \
             else []
+
+    tick_records = _tick_records
+
+    def _compile_snapshot(self) -> Dict[str, Any]:
+        """The /compilez perf-source provider: the journal's per-family
+        attribution table plus the compile-event records."""
+        journal = self.scheduler.compile_journal
+        if journal is None:
+            return {"families": {}, "records": []}
+        snap = journal.snapshot()
+        snap["records"] = list(journal.records)
+        return snap
 
     def _finish_tick(self, step_no: int, emitted: int) -> None:
         """Publish one completed tick: per-phase histogram samples, a
@@ -620,9 +918,11 @@ class ServingEngine:
                 "serving", {"step": step_no, "emitted": emitted})
 
     def run_until_drained(self, max_steps: Optional[int] = None) -> int:
-        """Step until queue and slots are empty; returns steps taken."""
+        """Step until queue, slots and swap pool are empty; returns
+        steps taken."""
         steps = 0
-        while self._queue or self.scheduler.active_count:
+        while (self._queue or self.scheduler.active_count
+               or self._swapped):
             self.step()
             steps += 1
             if max_steps is not None and steps >= max_steps:
@@ -672,9 +972,22 @@ class ServingEngine:
 
     def close(self) -> None:
         """Retire the engine: remove its labeled series from the global
-        metrics registry so scrapes stop reporting a dead engine.
+        metrics registry so scrapes stop reporting a dead engine, drop
+        its /tickz + /compilez providers, and release its debug-server
+        reference (inference.create_engine(debug_port=...)) — the shared
+        server stops only when the last referencing engine closes.
         stats()/metrics keep working locally afterwards."""
         self.metrics.unregister()
+        if self._tick is not None:
+            from ..observability import debug_server as _dbg
+            _dbg.unregister_perf_source("tick",
+                                        self.metrics.engine_label)
+            _dbg.unregister_perf_source("compile",
+                                        self.metrics.engine_label)
+        if self._debug_server_ref is not None:
+            from ..observability.debug_server import release_debug_server
+            token, self._debug_server_ref = self._debug_server_ref, None
+            release_debug_server(token)
 
     def stats(self) -> Dict[str, Any]:
         s = self.metrics.snapshot()
@@ -682,6 +995,8 @@ class ServingEngine:
         s["queue_depth"] = len(self._queue)
         s["weight_dtype"] = self._weight_dtype
         s["weight_bytes"] = self.weight_bytes
+        # host memory the swap pool pins (0 when nothing is parked)
+        s["swap_pool_bytes"] = sum(sw.swap_bytes for sw in self._swapped)
         s["compiled_executables"] = self.scheduler.compile_count
         s["engine_label"] = self.metrics.engine_label
         return s

@@ -1,8 +1,9 @@
 """Deterministic fault injection for the serving stack.
 
 A copy of `paddle_tpu/serving/faults.py` (pure Python). The port's
-engine calls `begin_step`, `deny_pages` and `before_dispatch`; the
-migration hook waits for the migration slice (ROADMAP A.1.2).
+engine calls `begin_step`, `deny_pages` and `before_dispatch`, and
+`migration_phase` at the extract (`migrate_out`) and adopt
+(`migrate_in`) phases; the router calls it at the transfer phase.
 
 The reference's production layers assume components fail (pserver
 retry semantics, multi-trainer supervision); testing the matching

@@ -26,11 +26,15 @@ Host-side bookkeeping (slots/blocks/refcounts/hashes) lives here; the
 scheduler writes the arena in place (the JAX engine donates it), so
 `cache.kv` is the same tensor for the engine's life.
 
-Not ported yet: the int8 arena with its scale plane (`kv_dtype`), a
-sharded arena (`mesh_shards`, `arena_device`) — each raises
-NotImplementedError — and the host-swap adoption helpers
-(`can_adopt`, `adopt_blocks`, `mapped_block_count`, `blocks_needed`),
-which only preemption uses (ROADMAP A.1).
+Host-swap preemption and migration resume a sequence through
+`can_adopt`/`adopt_blocks` (private blocks, never the prefix cache);
+`mapped_block_count` says what a swap-out copies and `blocks_needed`
+what an admission would consume while parked sequences hold a page
+reservation.
+
+Not ported yet: the int8 arena with its scale plane (`kv_dtype`) and a
+sharded arena (`mesh_shards`, `arena_device`); each raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -352,6 +356,20 @@ class SlotKVCache:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         return self._plan(prompt, total_positions, adapter_id)[4]
 
+    def blocks_needed(self, prompt: np.ndarray,
+                      total_positions: int, adapter_id: int = 0) -> int:
+        """Blocks a map_slot() of this request would actually CONSUME
+        from blocks_available RIGHT NOW: fresh pages (total minus
+        prefix-cache hits) PLUS the hit blocks currently sitting in the
+        LRU pool — claiming those increfs them out of the evictable
+        supply. Hits on blocks a live sequence already references are
+        free. Non-mutating (the planner's memoized digest walk); the
+        number the engine's swap-pool page reservation uses."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        _, hit_blocks, lru_hits, total_blocks, _ = \
+            self._plan(prompt, total_positions, adapter_id)
+        return total_blocks - len(hit_blocks) + lru_hits
+
     def map_slot(self, slot: int, prompt: np.ndarray,
                  total_positions: int,
                  register: bool = True,
@@ -461,6 +479,43 @@ class SlotKVCache:
                                     self.blocks_used)
         return row
 
+    def mapped_block_count(self, slot: int) -> int:
+        """Blocks currently mapped into `slot`'s page row — what a
+        host-swap of this slot must copy out and later re-adopt."""
+        return len(self._slot_blocks[slot])
+
+    # -- host-swap adoption -------------------------------------------------
+
+    def can_adopt(self, n_blocks: int) -> bool:
+        """Feasibility of adopt_blocks() RIGHT NOW: the arena can supply
+        `n_blocks` private blocks (free + LRU-evictable)."""
+        if n_blocks < 1:
+            raise ValueError(f"n_blocks must be >= 1, got {n_blocks}")
+        return n_blocks <= self.blocks_available
+
+    def adopt_blocks(self, slot: int, n_blocks: int,
+                     length: int) -> np.ndarray:
+        """Claim `n_blocks` PRIVATE blocks for a swapped-in sequence and
+        install them in `slot`'s page row (length = live positions).
+
+        Unlike map_slot() this never consults or feeds the prefix
+        cache: the blocks' contents are about to be restored from the
+        host swap pool, and a swapped-in prefix re-registering its
+        hashes would race the admission that may have re-registered the
+        same digests while the sequence was out. Returns the page row
+        ((max_pages,) int32, scratch-padded) to scatter the payload
+        through; caller must have checked can_adopt()."""
+        if self._slot_blocks[slot]:
+            raise ValueError(f"slot {slot} already has mapped blocks")
+        if not self.can_adopt(n_blocks):
+            raise ValueError(
+                f"arena cannot supply {n_blocks} blocks "
+                f"({self.blocks_available} available)")
+        blocks = [self._take_block() for _ in range(n_blocks)]
+        for b in blocks:
+            self._incref(b)
+        return self._install_blocks(slot, blocks, length)
+
     # -- per-slot length tracking ------------------------------------------
 
     def set_length(self, slot: int, n: int):
@@ -482,6 +537,12 @@ class SlotKVCache:
         """The arena's storage dtype name ("float32" / "bfloat16") — the
         string occupancy() reports."""
         return str(self.dtype).replace("torch.", "")
+
+    @property
+    def kv_scales(self):
+        """The int8 arena's scale plane; None on this full-precision
+        arena (what migration tickets check)."""
+        return None
 
     @property
     def pool_bytes(self) -> int:

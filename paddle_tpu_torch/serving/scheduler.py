@@ -63,13 +63,30 @@ interleaved with the decode dispatches; the slot rides the decode loop
 frozen meanwhile. Prefix-cache registration is deferred per block until
 the chunk that fills it has been queued.
 
-Not ported yet (ROADMAP A.1): speculative decoding, host-swap
-preemption and migration (`sync`, `pick_victim`, `swap_out`,
-`swap_in`, `SwappedSequence`), adapters and the tensor-parallel mesh.
+HOST-SWAP PREEMPTION: `swap_out` copies one slot's arena blocks and
+decode-carry rows to host memory (a `SwappedSequence`), freezes the slot
+and frees its pages; `swap_in` adopts fresh private blocks in any free
+slot, scatters the payload back into the same arena tensor in place and
+restores the carry rows, so the resumed stream continues the threefry
+chain bit-exactly. The record holds JAX's host layout and dtypes (the
+payload `(layers, 2, n_blocks, heads, block, hd)` in the arena's dtype,
+int32 carry rows, a float32 temperature and a uint32 key row), which is
+what lets a `migration.MigrationTicket` cross between the two packages.
+Only the blocks a sequence owns move, both ways: eager torch has no
+fixed-shape executable to pad for, so a swap never touches the scratch
+block.
+
+Every device call runs on the stream the scheduler was built on (the
+engine's driver thread need not be the thread that built it, and the
+current stream is thread-local), under `torch.no_grad()`.
+
+Not ported yet (ROADMAP A.1): speculative decoding, adapters and the
+tensor-parallel mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
@@ -86,7 +103,8 @@ from .kv_cache import ShapeBuckets, SlotKVCache
 _TRACER = get_tracer()
 
 __all__ = ["CompileJournal", "ContinuousBatchingScheduler",
-           "SequenceEvent", "PREFILL_PENDING"]
+           "SequenceEvent", "SwappedSequence", "PREFILL_PENDING",
+           "host_dtype"]
 
 # admit()'s "admission succeeded, first token pending" sentinel
 # (chunked prefill only): pages are mapped and the slot is prefilling,
@@ -146,6 +164,99 @@ class _Prefill:
         self.pages = pages                # (max_pages,) page row
         self.seq = seq                    # admission order
         self.chunk_index = 0              # next chunk's journal index
+
+
+class SwappedSequence:
+    """Host-side swap-pool record of a preempted RUNNING sequence: the
+    slot's arena blocks pulled to host memory plus the per-slot rows of
+    the device decode carry (current token, position, remaining budget,
+    temperature, eos id, sampler key), so swap-in can rebuild the slot
+    bit-exactly. Field for field the JAX package's record, in its
+    dtypes: payload (L, 2, n_blocks, heads, bs, hd) in the arena's
+    dtype, token/ts/remaining/eos 0-d int32, temp 0-d float32, key_row
+    (2,) uint32. `spec` and `scales` (speculation, int8 arena) stay
+    None and `adapter_id` 0: those paths are not ported."""
+
+    __slots__ = ("req", "pos", "produced", "max_new", "eos_id",
+                 "seq", "length", "n_blocks", "payload", "token", "ts",
+                 "remaining", "temp", "eos", "key_row", "spec",
+                 "scales", "adapter_id")
+
+    def __init__(self, req, pos, produced, max_new, eos_id, seq,
+                 length, n_blocks, payload, token, ts, remaining, temp,
+                 eos, key_row, spec=None, scales=None, adapter_id=0):
+        self.req = req
+        self.pos = pos
+        self.produced = produced
+        self.max_new = max_new
+        self.eos_id = eos_id
+        self.seq = seq
+        self.length = length              # kv length() at swap-out
+        self.n_blocks = n_blocks          # blocks to re-adopt at resume
+        self.payload = payload            # (L, 2, P, heads, bs, hd) host
+        self.token = token                # decode-carry rows, host side
+        self.ts = ts
+        self.remaining = remaining
+        self.temp = temp
+        self.eos = eos
+        self.key_row = key_row
+        self.spec = spec
+        self.scales = scales
+        self.adapter_id = adapter_id
+
+    @property
+    def swap_bytes(self) -> int:
+        """Host swap-pool footprint of this record's KV payload."""
+        return self.payload.nbytes + (self.scales.nbytes
+                                      if self.scales is not None else 0)
+
+
+def host_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype a host copy of an arena of `dtype` carries: the
+    JAX package's (`ml_dtypes.bfloat16` for bf16, as jax.device_get
+    returns; where ml_dtypes is not installed, a bf16 payload travels
+    as its raw uint16 bits, which only this package reads back)."""
+    if dtype == torch.bfloat16:
+        try:
+            import ml_dtypes
+            return np.dtype(ml_dtypes.bfloat16)
+        except ImportError:
+            return np.dtype(np.uint16)
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+def _to_host(t: torch.Tensor, stream) -> np.ndarray:
+    """Copy a device tensor to a numpy array in host_dtype(t.dtype):
+    through pinned memory with the wait on `stream` on the card, the
+    tensor itself on the CPU."""
+    dt = host_dtype(t.dtype)
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    if t.is_cuda:
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+        done.synchronize()
+        t = host
+    return t.numpy().view(dt)
+
+
+def _from_host(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    """The inverse of _to_host: a host payload back onto `device` as
+    `dtype` (a bf16 payload crosses as its 16-bit pattern)."""
+    if np.dtype(a.dtype) != host_dtype(dtype):
+        raise ValueError(
+            f"payload dtype {a.dtype} does not match the arena's "
+            f"{host_dtype(dtype)}")
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:        # a read-only JAX host buffer
+        a = a.copy()
+    if dtype == torch.bfloat16:
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device, non_blocking=False)
 
 
 # nominal single-card peak used by the MFU proxy when the operator
@@ -295,6 +406,10 @@ class ContinuousBatchingScheduler:
         self.prefill_chunk = int(prefill_chunk) \
             if prefill_chunk is not None else None
         self.device = kv.kv.device
+        # every device call runs on this stream, whichever thread drives
+        # the scheduler (None on the CPU)
+        self._stream = torch.cuda.current_stream(self.device) \
+            if self.device.type == "cuda" else None
         self._sample = gd.make_sampler(self.top_k)
         # slots mid-chunked-prefill (slot -> _Prefill)
         self._prefilling: Dict[int, _Prefill] = {}
@@ -397,6 +512,41 @@ class ContinuousBatchingScheduler:
         self._state = (tokens, ts, done, remaining, temps, eos_ids)
         return block
 
+    def _swapout_family(self, blocks, slot):
+        # read-only gather of the blocks the slot owns plus its rows of
+        # the decode carry and its key row; nothing is written
+        tokens, ts, _done, remaining, temps, eos_ids = self._state
+        idx = torch.as_tensor(blocks, dtype=torch.int64,
+                              device=self.device)
+        payload = self.kv.kv.index_select(2, idx)
+        ints = torch.stack((tokens[slot], ts[slot], remaining[slot],
+                            eos_ids[slot], self._keys[slot, 0],
+                            self._keys[slot, 1]))
+        return payload, ints, temps[slot:slot + 1]
+
+    def _swapin_family(self, payload, blocks, slot, token, ts_v, rem,
+                       temp, eos, key_row):
+        # scatter the payload back through the adopted page row into the
+        # SAME arena tensor (indexed assignment, never a new arena) and
+        # rebuild the slot's carry rows exactly as saved
+        tokens, ts, done, remaining, temps, eos_ids = self._state
+        n = payload.shape[2]
+        idx = torch.as_tensor(blocks[:n], dtype=torch.int64,
+                              device=self.device)
+        self.kv.kv[:, :, idx] = _from_host(payload, self.kv.kv.dtype,
+                                           self.device)
+        self._pt[slot] = torch.as_tensor(blocks, dtype=torch.int64,
+                                         device=self.device)
+        self._keys[slot] = torch.as_tensor(
+            np.asarray(key_row, np.uint32).astype(np.int64),
+            device=self.device)
+        tokens[slot] = int(token)
+        ts[slot] = int(ts_v)
+        done[slot] = False
+        remaining[slot] = int(rem)
+        temps[slot] = float(temp)
+        eos_ids[slot] = int(eos)
+
     def _release_family(self, slot):
         # cancel path: the host verdict the device's done mask can't
         # know — freeze the slot and point its page row at scratch so its
@@ -419,10 +569,10 @@ class ContinuousBatchingScheduler:
             self._compile_events.append(family)
         journal = self.compile_journal
         if journal is None:
-            with torch.no_grad():
+            with torch.no_grad(), _on_stream(self._stream):
                 return fn(*args)
         t0 = time.perf_counter()
-        with torch.no_grad():
+        with torch.no_grad(), _on_stream(self._stream):
             out = fn(*args)
         seconds = time.perf_counter() - t0
         cost = self._cost_probe(fn, args) if compiled else None
@@ -686,9 +836,10 @@ class ContinuousBatchingScheduler:
                 # behind the chunk; _collect waits on the event
                 host = torch.empty(block.shape, dtype=block.dtype,
                                    pin_memory=True)
-                host.copy_(block, non_blocking=True)
+                with torch.cuda.stream(self._stream):
+                    host.copy_(block, non_blocking=True)
                 event = torch.cuda.Event()
-                event.record()
+                event.record(self._stream)
             else:
                 host = block
         host_s = (time.perf_counter() - host_t0) if self.dispatch_timing \
@@ -784,3 +935,131 @@ class ContinuousBatchingScheduler:
                     self.kv.free(slot)
                     return True
         return False
+
+    # -- host-swap preemption ------------------------------------------------
+
+    def sync(self) -> List[SequenceEvent]:
+        """Collect EVERY in-flight dispatch and return its events — the
+        fence swap_out() needs: once the pipeline is empty, the device
+        carry and arena reflect exactly the tokens the host has seen."""
+        return [e for batch in self._sync_batches() for e in batch]
+
+    def _sync_batches(self) -> List[List[SequenceEvent]]:
+        """sync() with per-dispatch granularity: one event list per
+        collected in-flight dispatch, so the engine's fence path feeds
+        the same decode_steps / tokens-per-dispatch telemetry step()
+        does."""
+        batches: List[List[SequenceEvent]] = []
+        while self._inflight:
+            batches.append(self._collect(self._inflight.pop(0)))
+        return batches
+
+    def pick_victim(self, policy="newest") -> Optional[int]:
+        """The slot the preemption policy sacrifices next, or None when
+        nothing is running. "newest" (the default: the youngest sequence
+        has the least work to lose) and "oldest" key on admission order;
+        a callable receives {slot: running-state} (objects expose .seq/
+        .pos/.produced/.max_new) and returns a slot."""
+        if not self._running:
+            return None
+        if callable(policy):
+            slot = policy(dict(self._running))
+            if slot not in self._running:
+                raise ValueError(
+                    f"preempt policy returned {slot!r}, not a running "
+                    f"slot {sorted(self._running)}")
+            return slot
+        if policy == "newest":
+            return max(self._running,
+                       key=lambda s: (self._running[s].seq, s))
+        if policy == "oldest":
+            return min(self._running,
+                       key=lambda s: (self._running[s].seq, s))
+        raise ValueError(
+            f"unknown preempt policy {policy!r} (newest/oldest/callable)")
+
+    def swap_out(self, slot: int, journal: bool = True) -> SwappedSequence:
+        """Preempt the sequence in `slot`: copy its arena blocks and
+        decode-carry rows to host memory, freeze the slot (the release
+        family points its page row at scratch) and free its pages.
+        Caller must have drained the pipeline (sync()) first — a block
+        in flight could still carry this slot's tokens. `journal=False`
+        suppresses the "preempted" request-log event (migration copies a
+        sequence out for a handoff and journals its own migrate_out)."""
+        if self._inflight:
+            raise RuntimeError(
+                "swap_out with dispatches in flight — sync() first")
+        st = self._running.pop(slot)
+        n_blocks = self.kv.mapped_block_count(slot)
+        blocks = self.kv.page_table[slot, :n_blocks].copy()
+        payload, ints, temp = self._call(
+            "swap_out", self._swapout_family, blocks, slot)
+        with _on_stream(self._stream):
+            payload = _to_host(payload, self._stream)
+            ints = ints.cpu().numpy()
+            temp = temp.cpu().numpy()
+        key_row = ints[4:6]
+        if (key_row < 0).any() or (key_row > gd._M32).any():
+            raise RuntimeError(
+                f"sampler key row {key_row} of slot {slot} is not uint32")
+        sw = SwappedSequence(
+            st.req, st.pos, st.produced, st.max_new, st.eos_id, st.seq,
+            self.kv.length(slot), n_blocks, payload,
+            np.asarray(ints[0], np.int32), np.asarray(ints[1], np.int32),
+            np.asarray(ints[2], np.int32), np.asarray(temp[0], np.float32),
+            np.asarray(ints[3], np.int32), key_row.astype(np.uint32))
+        self._call("release_slot", self._release_family, slot)
+        self.kv.free(slot)
+        if journal:
+            rlog = _request_log.get_request_log()
+            if rlog is not None:
+                rlog.event("preempted",
+                           request_id=getattr(st.req, "request_id",
+                                              None),
+                           slot=slot, blocks=n_blocks,
+                           produced=st.produced)
+        return sw
+
+    def can_swap_in(self, sw: SwappedSequence) -> bool:
+        """True when swap_in() would succeed RIGHT NOW: a page-table
+        row is free and the arena can supply the sequence's blocks."""
+        return (self.kv.free_count > 0
+                and self.kv.can_adopt(sw.n_blocks))
+
+    def swap_in(self, sw: SwappedSequence) -> Optional[int]:
+        """Resume a preempted sequence: adopt fresh private blocks into
+        any free slot (the sampler is slot-independent, so the row need
+        not be the one it left), scatter the host payload back through
+        the new page row, and rebuild the slot's decode-carry rows
+        exactly as saved; the restored key row continues the per-token
+        split chain, so the resumed stream is bit-identical to a
+        never-preempted run. Returns the slot, or None when no slot or
+        pages are available yet. Safe with dispatches in flight:
+        live_from is stamped at the CURRENT launch index."""
+        if not self.can_swap_in(sw):
+            return None
+        slot = self.kv.alloc()
+        assert slot is not None          # free_count held, same thread
+        row = self.kv.adopt_blocks(slot, sw.n_blocks, sw.length)
+        self._call("swap_in", self._swapin_family, sw.payload, row,
+                   slot, sw.token, sw.ts, sw.remaining, sw.temp, sw.eos,
+                   sw.key_row)
+        st = _Running(sw.req, pos=sw.pos, max_new=sw.max_new,
+                      eos_id=sw.eos_id, live_from=self._launches,
+                      seq=sw.seq)
+        st.produced = sw.produced
+        self._running[slot] = st
+        rlog = _request_log.get_request_log()
+        if rlog is not None:
+            rlog.event("swapped_in",
+                       request_id=getattr(sw.req, "request_id", None),
+                       slot=slot, produced=sw.produced)
+        return slot
+
+
+def _on_stream(stream):
+    """Make `stream` current for the block (a no-op context on the
+    CPU)."""
+    if stream is None:
+        return contextlib.nullcontext()
+    return torch.cuda.stream(stream)

@@ -1,0 +1,801 @@
+"""Continuous-batching serving bench for the PyTorch port: one JSON row
+per (model, concurrency, decode_chunk) with generate throughput and
+TTFT/TPOT. Mirrors `tools/bench_serving.py` (the same workloads, row
+names and registry-sourced columns) over `paddle_tpu_torch.serving` and
+`paddle_tpu_torch.server`, on the card unless `--device cpu`:
+
+    python3 -m paddle_tpu_torch.tools.bench_serving [tiny gpt2]
+    BENCH_SERVING_REQUESTS=32 python3 -m paddle_tpu_torch.tools.bench_serving gpt2
+    python3 -m paddle_tpu_torch.tools.bench_serving tiny --decode-chunk 1 8
+    python3 -m paddle_tpu_torch.tools.bench_serving tiny --http
+    python3 -m paddle_tpu_torch.tools.bench_serving tiny --oversubscribe
+    python3 -m paddle_tpu_torch.tools.bench_serving tiny --shared-prefix
+    python3 -m paddle_tpu_torch.tools.bench_serving tiny --device cpu
+
+Each library row carries the dispatch amortization columns read back
+from the observability registry (`dispatches`, `dispatches_per_token`,
+`tokens_per_dispatch`), the paged-pool columns (`blocks_used`,
+`prefix_hit_rate`, `tokens_per_s_per_gb`), the dispatch split
+(`host_overhead_ms`, `device_ms_per_dispatch`), the tick-phase
+attribution (`tick_phase_ms`) and the tracing overhead
+(`trace_overhead_pct`). `--http` adds one `<model>_serving_http_c<cc>`
+row per concurrency from a live `server.GenerationServer` driven by
+threaded SSE clients (client-measured TTFT/TPOT next to the engine's).
+`--oversubscribe` runs requests whose page demand exceeds the arena
+with host-swap preemption on (`preemptions`, `swap_ins`, `swap_in_ms`,
+`swap_out_ms`); `--shared-prefix` compares the prefix cache off and
+on. `--debug-port N` serves the live diagnostics plane meanwhile.
+
+The workloads of engine knobs the port lacks raise as the engine does:
+`--mesh` (ROADMAP A.8), `--speculate` (A.1.3), `--quantize` (A.1.4),
+`--adapters` (A.1.5). `--mixed` and `--rebalance` are not ported to
+this tool yet (ROADMAP A.2) and raise too.
+"""
+
+import argparse
+import http.client
+import json
+import os
+import sys
+import threading
+import time
+
+import numpy as np
+
+MODELS = {
+    # name -> (GPTConfig kwargs, concurrencies, prompt lens, buckets)
+    "tiny": (dict(vocab_size=97, hidden=32, layers=2, heads=4, max_pos=128,
+                  dropout=0.0, attn_impl="xla"),
+             [1, 2, 4, 8], (4, 7, 12, 15), (8, 16)),
+    "gpt2": (dict(dropout=0.0),                        # GPT-2-small
+             [1, 4, 8, 16], (32, 57, 100, 120), (64, 128)),
+}
+
+# the workloads whose engine knobs the port lacks, and their ROADMAP items
+_NOT_PORTED = {"--mesh": "A.8", "--speculate": "A.1.3",
+               "--quantize": "A.1.4", "--adapters": "A.1.5",
+               "--mixed": "A.2", "--rebalance": "A.2"}
+
+
+def build_params(gpt_kwargs, device="cuda"):
+    """GPT parameters from the startup program, on `device` (random
+    weights, as the JAX bench's)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import gpt_decode as gd
+    from paddle_tpu_torch.models.gpt import GPTConfig, gpt_lm_program
+
+    cfg = GPTConfig(**gpt_kwargs)
+    with pt.unique_name_guard():
+        _, startup, _ = gpt_lm_program(cfg, 8, is_test=True)
+    place = pt.CPUPlace() if device == "cpu" else pt.CUDAPlace(0)
+    scope = pt.Scope()
+    pt.Executor(place).run(startup, scope=scope)
+    return cfg, gd.collect_gpt_params(scope, cfg)
+
+
+def run_model(name, concurrencies=None, requests_per_level=None,
+              max_new=32, decode_chunks=(1, 8), device="cuda"):
+    """Benchmark one model at each (concurrency, decode_chunk); returns
+    the JSON rows."""
+    import paddle_tpu_torch as pt
+
+    gpt_kwargs, default_cc, prompt_lens, buckets = MODELS[name]
+    concurrencies = concurrencies or default_cc
+    requests_per_level = requests_per_level or int(
+        os.environ.get("BENCH_SERVING_REQUESTS", "16"))
+    cfg, params = build_params(gpt_kwargs, device)
+    max_len = max(buckets) + max_new
+    rows = []
+    for cc in concurrencies:
+        for chunk in decode_chunks:
+            rng = np.random.RandomState(0)     # same mix per chunk level
+            eng = pt.serving.ServingEngine(
+                params, cfg,
+                pt.serving.ServingConfig(num_slots=cc,
+                                         max_queue=requests_per_level,
+                                         prefill_buckets=buckets,
+                                         max_len=max_len,
+                                         decode_chunk=chunk,
+                                         dispatch_timing=True,
+                                         tick_profile=True))
+            prompts = [rng.randint(0, cfg.vocab_size,
+                                   (prompt_lens[i % len(prompt_lens)],)
+                                   ).astype(np.int32)
+                       for i in range(requests_per_level)]
+            # fresh draws for the traced re-run: resubmitting the SAME
+            # prompts would prefix-cache-hit and the "tracer overhead"
+            # delta would really be measuring cache wins
+            trace_prompts = [rng.randint(
+                0, cfg.vocab_size,
+                (prompt_lens[i % len(prompt_lens)],)).astype(np.int32)
+                for i in range(requests_per_level)]
+            # warm the executables (compiles are O(buckets): one request
+            # AT each bucket length warms every prefill shape + the
+            # fused decode chunk)
+            eng.generate([np.ones((b,), np.int32) for b in buckets],
+                         max_new_tokens=2)
+            old = eng.metrics
+            old.unregister()           # retire the warmup series' label
+            # drop the warmup rows, keeping the engine's own series
+            # layout (bucket scaling + the dispatch-split histograms)
+            eng.metrics = pt.serving.EngineMetrics(
+                max_tokens_per_dispatch=old.max_tokens_per_dispatch,
+                speculate_k=old.speculate_k,
+                dispatch_timing=old.dispatch_timing,
+                tick_profile=old.tick_profile)
+            # the allocator's cumulative cache counters feed the new
+            # series on the next step: drop the warmup's contribution
+            eng.kv.prefix_hits = eng.kv.prefix_misses = 0
+            t0 = time.perf_counter()
+            reqs = [eng.submit(p, max_new_tokens=max_new)
+                    for p in prompts]
+            eng.step()           # admissions land; sample the gauge
+            label = eng.stats()["engine_label"]
+            blocks_used = _registry_counter(label,
+                                            "serving_kv_blocks_used")
+            eng.run_until_drained()
+            dt = time.perf_counter() - t0
+            s = eng.stats()
+            tokens = sum(len(r.tokens) for r in reqs)
+            quantiles = _registry_quantiles(label)
+            dispatches = _registry_counter(label,
+                                           "serving_dispatches_total")
+            hit_rate = _registry_hit_rate(label)
+            # disabled-path overhead: same mix again with the tracer ON
+            # (executables already warm in both passes, so the delta is
+            # the span-recording cost, not compiles)
+            from paddle_tpu_torch import observability as obs
+            was_enabled = obs.tracing_enabled()
+            obs.enable_tracing()
+            t0 = time.perf_counter()
+            treqs = [eng.submit(p, max_new_tokens=max_new)
+                     for p in trace_prompts]
+            eng.run_until_drained()
+            dt_traced = time.perf_counter() - t0
+            if not was_enabled:
+                obs.disable_tracing()
+            tokens_traced = sum(len(r.tokens) for r in treqs)
+            rows.append({
+                "metric": f"{name}_serving_c{cc}_k{chunk}",
+                "value": round(tokens / dt, 2),
+                "unit": "tokens/s",
+                "vs_baseline": None,
+                "extra": {
+                    "requests": requests_per_level,
+                    "completed": s["completed"],
+                    "max_new": max_new,
+                    "decode_chunk": chunk,
+                    "dispatches": dispatches,
+                    "dispatches_per_token": round(dispatches / tokens, 4)
+                        if tokens else None,
+                    "tokens_per_dispatch": round(tokens / dispatches, 2)
+                        if dispatches else None,
+                    "mean_ttft_ms": round(s["mean_ttft"] * 1e3, 2),
+                    "mean_tpot_ms": round(s["mean_tpot"] * 1e3, 3),
+                    "mean_queue_wait_ms": round(
+                        s["mean_queue_wait"] * 1e3, 2),
+                    "decode_steps": s["decode_steps"],
+                    "compiled_executables": s["compiled_executables"],
+                    "tokens_per_s_traced": round(
+                        tokens_traced / dt_traced, 2),
+                    "trace_overhead_pct": round(
+                        (dt_traced - dt) / dt * 100.0, 2),
+                    "blocks_used": blocks_used,
+                    "blocks_total": s["blocks_total"],
+                    "prefix_hit_rate": hit_rate,
+                    "tokens_per_s_per_gb": round(
+                        (tokens / dt) / (s["pool_bytes"] / 2 ** 30), 2),
+                    # host/device dispatch split (registry-sourced, the
+                    # serving_dispatch_*_seconds histograms): mean
+                    # launch-side host ms per fused dispatch — the
+                    # pinned baseline native-core work is judged
+                    # against — and the blocking device wait next to it
+                    "host_overhead_ms": _registry_hist_ms(
+                        label, "serving_dispatch_host_seconds"),
+                    "device_ms_per_dispatch": _registry_hist_ms(
+                        label, "serving_dispatch_device_seconds"),
+                    # tick-phase attribution (registry-sourced, the
+                    # serving_tick_phase_seconds histogram per phase):
+                    # mean host ms per tick spent in each engine phase,
+                    # and the journal-derived FLOP-utilization proxy
+                    "tick_phase_ms": _registry_tick_phase_ms(label),
+                    "mfu_proxy": _registry_gauge_value(
+                        label, "serving_mfu_proxy"),
+                    **quantiles,
+                },
+            })
+            eng.close()                # this engine is done: no dead
+            # labels left behind for the next level's scrape
+    return rows
+
+
+def _registry_series(label, family, label_key="engine"):
+    """The series row for `family` matching {label_key: label} in a
+    registry snapshot (None when absent) — the same data a /metrics
+    scrape reports."""
+    from paddle_tpu_torch.observability import get_registry
+
+    snap = get_registry().snapshot()
+    return next((r for r in snap.get(family, {}).get("series", [])
+                 if r["labels"].get(label_key) == label), None)
+
+
+def _registry_counter(engine_label, family):
+    """One labeled counter/gauge value from the registry snapshot."""
+    series = _registry_series(engine_label, family)
+    return int(series["value"]) if series else 0
+
+
+def _registry_hit_rate(engine_label):
+    """Prefix-cache hit rate from the registry counters (the same
+    numbers /varz derives its ratio column from); None when the
+    workload had no shareable blocks at all."""
+    hits = _registry_counter(engine_label,
+                             "serving_prefix_cache_hits_total")
+    misses = _registry_counter(engine_label,
+                               "serving_prefix_cache_misses_total")
+    return round(hits / (hits + misses), 4) if hits + misses else None
+
+
+# shared-prefix workload geometry per model: (prefill buckets, block
+# size, system-prompt length, unique-tail length). The system prompt
+# fills most of the LARGE bucket so a cold admission pays the big
+# prefill while a prefix-cache hit prefills only the tail through the
+# SMALL bucket — the TTFT gap the row measures.
+SHARED_PREFIX = {
+    "tiny": ((32, 128), 16, 96, 8),
+    "gpt2": ((64, 256), 32, 224, 16),
+}
+
+
+def run_shared_prefix(name, requests=None, max_new=16, concurrency=None,
+                      device="cuda"):
+    """The prefix-sharing workload: `requests` generate calls over ONE
+    long system prompt with short unique tails, run twice on fresh
+    engines — prefix cache OFF (every admission re-prefills the system
+    prompt: the cold baseline) then ON (admissions after the first map
+    the cached prefix blocks and prefill only the tail). One JSON row
+    with both TTFT cuts + the registry-sourced hit rate and block
+    occupancy."""
+    import paddle_tpu_torch as pt
+
+    gpt_kwargs, default_cc, _, _ = MODELS[name]
+    buckets, block_size, sys_len, tail_len = SHARED_PREFIX[name]
+    cc = concurrency or max(default_cc)
+    requests = requests or int(
+        os.environ.get("BENCH_SERVING_REQUESTS", "16"))
+    cfg, params = build_params(gpt_kwargs, device)
+    max_len = max(buckets)          # table keeps sys+tail+max_new inside
+    rng = np.random.RandomState(0)
+    sys_prompt = rng.randint(0, cfg.vocab_size, (sys_len,))
+    prompts = [np.concatenate(
+        [sys_prompt, rng.randint(0, cfg.vocab_size, (tail_len,))]
+        ).astype(np.int32) for _ in range(requests)]
+    results = {}
+    for enabled in (False, True):
+        eng = pt.serving.ServingEngine(
+            params, cfg,
+            pt.serving.ServingConfig(num_slots=cc, max_queue=requests,
+                                     prefill_buckets=buckets,
+                                     max_len=max_len,
+                                     block_size=block_size,
+                                     prefix_cache=enabled))
+        # warm every suffix-bucket executable + the decode chunk —
+        # with RANDOM prompts, not constants: a repeated warmup prompt
+        # would hit its own prefix cache, shrink into a smaller suffix
+        # bucket, and leave the LARGE bucket to compile inside the
+        # timed run
+        wrng = np.random.RandomState(12345)
+        eng.generate([wrng.randint(0, cfg.vocab_size, (max(1, b - 2),))
+                      .astype(np.int32) for b in buckets],
+                     max_new_tokens=2)      # b-2 still buckets to b
+        eng.metrics.unregister()
+        eng.metrics = pt.serving.EngineMetrics()
+        eng.kv.prefix_hits = eng.kv.prefix_misses = 0  # warmup stats out
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+        eng.step()
+        label = eng.stats()["engine_label"]
+        blocks_used = _registry_counter(label, "serving_kv_blocks_used")
+        eng.run_until_drained()
+        dt = time.perf_counter() - t0
+        s = eng.stats()
+        results[enabled] = {
+            "dt": dt,
+            "tokens": sum(len(r.tokens) for r in reqs),
+            "mean_ttft": s["mean_ttft"],
+            "blocks_used": blocks_used,
+            "hit_rate": _registry_hit_rate(label),
+            "pool_bytes": s["pool_bytes"],
+        }
+        eng.close()
+    cold, warm = results[False], results[True]
+    return [{
+        "metric": f"{name}_serving_shared_prefix_c{cc}",
+        "value": round(warm["tokens"] / warm["dt"], 2),
+        "unit": "tokens/s",
+        "vs_baseline": None,
+        "extra": {
+            "requests": requests,
+            "sys_prompt_len": sys_len,
+            "tail_len": tail_len,
+            "block_size": block_size,
+            "max_new": max_new,
+            "prefix_hit_rate": warm["hit_rate"],
+            "blocks_used": warm["blocks_used"],
+            "blocks_used_cold": cold["blocks_used"],
+            "mean_ttft_ms_warm": round(warm["mean_ttft"] * 1e3, 2),
+            "mean_ttft_ms_cold": round(cold["mean_ttft"] * 1e3, 2),
+            "ttft_speedup": round(
+                cold["mean_ttft"] / warm["mean_ttft"], 3)
+                if warm["mean_ttft"] else None,
+            "tokens_per_s_cold": round(cold["tokens"] / cold["dt"], 2),
+            "tokens_per_s_per_gb": round(
+                (warm["tokens"] / warm["dt"])
+                / (warm["pool_bytes"] / 2 ** 30), 2),
+        },
+    }]
+
+
+# over-subscription workload geometry per model: (prefill buckets,
+# block size, prompt length, max_new, arena fraction). The arena is
+# deliberately sized to `frac` of the workload's worst-case page
+# demand, so admissions outrun the pool and the engine must preempt —
+# host-swap running sequences out and resume them — to keep flowing.
+OVERSUBSCRIBE = {
+    "tiny": ((8, 16), 4, 12, 36, 0.55),
+    "gpt2": ((32, 64), 16, 48, 64, 0.55),
+}
+
+
+def run_oversubscribe(name, requests=None, concurrency=None,
+                      device="cuda"):
+    """The --oversubscribe workload: requests whose combined page
+    demand exceeds the arena (sized to `frac` of worst case), run with
+    host-swap preemption ON. One row with the registry-sourced
+    fault-tolerance columns: `preemptions` / `swap_ins`
+    (serving_*_total counters), `swap_in_ms` / `swap_out_ms` (mean
+    restore/copy-out latency from the serving_swap_{in,out}_seconds
+    histograms), peak/steady block occupancy, and tokens/s — the
+    graceful-degradation cost is a printed number, not a claim. Token
+    streams under preemption are bit-identical to an unpressured run
+    (pinned in tests/test_torch_serving_preempt.py)."""
+    import paddle_tpu_torch as pt
+
+    gpt_kwargs, default_cc, _, _ = MODELS[name]
+    buckets, block_size, prompt_len, max_new, frac = OVERSUBSCRIBE[name]
+    cc = concurrency or max(default_cc)
+    requests = requests or int(
+        os.environ.get("BENCH_SERVING_REQUESTS", "16"))
+    cfg, params = build_params(gpt_kwargs, device)
+    max_len = prompt_len + max_new
+    pages_per_req = -(-max_len // block_size)        # ceil
+    # worst case: every slot resident at full budget; undersize it
+    kv_blocks = max(pages_per_req + 1,
+                    int(cc * pages_per_req * frac) + 1)
+    eng = pt.serving.ServingEngine(
+        params, cfg,
+        pt.serving.ServingConfig(num_slots=cc, max_queue=requests,
+                                 prefill_buckets=buckets,
+                                 max_len=max_len,
+                                 block_size=block_size,
+                                 kv_blocks=kv_blocks,
+                                 preempt=True))
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, (prompt_len,))
+               .astype(np.int32) for _ in range(requests)]
+    # warm every executable incl. the swap pair (one forced preemption
+    # via a deliberately page-starved co-resident mix would be flaky to
+    # arrange; the swap executables are tiny, so just accept their two
+    # compiles inside the measured run on cold engines)
+    wrng = np.random.RandomState(12345)
+    eng.generate([wrng.randint(0, cfg.vocab_size, (max(1, b - 2),))
+                  .astype(np.int32) for b in buckets],
+                 max_new_tokens=2)
+    old = eng.metrics
+    old.unregister()
+    eng.metrics = pt.serving.EngineMetrics(
+        max_tokens_per_dispatch=old.max_tokens_per_dispatch,
+        speculate_k=old.speculate_k)
+    eng.kv.prefix_hits = eng.kv.prefix_misses = 0
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    eng.run_until_drained()
+    dt = time.perf_counter() - t0
+    s = eng.stats()
+    label = s["engine_label"]
+    tokens = sum(len(r.tokens) for r in reqs)
+    preemptions = _registry_counter(label, "serving_preemptions_total")
+    swap_ins = _registry_counter(label, "serving_swap_ins_total")
+    row = {
+        "metric": f"{name}_serving_oversub_c{cc}",
+        "value": round(tokens / dt, 2),
+        "unit": "tokens/s",
+        "vs_baseline": None,
+        "extra": {
+            "requests": requests,
+            "completed": s["completed"],
+            "max_new": max_new,
+            "kv_blocks": kv_blocks,
+            "worst_case_blocks": cc * pages_per_req,
+            "oversubscription": round(cc * pages_per_req
+                                      / (kv_blocks - 1), 2),
+            "preemptions": preemptions,
+            "swap_ins": swap_ins,
+            "swapped_now": s["swapped_slots"],
+            "swap_in_ms": _registry_hist_ms(
+                label, "serving_swap_in_seconds"),
+            "swap_out_ms": _registry_hist_ms(
+                label, "serving_swap_out_seconds"),
+            "blocks_used_peak": s["peak_blocks_used"],
+            "blocks_total": s["blocks_total"],
+            "blocks_used_after_drain": s["blocks_used"],
+            "mean_ttft_ms": round(s["mean_ttft"] * 1e3, 2)
+                if s["mean_ttft"] is not None else None,
+            "mean_tpot_ms": round(s["mean_tpot"] * 1e3, 3)
+                if s["mean_tpot"] is not None else None,
+            "compiled_executables": s["compiled_executables"],
+        },
+    }
+    eng.close()
+    return [row]
+
+
+def _registry_hist_ms(label, family, label_key="engine"):
+    """Mean of a latency histogram in ms (sum/count of the registry
+    snapshot series matching {label_key: label}) — the swap_in_ms /
+    swap_out_ms / migration_ms columns."""
+    series = _registry_series(label, family, label_key)
+    if not series or not series.get("count"):
+        return None
+    return round(series["sum"] / series["count"] * 1e3, 3)
+
+
+def _registry_tick_phase_ms(engine_label):
+    """{phase: mean ms per tick} from the serving_tick_phase_seconds
+    histogram — the per-phase engine-host attribution a
+    tick_profile=True scrape carries. None when the engine ran with
+    the profiler off (no series registered at all)."""
+    from paddle_tpu_torch.observability import get_registry
+
+    snap = get_registry().snapshot()
+    out = {}
+    fam = snap.get("serving_tick_phase_seconds", {})
+    for row in fam.get("series", []):
+        if row["labels"].get("engine") != engine_label:
+            continue
+        if row.get("count"):
+            out[row["labels"]["phase"]] = round(
+                row["sum"] / row["count"] * 1e3, 4)
+    return out or None
+
+
+def _registry_gauge_value(engine_label, family):
+    """One labeled gauge as a float (None when the series is absent —
+    e.g. the profiler was off and the family never registered)."""
+    series = _registry_series(engine_label, family)
+    return round(float(series["value"]), 10) if series else None
+
+
+def _sse_generate(port, payload, timeout=120):
+    """POST /v1/generate and consume the SSE stream, stamping
+    perf_counter at every frame. Returns (status, tokens, stamps,
+    done_payload) — stamps[0] is the first-token arrival, the
+    end-to-end TTFT numerator."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", "/v1/generate", json.dumps(payload),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        if r.status != 200:
+            return r.status, [], [], json.loads(r.read() or b"{}")
+        tokens, stamps, done, event = [], [], None, "message"
+        for line in iter(r.readline, b""):
+            line = line.decode().rstrip("\n")
+            if not line:
+                event = "message"
+                continue
+            if line.startswith("event: "):
+                event = line[7:]
+                continue
+            if line.startswith("data: "):
+                obj = json.loads(line[6:])
+                if event == "done":
+                    done = obj
+                else:
+                    tokens.append(obj["token"])
+                    stamps.append(time.perf_counter())
+        return 200, tokens, stamps, done
+    finally:
+        conn.close()
+
+
+def run_http(name, concurrencies=None, requests_per_level=None,
+             max_new=32, decode_chunk=8, device="cuda"):
+    """--http mode: the library request mix driven over the wire against
+    a live GenerationServer (one engine per level, cc client threads).
+    Rows mirror run_model's registry-sourced engine columns and ADD the
+    client-measured end-to-end cuts, so wire overhead is the printed
+    delta between `<model>_serving_c<cc>_k<chunk>` and
+    `<model>_serving_http_c<cc>` rows."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.server import GenerationServer, ServerConfig
+
+    gpt_kwargs, default_cc, prompt_lens, buckets = MODELS[name]
+    concurrencies = concurrencies or default_cc
+    requests_per_level = requests_per_level or int(
+        os.environ.get("BENCH_SERVING_REQUESTS", "16"))
+    cfg, params = build_params(gpt_kwargs, device)
+    max_len = max(buckets) + max_new
+    rows = []
+    for cc in concurrencies:
+        rng = np.random.RandomState(0)         # same mix as run_model
+        eng = pt.serving.ServingEngine(
+            params, cfg,
+            pt.serving.ServingConfig(num_slots=cc,
+                                     max_queue=max(requests_per_level,
+                                                   16),
+                                     prefill_buckets=buckets,
+                                     max_len=max_len,
+                                     decode_chunk=decode_chunk,
+                                     dispatch_timing=True,
+                                     tick_profile=True))
+        prompts = [rng.randint(0, cfg.vocab_size,
+                               (prompt_lens[i % len(prompt_lens)],)
+                               ).astype(np.int32)
+                   for i in range(requests_per_level)]
+        # warm every executable on the library path BEFORE the server
+        # owns the engine, then drop the warmup's registry rows
+        eng.generate([np.ones((b,), np.int32) for b in buckets],
+                     max_new_tokens=2)
+        old = eng.metrics
+        old.unregister()
+        eng.metrics = pt.serving.EngineMetrics(
+            max_tokens_per_dispatch=old.max_tokens_per_dispatch,
+            speculate_k=old.speculate_k,
+            dispatch_timing=old.dispatch_timing,
+            tick_profile=old.tick_profile)
+        eng.kv.prefix_hits = eng.kv.prefix_misses = 0
+        # generous default SLOs: the slo_attainment / goodput columns
+        # are registry-sourced numbers a healthy run meets, so misses
+        # on the row mean the service really degraded
+        from paddle_tpu_torch.server import SLOConfig
+        server = GenerationServer([eng], ServerConfig(
+            default_slo=SLOConfig(ttft_s=30.0, tpot_s=1.0,
+                                  e2e_s=120.0)))
+        port = server.serve()
+        work = list(enumerate(prompts))
+        results, lock = [], threading.Lock()
+
+        def worker():
+            while True:
+                with lock:
+                    if not work:
+                        return
+                    i, p = work.pop()
+                t_sent = time.perf_counter()
+                status, tokens, stamps, done = _sse_generate(
+                    port, {"prompt": [int(x) for x in p],
+                           "max_new_tokens": max_new, "seed": i})
+                with lock:
+                    results.append((status, t_sent, tokens, stamps))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=worker) for _ in range(cc)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        dt = time.perf_counter() - t0
+        label = eng.stats()["engine_label"]
+        s = eng.stats()
+        ok = [row for row in results if row[0] == 200]
+        tokens = sum(len(r[2]) for r in ok)
+        ttfts = sorted(r[3][0] - r[1] for r in ok if r[3])
+        tpots = [(r[3][-1] - r[3][0]) / (len(r[3]) - 1)
+                 for r in ok if len(r[3]) > 1]
+        quantiles = _registry_quantiles(label)
+        dispatches = _registry_counter(label, "serving_dispatches_total")
+        rows.append({
+            "metric": f"{name}_serving_http_c{cc}",
+            "value": round(tokens / dt, 2) if dt else None,
+            "unit": "tokens/s",
+            "vs_baseline": None,
+            "extra": {
+                "transport": "http",
+                "requests": requests_per_level,
+                "completed": len(ok),
+                "max_new": max_new,
+                "decode_chunk": decode_chunk,
+                # client-measured end-to-end cuts (incl. wire overhead)
+                "e2e_mean_ttft_ms": round(
+                    sum(ttfts) / len(ttfts) * 1e3, 2) if ttfts else None,
+                "e2e_p50_ttft_ms": round(
+                    ttfts[len(ttfts) // 2] * 1e3, 2) if ttfts else None,
+                "e2e_mean_tpot_ms": round(
+                    sum(tpots) / len(tpots) * 1e3, 3) if tpots else None,
+                # the same registry-sourced engine-side columns the
+                # library rows carry (scrape-path truth, not internals)
+                "mean_ttft_ms": round(s["mean_ttft"] * 1e3, 2)
+                    if s["mean_ttft"] is not None else None,
+                "mean_tpot_ms": round(s["mean_tpot"] * 1e3, 3)
+                    if s["mean_tpot"] is not None else None,
+                "dispatches": dispatches,
+                "dispatches_per_token": round(dispatches / tokens, 4)
+                    if tokens else None,
+                "blocks_used_peak": s["peak_blocks_used"],
+                "blocks_total": s["blocks_total"],
+                "compiled_executables": s["compiled_executables"],
+                "server_requests_ok": _server_requests(
+                    server.router.metrics.label, "200"),
+                # SLO/goodput plane (registry-sourced, the router-
+                # scored server_slo_* / server_goodput_* series) +
+                # the host/device dispatch split
+                "host_overhead_ms": _registry_hist_ms(
+                    label, "serving_dispatch_host_seconds"),
+                "tick_phase_ms": _registry_tick_phase_ms(label),
+                "mfu_proxy": _registry_gauge_value(
+                    label, "serving_mfu_proxy"),
+                "slo_attainment": _registry_slo_attainment(
+                    server.router.metrics.label),
+                "goodput_tokens_per_s": round(
+                    _registry_router_counter(
+                        server.router.metrics.label,
+                        "server_goodput_tokens_total") / dt, 2)
+                    if dt else None,
+                **quantiles,
+            },
+        })
+        server.shutdown()      # drain + refcounted engine close()
+    return rows
+
+
+def _registry_router_counter(router_label, family):
+    """One router-labeled counter family summed over its tenant (and
+    objective) splits — the scrape-path read behind the SLO columns."""
+    from paddle_tpu_torch.observability import get_registry
+
+    snap = get_registry().snapshot()
+    return sum(int(row["value"])
+               for row in snap.get(family, {}).get("series", [])
+               if row["labels"].get("router") == router_label)
+
+
+def _registry_slo_attainment(router_label):
+    """met / (met + missed) across every tenant and objective this
+    router scored; None before any stream closed under an SLO."""
+    met = _registry_router_counter(router_label, "server_slo_met_total")
+    missed = _registry_router_counter(router_label,
+                                      "server_slo_missed_total")
+    return round(met / (met + missed), 4) if met + missed else None
+
+
+def _server_requests(router_label, code):
+    """server_requests_total summed over tenants for one router+code —
+    the wire-level acceptance count a scrape sees."""
+    from paddle_tpu_torch.observability import get_registry
+
+    snap = get_registry().snapshot()
+    total = 0
+    for row in snap.get("server_requests_total", {}).get("series", []):
+        if row["labels"].get("router") == router_label \
+                and row["labels"].get("code") == code:
+            total += int(row["value"])
+    return total
+
+
+def _registry_quantiles(engine_label):
+    """p50/p99 TTFT/TPOT in ms, read back from the observability registry
+    snapshot (NOT from engine internals) — proves the scrape path carries
+    the same numbers an operator would see."""
+    from paddle_tpu_torch.observability import get_registry
+
+    snap = get_registry().snapshot()
+    out = {}
+    for key, fam in (("ttft", "serving_ttft_seconds"),
+                     ("tpot", "serving_tpot_seconds")):
+        series = next((r for r in snap.get(fam, {}).get("series", [])
+                       if r["labels"].get("engine") == engine_label), None)
+        for q in ("p50", "p99"):
+            v = series[q] if series else None
+            out[f"{q}_{key}_ms"] = round(v * 1e3, 3) if v is not None \
+                else None
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("models", nargs="*",
+                    help=f"models to bench (default: all of "
+                         f"{', '.join(MODELS)})")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the engines serve (default: the card)")
+    ap.add_argument("--debug-port", type=int, default=None, metavar="PORT",
+                    help="serve the live diagnostics plane on PORT for "
+                         "the duration of the bench (0 = ephemeral)")
+    ap.add_argument("--decode-chunk", type=int, nargs="+", default=[1, 8],
+                    metavar="K",
+                    help="fused decode iterations per dispatch to sweep "
+                         "(default: 1 8; token streams are identical at "
+                         "every K)")
+    ap.add_argument("--shared-prefix", action="store_true",
+                    help="run the prefix-sharing workload instead: "
+                         "prefix cache off (cold) vs on")
+    ap.add_argument("--oversubscribe", action="store_true",
+                    help="run the over-subscription workload instead: "
+                         "more KV pages demanded than the arena holds, "
+                         "host-swap preemption on")
+    ap.add_argument("--http", action="store_true",
+                    help="also drive a live paddle_tpu_torch.server over "
+                         "the wire: one <model>_serving_http_c<cc> row "
+                         "per concurrency")
+    for flag in ("--mesh", "--speculate"):
+        ap.add_argument(flag, type=int, nargs="+", default=None,
+                        help=f"not ported (ROADMAP {_NOT_PORTED[flag]})")
+    ap.add_argument("--adapters", type=int, default=None,
+                    help="not ported (ROADMAP A.1.5)")
+    for flag in ("--quantize", "--mixed", "--rebalance"):
+        ap.add_argument(flag, action="store_true",
+                        help=f"not ported (ROADMAP {_NOT_PORTED[flag]})")
+    ap.add_argument("--json", metavar="OUT", default=None,
+                    help="also write every result row as JSONL to OUT")
+    args = ap.parse_args(argv)
+    unknown = [m for m in args.models if m not in MODELS]
+    if unknown:
+        ap.error(f"unknown model(s) {unknown}; choose from {list(MODELS)}")
+    bad = [k for k in args.decode_chunk if k < 1]
+    if bad:
+        ap.error(f"--decode-chunk values must be >= 1, got {bad}")
+    for flag, item in _NOT_PORTED.items():
+        if getattr(args, flag[2:]) not in (None, False):
+            raise NotImplementedError(
+                f"bench_serving {flag} is not ported to paddle_tpu_torch "
+                f"yet (ROADMAP {item})")
+    replacing = [f for f, on in (("--shared-prefix", args.shared_prefix),
+                                 ("--oversubscribe", args.oversubscribe))
+                 if on]
+    if len(replacing) > 1:
+        ap.error(f"{replacing[0]} replaces the standard workload; "
+                 f"drop {' '.join(replacing[1:])}")
+    if args.http and replacing:
+        ap.error(f"{replacing[0]} replaces the standard workload and "
+                 "has no wire-path pairing; drop --http")
+
+    server_started = False
+    if args.debug_port is not None:
+        from paddle_tpu_torch.observability import (start_debug_server,
+                                                    stop_debug_server)
+        port = start_debug_server(port=args.debug_port)
+        server_started = True
+        print(f"debug server: http://127.0.0.1:{port}", file=sys.stderr)
+    all_rows = []
+    try:
+        for name in args.models or list(MODELS):
+            if args.shared_prefix:
+                rows = run_shared_prefix(name, device=args.device)
+            elif args.oversubscribe:
+                rows = run_oversubscribe(name, device=args.device)
+            else:
+                rows = run_model(name,
+                                 decode_chunks=tuple(args.decode_chunk),
+                                 device=args.device)
+                if args.http:
+                    rows += run_http(
+                        name, decode_chunk=max(args.decode_chunk),
+                        device=args.device)
+            for row in rows:
+                print(json.dumps(row), flush=True)
+            all_rows.extend(rows)
+    finally:
+        if server_started:
+            stop_debug_server()
+    if args.json is not None:
+        with open(args.json, "w") as f:
+            for row in all_rows:
+                f.write(json.dumps(row) + "\n")
+        print(f"wrote {len(all_rows)} row(s) to {args.json}",
+              file=sys.stderr)
+
+
+if __name__ == "__main__":
+    main()

@@ -14,9 +14,10 @@ and block size, must emit them token for token:
     EngineOverloadError's fields; EOS mid-chunk and cancel (queued,
     running, mid-chunk) retire at the right token;
   * the family count bounded by the buckets; the arena written in place;
-  * every knob out of this slice raises NotImplementedError naming its
-    ROADMAP item; create_engine serves a saved model with disable_gpu()
-    and raises on a GPU config without a GPU;
+  * every knob of a later slice raises NotImplementedError naming its
+    ROADMAP item; preempt=True and create_engine(debug_port=0) serve;
+    create_engine serves a saved model with disable_gpu() and raises on
+    a GPU config without a GPU;
   * the new modules import neither jax nor paddle_tpu.
 
 Where a port stream differs from JAX's, `_same_or_near_tie` requires the
@@ -400,8 +401,6 @@ def test_tick_profile_and_dispatch_timing(world):
 # -- knobs out of this slice ---------------------------------------------------
 
 @pytest.mark.parametrize("knob,item", [
-    ({"preempt": True}, "A.1.2"),
-    ({"preempt_policy": "oldest"}, "A.1.2"),
     ({"speculate_k": 2}, "A.1.3"),
     ({"speculate_ngram": 64}, "A.1.3"),
     ({"weight_dtype": "int8"}, "A.1.4"),
@@ -418,12 +417,67 @@ def test_create_engine_and_kv_cache_knobs_out_of_this_slice_raise(world):
     cfg = world["tcfg"]
     with pytest.raises(NotImplementedError, match="ROADMAP A.1.4"):
         ptt.inference.create_engine("unused", cfg, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-        ptt.inference.create_engine("unused", cfg, debug_port=0)
     with pytest.raises(NotImplementedError, match="ROADMAP A.1.4"):
         SlotKVCache(cfg, 2, 16, kv_dtype="int8")
     with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
         SlotKVCache(cfg, 2, 16, mesh_shards=2)
+
+
+@pytest.mark.parametrize("policy", ["newest", "oldest"])
+def test_preempt_knob_serves(world, policy):
+    """ServingConfig(preempt=True, preempt_policy=...) builds and serves:
+    P10 through an arena too small for it preempts and still emits the
+    JAX engine's streams (tests/test_torch_serving_preempt.py holds the
+    rest)."""
+    eng = make_engine(world, preempt=True, preempt_policy=policy,
+                      num_slots=4, block_size=4, kv_blocks=8,
+                      decode_chunk=4, top_k=TOP_K)
+    assert eng.config.preempt and eng.config.preempt_policy == policy
+    outs = _drain(eng, P10, 6, [_p10_kw(i) for i in range(10)])
+    assert eng.stats()["preemptions"] >= 1
+    for i, (p, o, ref) in enumerate(zip(P10, outs, world["refs"]["p10"])):
+        kw = _p10_kw(i)
+        _same_or_near_tie(world, ref, o, p.size, kw["temperature"],
+                          kw["seed"], name=f"p10[{i}] {policy}")
+    assert eng.stats()["blocks_used"] == 0 and eng.swapped_count == 0
+
+
+def test_create_engine_debug_port_answers_healthz(world, tmp_path):
+    """create_engine(debug_port=0) binds the shared debug server: the
+    port lands on engine.debug_port, /healthz answers, and close()
+    releases the server."""
+    import http.client
+    import json
+
+    from paddle_tpu_torch.observability import debug_server as dbg
+    cfg = world["cfg"]
+    exe = pt.Executor()
+    scope = pt.Scope()
+    with pt.scope_guard(scope):
+        for name, arr in world["arrays"].items():
+            scope.set_var(name, arr)
+        with pt.unique_name_guard():
+            main, _, fetches = gpt_lm_program(cfg, 8, is_test=True)
+        pt.io.save_inference_model(str(tmp_path), ["tokens"],
+                                   [fetches["logits"]], exe,
+                                   main_program=main)
+    conf = ptt.inference.Config(str(tmp_path))
+    conf.disable_gpu()
+    eng = ptt.inference.create_engine(
+        conf, world["tcfg"], ServingConfig(num_slots=2,
+                                           prefill_buckets=(4, 8),
+                                           max_len=32), debug_port=0)
+    try:
+        assert eng.debug_port > 0
+        conn = http.client.HTTPConnection("127.0.0.1", eng.debug_port,
+                                          timeout=30)
+        conn.request("GET", "/healthz")
+        r = conn.getresponse()
+        assert r.status == 200 and json.loads(r.read())
+        conn.close()
+    finally:
+        eng.close()
+    assert dbg.get_debug_server() is None
 
 
 # -- the entry point -------------------------------------------------------------
@@ -462,7 +516,12 @@ _NEW_MODULES = ("models/gpt_decode.py", "profiler.py", "serving/__init__.py",
                 "serving/scheduler.py", "observability/__init__.py",
                 "observability/export.py", "observability/metrics.py",
                 "observability/request_log.py",
-                "observability/watchdog.py", "inference/__init__.py")
+                "observability/watchdog.py", "inference/__init__.py",
+                "serving/migration.py", "server/__init__.py",
+                "server/router.py", "server/service.py",
+                "observability/alerts.py", "observability/debug_server.py",
+                "observability/timeseries.py",
+                "observability/train_stats.py")
 
 
 def test_new_modules_import_neither_jax_nor_paddle_tpu():
@@ -496,7 +555,10 @@ def test_new_modules_import_neither_jax_nor_paddle_tpu():
         "sc = ptt.Scope()\n"
         "ptt.Executor(ptt.CPUPlace()).run(startup, scope=sc)\n"
         "eng = ServingEngine(gd.collect_gpt_params(sc, cfg), cfg,"
-        " ServingConfig(num_slots=2, prefill_buckets=(8,), max_len=16))\n"
+        " ServingConfig(num_slots=2, prefill_buckets=(8,), max_len=16,"
+        " preempt=True))\n"
+        "srv = ptt.server.serve(gd.collect_gpt_params(sc, cfg), cfg)\n"
+        "srv.shutdown()\n"
         "print(len(eng.generate([np.arange(3)], 4, temperature=0.5)[0]))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'paddle_tpu'))\n"
