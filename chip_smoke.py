@@ -125,6 +125,32 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 a child process (--server-only), like phase 4; the
                 hand-kernel counts, zeroed before the requests and read
                 after, are printed (this path runs none);
+ 4c. spec    -- speculative decoding over the same GPT-2 small (fp32,
+                weights from --seed, saved and loaded through
+                inference.create_engine as in phase 4): one engine at
+                speculate_k=0 and one at speculate_k=4 (ServingConfig: 8
+                slots, buckets 64-512, max_len 1024, decode_chunk 8,
+                block_size 16, speculate_ngram 512) serve the same 16
+                requests: 12 prompts of 64 tokens tiling an 8-token
+                motif, budget 64 (tools/bench_serving.py's
+                SPECULATE["gpt2"] regime), six greedy and six at
+                temperature 0.8 with a seed each, and 4 of phase 4's
+                mix, the first its 512-token prompt with a 512-token
+                budget (its drafts overshoot max_len). Every request must
+                emit its whole budget, every greedy token lie within 1e-3
+                of the teacher-forced maximum (TF32 off), every k=4
+                stream equal its k=0 stream or part from it first at a
+                near tie (top-2 margin of the k=0 stream's scores under
+                SPEC_TIE); spec_proposed and spec_accepted > 0, the
+                acceptance histogram's buckets 0..4, params and arenas on
+                the card, no hand-kernel launch. Prints for each k:
+                tokens/s, TTFT and TPOT p50/p99, committed tokens a
+                verify pass, the draft accept rate, dispatches a token,
+                and the device events, kernels and device ms of one
+                decode iteration or verify pass (a torch.profiler trace
+                of one dispatch); the streams that parted and their
+                margins. It runs in a child process (--spec-only), like
+                phases 4 and 4b;
   5. train   -- GPT-2 small (dropout 0.1) train programs with Adam through
                 Executor.run on CUDAPlace(0): 3 steps at s=1024 b=2
                 (flash_fwd, flash_bwd_dkv, flash_bwd_dq) and 3 at s=512
@@ -1897,6 +1923,186 @@ def phase_server(seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 4c: speculative decoding in the serving engine
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4               # the drafting engine's speculate_k
+SPEC_MOTIF = 8           # the motif the drafter-friendly prompts tile
+SPEC_TIE = 1e-3          # the near-tie margin a k=4 stream may part within
+
+
+def _spec_requests(seed, vocab):
+    """16 requests: 12 prompts of 64 tokens tiling an 8-token motif,
+    budget 64 (tools/bench_serving.py's SPECULATE["gpt2"] regime), six
+    greedy and six at temperature 0.8 with a seed each; then 4 of phase
+    4's mix, the first its 512-token prompt with a 512-token budget, so
+    its drafts overshoot max_len."""
+    import numpy as np
+    rng = np.random.RandomState(seed + 4)
+    reqs = [{"prompt": np.tile(rng.randint(0, vocab, SPEC_MOTIF),
+                               64 // SPEC_MOTIF).astype("int32"),
+             "max_new": 64, "temperature": 0.0 if i % 2 == 0 else 0.8,
+             "seed": 3000 + i} for i in range(12)]
+    mix = _engine_requests(seed, vocab)
+    longest = max(range(len(mix)), key=lambda i: mix[i]["prompt"].size)
+    mix[longest]["max_new"] = 1024 - mix[longest]["prompt"].size
+    rest = [r for i, r in enumerate(mix) if i != longest][:3]
+    return reqs + [mix[longest]] + rest
+
+
+def _near_tie_parts(params, cfg, reqs, base, spec):
+    """Where a k=4 stream differs from its k=0 stream: the first
+    differing token of each, with the top-2 margin of the k=0 stream's
+    scores there (logits for a greedy draw; logits / temperature + the
+    token's Gumbel noise for a seeded one, the key split once a token)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import gpt_decode as gd
+    parts = []
+    with torch.no_grad():
+        for n, (r, a, b) in enumerate(zip(reqs, base, spec)):
+            diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+            if not diff:
+                continue
+            i = diff[0]
+            seq = np.concatenate([r["prompt"], np.asarray(a[:i], "int32")])
+            scores = gd.gpt_forward_logits(params, cfg, seq[None])[0, -1]
+            if r["temperature"] != 0.0:
+                key = gd.sample_key(r["seed"], scores.device)
+                for _ in range(i):
+                    key = gd.sample_split(key)
+                scores = (scores / r["temperature"]
+                          + gd.sample_gumbel(key, scores.numel()))
+            top = torch.topk(scores, 2).values.cpu().numpy()
+            parts.append({"request": n, "token": i,
+                          "margin": float(top[0] - top[1])})
+    return parts
+
+
+def phase_spec(seed):
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import gpt_decode as gd
+    from paddle_tpu_torch.models.gpt import GPTConfig, gpt_lm_program
+    from paddle_tpu_torch.serving import ServingConfig
+
+    t_phase = time.perf_counter()
+    cfg = GPTConfig()                      # GPT-2 small, full width/depth
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    scope = ptt.Scope()
+    with ptt.unique_name_guard():
+        main, startup, fetch = gpt_lm_program(cfg, 1024, is_test=True)
+    startup.random_seed = seed
+    exe.run(startup, scope=scope)
+    d = os.path.join(WORK_DIR, "gpt2_spec")
+    ptt.io.save_inference_model(d, ["tokens"], [fetch["logits"]], exe,
+                                main_program=main, scope=scope)
+    del scope
+    reqs = _spec_requests(seed, cfg.vocab_size)
+    names = list(KERNELS)
+    runs, streams = {}, {}
+    for k in (0, SPEC_K):
+        eng = ptt.inference.create_engine(
+            ptt.inference.Config(d), cfg, ServingConfig(
+                num_slots=8, max_queue=32,
+                prefill_buckets=(64, 128, 256, 512), max_len=1024,
+                decode_chunk=8, block_size=16, speculate_k=k,
+                speculate_ngram=512))
+        params = eng.scheduler.params
+        if not all(p.is_cuda for p in gd.param_tensors(params)) \
+                or not eng.kv.kv.is_cuda:
+            fail(f"spec: k={k} params or arena not on the card")
+        _engine_warmup(eng, seed, cfg.vocab_size)
+        before = eng.stats()
+        sched = eng.scheduler
+        sched.spec_passes = sched.spec_proposed = sched.spec_accepted = 0
+        zero_counts(names)
+        # ---- the speculating engine's main path: counts zeroed just
+        # before ----
+        out, steps, wall = _engine_run(eng, reqs)
+        hand = read_counts(names)
+        # ----------------------------------------------------------
+        if any(hand.values()):
+            fail(f"spec: k={k} launched hand kernels {hand}")
+        for i, (r, q) in enumerate(zip(reqs, out)):
+            if not q.finished or len(q.tokens) != r["max_new"]:
+                fail(f"spec: k={k} request {i} emitted {len(q.tokens)} of "
+                     f"{r['max_new']} tokens (state {q.state})")
+        not_argmax, worst = _greedy_worst_gap(params, cfg, reqs,
+                                              [q.tokens for q in out])
+        if not worst <= LOGIT_TOL:
+            fail(f"spec: k={k} a greedy token lies {worst} below the "
+                 f"teacher-forced maximum (> {LOGIT_TOL})")
+        stats = eng.stats()
+        if k:
+            if not (sched.spec_proposed > 0 and sched.spec_accepted > 0):
+                fail(f"spec: proposed {sched.spec_proposed}, accepted "
+                     f"{sched.spec_accepted}")
+            bounds = tuple(eng.metrics._hists["spec_accepted_run"]._bounds)
+            if bounds != tuple(range(k + 1)):
+                fail(f"spec: acceptance histogram buckets {bounds}")
+        n_tokens = sum(len(q.tokens) for q in out)
+        dispatches = stats["dispatches"] - before["dispatches"]
+        tpot = np.array([q.metrics.tpot for q in out]) * 1e3
+        ttft = np.array([q.metrics.ttft for q in out]) * 1e3
+        runs[k] = {
+            "speculate_k": k, "output_tokens": n_tokens, "drain_s": wall,
+            "steps": steps, "output_tokens_per_s": n_tokens / wall,
+            "ttft_p50_ms": float(np.percentile(ttft, 50)),
+            "ttft_p99_ms": float(np.percentile(ttft, 99)),
+            "tpot_p50_ms": float(np.percentile(tpot, 50)),
+            "tpot_p99_ms": float(np.percentile(tpot, 99)),
+            "decode_dispatches": dispatches,
+            "dispatches_per_token": dispatches / n_tokens,
+            "spec_passes": sched.spec_passes,
+            "spec_proposed": sched.spec_proposed,
+            "spec_accepted": sched.spec_accepted,
+            "tokens_per_verify_pass": (
+                (sched.spec_passes + sched.spec_accepted)
+                / sched.spec_passes if sched.spec_passes else None),
+            "draft_accept_rate": (sched.spec_accepted / sched.spec_proposed
+                                  if sched.spec_proposed else None),
+            "greedy_tokens_not_exact_argmax": not_argmax,
+            "greedy_worst_gap": worst,
+            "hand_kernel_launches": hand,
+            # one dispatch of every slot frozen after the drain, divided
+            # by the chunk: a decode iteration at k=0, a verify pass at k
+            **_launches_per_iteration(eng)}
+        streams[k] = [list(q.tokens) for q in out]
+        if k:
+            # the k=4 streams against the k=0 ones: bitwise, or parted
+            # at a near tie of the k=0 stream's scores
+            parts = _near_tie_parts(params, cfg, reqs, streams[0],
+                                    streams[k])
+        eng.close()
+        del eng, params, sched
+        torch.cuda.empty_cache()
+    shutil.rmtree(d, ignore_errors=True)
+    wide = [p for p in parts if not p["margin"] < SPEC_TIE]
+    if wide:
+        fail(f"spec: k={SPEC_K} streams part from k=0 outside a near tie "
+             f"(margin < {SPEC_TIE}): {wide}")
+    base, spec = runs[0], runs[SPEC_K]
+    summary = {
+        "phase": "spec", "model": "gpt2-small", "requests": len(reqs),
+        "num_slots": 8, "decode_chunk": 8, "block_size": 16,
+        "speculate_ngram": 512, "runs": [base, spec],
+        "streams_parted_at_near_tie": parts,
+        "streams_identical": len(reqs) - len(parts),
+        "tokens_per_s_ratio": (spec["output_tokens_per_s"]
+                               / base["output_tokens_per_s"]),
+        "verify_pass_over_iteration_device_ms": (
+            spec["device_busy_ms_per_iteration"]
+            / base["device_busy_ms_per_iteration"]),
+        "verify_pass_over_iteration_wall_ms": (
+            spec["wall_ms_per_iteration"] / base["wall_ms_per_iteration"]),
+        "wall_s": time.perf_counter() - t_phase}
+    emit(summary)
+    return summary
+
+
+# ---------------------------------------------------------------------------
 # phase 5: GPT-2 small training steps
 # ---------------------------------------------------------------------------
 
@@ -3183,8 +3389,9 @@ def phase_times(serve, train, bert, spike, seed):
 
 
 def in_child(seed, flag):
-    """Phase 4 or 4b in a process of its own (this script with
-    --engine-only or --server-only), its JSON lines passed through, its
+    """Phase 4, 4b or 4c in a process of its own (this script with
+    --engine-only, --server-only or --spec-only), its JSON lines passed
+    through, its
     summary returned. After the engine's run, torch.profiler traces taken
     later in the same process lost one kernel record a trace (PERF.md §6,
     the engine's calls 2-7), which the times phase's device-time checks
@@ -3212,15 +3419,20 @@ def main():
                            "process)")
     only.add_argument("--server-only", action="store_true",
                       help="run phase 4b alone, likewise")
+    only.add_argument("--spec-only", action="store_true",
+                      help="run phase 4c alone, likewise")
     args = ap.parse_args()
     preflight()
     import torch
 
-    if args.engine_only or args.server_only:
+    alone = (phase_engine if args.engine_only else
+             phase_server if args.server_only else
+             phase_spec if args.spec_only else None)
+    if alone is not None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         try:
-            (phase_engine if args.engine_only else phase_server)(args.seed)
+            alone(args.seed)
         finally:
             shutil.rmtree(WORK_DIR, ignore_errors=True)
         return
@@ -3245,6 +3457,7 @@ def main():
         serve = phase_serve(args.seed)
         engine = in_child(args.seed, "--engine-only")
         server = in_child(args.seed, "--server-only")
+        spec = in_child(args.seed, "--spec-only")
         train = phase_train(args.seed)
         bert = phase_bert(args.seed)
         resnet = phase_resnet(args.seed)
@@ -3256,7 +3469,7 @@ def main():
         json.dump({"card": card, "seed": args.seed,
                    "wall_s": time.perf_counter() - t0, "build": build,
                    "kernel_cases": kernels, "serve": serve["summary"],
-                   "engine": engine, "server": server,
+                   "engine": engine, "server": server, "spec": spec,
                    "train": train["summaries"],
                    "bert": bert["runs"],
                    "resnet": resnet, "spike": spike["rows"],

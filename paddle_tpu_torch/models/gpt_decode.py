@@ -22,14 +22,24 @@ target is not a real row is redirected to the scratch block 0. The
 arena is written in place (`index_put_`), never rebuilt: the JAX
 engine donates it.
 
-Not ported yet (ROADMAP A.1): the slot-slab functions
-(`gpt_decode_step_slots`, `gpt_decode_chunk_slots`,
-`gpt_decode_verify_slots`), speculative decoding
-(`gpt_decode_verify_pages`, `_spec_step`, `spec_ngram_seed`), the int8
-weight and KV paths (`quantize_params`, `_quantize_rows`) and the LoRA
-adapter path (`_lora_layer`, `_dense_a`). The constants below name the
-kernels those paths cover in the JAX package; the engine's validation
-reads them.
+The slot-slab functions (`gpt_decode_step_slots`,
+`gpt_decode_verify_slots`, `gpt_decode_chunk_slots`) run the same
+per-slot math over a contiguous cache `(layers, 2, S, heads, max_len,
+hd)`; no engine family calls them. Speculative decoding drafts from a
+per-slot hashed trigram table (`_ngram_hash`, `spec_ngram_seed`),
+scores every draft in one multi-position verify pass
+(`gpt_decode_verify_slots`, `gpt_decode_verify_pages`) and commits the
+matched run in-graph (`_spec_step`, shared by both chunk loops). Where
+XLA's scatter drops a write past the slab's end, the slab writes here
+keep the row's old value; where a scatter names one table column twice,
+XLA's last write wins, and the port makes that rule explicit on every
+device (writes in order, one column a row at a time, or the last
+position's value resolved by a max over positions).
+
+Not ported yet (ROADMAP A.1): the int8 weight and KV paths
+(`quantize_params`, `_quantize_rows`) and the LoRA adapter path
+(`_lora_layer`, `_dense_a`). The constants below name the kernels those
+paths cover in the JAX package; the engine's validation reads them.
 """
 
 from __future__ import annotations
@@ -41,9 +51,13 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["collect_gpt_params", "gpt_forward_logits", "gpt_prefill",
-           "gpt_prefill_padded", "gpt_decode_step", "gpt_prefill_pages",
+           "gpt_prefill_padded", "gpt_decode_step",
+           "gpt_decode_step_slots", "gpt_decode_verify_slots",
+           "gpt_decode_chunk_slots", "gpt_prefill_pages",
            "gpt_prefill_chunk_pages", "gpt_decode_step_pages",
-           "gpt_decode_chunk_pages", "gpt_generate",
+           "gpt_decode_verify_pages", "gpt_decode_chunk_pages",
+           "spec_ngram_seed", "_ngram_hash", "_spec_step",
+           "gpt_generate",
            "QUANTIZED_KV_KERNELS", "ADAPTER_KERNELS",
            "ADAPTER_PROJECTIONS", "threefry2x32", "sample_key",
            "sample_split", "sample_gumbel"]
@@ -277,6 +291,167 @@ def gpt_decode_step(params, cfg, token, cache, t):
     return _head_logits(params, x), cache
 
 
+# -- slot slab ----------------------------------------------------------------
+
+def _slab_write(plane, rows, pos, val, max_len):
+    """One K or V column write into a slab plane (S, heads, max_len, hd),
+    in place: row pos[s] of slot s takes val[s] (heads, hd). A position
+    past the slab keeps its row's old value, as XLA's scatter drops it
+    (the clamped index and the kept value make every device agree)."""
+    pc = pos.clamp(max=max_len - 1)
+    keep = plane[rows, :, pc]
+    plane[rows, :, pc] = torch.where((pos < max_len)[:, None, None], val,
+                                     keep)
+
+
+def _slab_pass(params, cfg, toks, cache, ts):
+    """Shared body of gpt_decode_step_slots / gpt_decode_verify_slots:
+    toks (S, D) at positions ts..ts+D-1 a slot; writes the D K/V rows of
+    every slot in order (one column a time, so no write names a row
+    twice) before each layer's attention. Returns (logits (S, D, V) f32,
+    cache)."""
+    heads = cfg.heads
+    hd = cfg.hidden // cfg.heads
+    max_len = cache.shape[4]
+    dev = cache.device
+    s_dim, D = toks.shape
+    dtype = cache.dtype
+    rows = torch.arange(s_dim, device=dev)
+    pos = ts[:, None] + torch.arange(D, device=dev)[None, :]     # (S, D)
+    x = (params["wte"][toks] + _positions(params, pos)).to(dtype)
+    pos_mask = torch.arange(max_len, device=dev)[None, None, :] \
+        <= pos[:, :, None]
+    for li, blk in enumerate(params["blocks"]):
+        h = _ln(x, blk["ln1"])
+        q = _dense(h, blk["q"]).reshape(s_dim, D, heads, hd)
+        k = _dense(h, blk["k"]).reshape(s_dim, D, heads, hd)
+        v = _dense(h, blk["v"]).reshape(s_dim, D, heads, hd)
+        for j in range(D):
+            _slab_write(cache[li, 0], rows, pos[:, j], k[:, j], max_len)
+            _slab_write(cache[li, 1], rows, pos[:, j], v[:, j], max_len)
+        K, V = cache[li, 0], cache[li, 1]          # (S, n, L, hd)
+        scores = torch.einsum("bqnd,bnkd->bnqk", q.float(), K.float())
+        scores = torch.where(pos_mask[:, None], scores / np.sqrt(hd),
+                             _MASKED)
+        probs = _softmax_rows(scores, dtype)
+        ctx = torch.einsum("bnqk,bnkd->bqnd", probs, V).reshape(
+            s_dim, D, -1)
+        x = x + _dense(ctx, blk["out"])
+        x = _mlp_block(x, blk)
+    x = _ln(x, params["lnf"])
+    return (x @ params["wte"].T.to(x.dtype)).float(), cache
+
+
+def gpt_decode_step_slots(params, cfg, tokens, cache, ts):
+    """One cached decode step over the SLOT dimension: every slot
+    advances at its own absolute position. tokens/ts: (S,) ints, cache:
+    (layers, 2, S, heads, max_len, hd), written in place (row ts[s] of
+    slot s). Returns (logits (S, V) f32, cache). Retired or free slots
+    may keep stepping: their writes land at a stale position the next
+    admission's prefill overwrites before anything reads it."""
+    dev = cache.device
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    ts = torch.as_tensor(ts, device=dev).long()
+    logits, cache = _slab_pass(params, cfg, tokens[:, None], cache, ts)
+    return logits[:, 0], cache
+
+
+def gpt_decode_verify_slots(params, cfg, toks, cache, ts):
+    """Multi-position decode step over the slot dimension, the
+    speculative VERIFY pass: toks (S, D) candidate tokens at positions
+    ts..ts+D-1 a slot (column 0 the committed current token, columns 1..
+    the drafts). One pass writes all D K/V rows and returns logits for
+    every position, (S, D, V) f32. The query at offset j attends [0,
+    ts+j]; rows ts..ts+j are written this pass before the layer reads
+    them, so a previous pass's rejected rows are always rewritten first.
+    Writes past max_len are dropped (the row keeps its value) and their
+    wpe rows clamped; the budget mask never commits a token there. D = 1
+    is gpt_decode_step_slots row for row."""
+    dev = cache.device
+    toks = torch.as_tensor(toks, device=dev).long()
+    ts = torch.as_tensor(ts, device=dev).long()
+    return _slab_pass(params, cfg, toks, cache, ts)
+
+
+def _chunk_loop(step, sample_fn, tokens, pool, ts, keys, temps, done,
+                remaining, eos_ids, chunk):
+    """The non-speculative chunk loop of both pools: `chunk` iterations
+    of step(tok, pool, ts, done) -> (logits, pool), the whole-pool
+    sampler and the EOS/budget masks, all on the device."""
+    rows = []
+    tok = tokens
+    for _ in range(int(chunk)):
+        logits, pool = step(tok, pool, ts, done)
+        nxt, keys = sample_fn(keys, logits, temps)
+        emit = torch.where(done, tok, nxt)
+        remaining = torch.where(done, remaining, remaining - 1)
+        ndone = done | (emit == eos_ids) | (remaining <= 0)
+        ts = torch.where(done, ts, ts + 1)
+        done = ndone
+        tok = emit
+        rows.append(emit)
+    return torch.stack(rows), tok, pool, ts, keys, done, remaining
+
+
+def _spec_loop(verify, sample_fn, temps, eos_ids, speculate_k, chunk,
+               carry):
+    """The speculative chunk loop of both pools: `chunk` _spec_step
+    passes. Returns (block (chunk, k+1, S), counts (chunk, S), carry')."""
+    blocks, counts = [], []
+    for _ in range(int(chunk)):
+        carry, (out, cnt) = _spec_step(verify, sample_fn, temps, eos_ids,
+                                       speculate_k, carry)
+        blocks.append(out)
+        counts.append(cnt)
+    return torch.stack(blocks), torch.stack(counts), carry
+
+
+def gpt_decode_chunk_slots(params, cfg, tokens, cache, ts, keys, temps,
+                           done, remaining, eos_ids, chunk,
+                           sample_fn=None, speculate_k=0,
+                           spec_state=None):
+    """`chunk` iterations of gpt_decode_step_slots + per-slot sampling +
+    EOS/budget masking over the slab cache, queued back to back on the
+    cache's device (the JAX function's lax.scan; nothing reads a value
+    back to the host). Carry and masks as in gpt_decode_chunk_pages,
+    except that a frozen slot's ride-along step still writes row ts of
+    its OWN slab slot (the next admission's prefill overwrites it).
+
+    Returns (block (chunk, S) int64, tokens, cache, ts, keys, done,
+    remaining).
+
+    SPECULATIVE MODE (speculate_k > 0): each iteration is one draft ->
+    verify -> accept pass (_spec_step) over spec_state = (prev (S,)
+    previous committed token, table (S, T+1) trigram table, written in
+    place), one gpt_decode_verify_slots pass scoring every draft. Returns
+    (block (chunk, k+1, S), counts (chunk, S), tokens, cache, ts, keys,
+    done, remaining, (prev, table)): block[i, :counts[i, s], s] are slot
+    s's committed tokens of pass i."""
+    if sample_fn is None:
+        sample_fn = greedy_sample
+    dev = cache.device
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    ts = torch.as_tensor(ts, device=dev).long()
+    if int(speculate_k) > 0:
+        prev, table = spec_state
+
+        def verify(inputs, cache, ts, done):
+            return gpt_decode_verify_slots(params, cfg, inputs, cache, ts)
+
+        block, counts, carry = _spec_loop(
+            verify, sample_fn, temps, eos_ids, speculate_k, chunk,
+            (tokens, cache, ts, keys, done, remaining, prev, table))
+        tokens, cache, ts, keys, done, remaining, prev, table = carry
+        return (block, counts, tokens, cache, ts, keys, done, remaining,
+                (prev, table))
+
+    def step(tok, cache, ts, done):
+        return gpt_decode_step_slots(params, cfg, tok, cache, ts)
+
+    return _chunk_loop(step, sample_fn, tokens, cache, ts, keys, temps,
+                       done, remaining, eos_ids, chunk)
+
+
 # -- paged pool ---------------------------------------------------------------
 
 def _gather_pages(plane, pages):
@@ -436,9 +611,182 @@ def greedy_sample(keys, logits, temps):
     return logits.argmax(-1), keys
 
 
+def gpt_decode_verify_pages(params, cfg, toks, arena, pt, ts, done=None):
+    """gpt_decode_verify_slots over the PAGED pool: toks (S, D) at
+    positions ts..ts+D-1 a slot, the D K/V writes through the page
+    table. Two kinds of write go to the scratch block 0: those of `done`
+    slots (a retired slot's reallocated blocks are never dirtied by its
+    ride-along verify) and those whose page index runs past the row
+    (pidx >= P: a draft's overshoot). Candidates at such positions read
+    garbage and are never committed. Returns (logits (S, D, V) f32,
+    arena)."""
+    heads = cfg.heads
+    hd = cfg.hidden // cfg.heads
+    dev = arena.device
+    toks = torch.as_tensor(toks, device=dev).long()
+    ts = torch.as_tensor(ts, device=dev).long()
+    pt = torch.as_tensor(pt, device=dev).long()
+    bs = arena.shape[4]
+    s_dim, n_pages = pt.shape
+    D = toks.shape[1]
+    L = n_pages * bs
+    dtype = arena.dtype
+    rows = torch.arange(s_dim, device=dev)[:, None]
+    pos = ts[:, None] + torch.arange(D, device=dev)[None, :]     # (S, D)
+    x = (params["wte"][toks] + _positions(params, pos)).to(dtype)
+    pos_mask = torch.arange(L, device=dev)[None, None, :] <= pos[:, :, None]
+    pidx = pos // bs
+    wblk = torch.where(pidx < n_pages,
+                       pt[rows, pidx.clamp(max=n_pages - 1)], 0)
+    if done is not None:
+        wblk = torch.where(done[:, None], 0, wblk)
+    woff = pos % bs
+    for li, blk in enumerate(params["blocks"]):
+        h = _ln(x, blk["ln1"])
+        q = _dense(h, blk["q"]).reshape(s_dim, D, heads, hd)
+        k = _dense(h, blk["k"]).reshape(s_dim, D, heads, hd)
+        v = _dense(h, blk["v"]).reshape(s_dim, D, heads, hd)
+        _kv_write(arena, li, 0, wblk, woff, k)
+        _kv_write(arena, li, 1, wblk, woff, v)
+        K = _gather_pages(arena[li, 0], pt)        # (S, heads, L, hd)
+        V = _gather_pages(arena[li, 1], pt)
+        scores = torch.einsum("bqnd,bnkd->bnqk", q.float(), K.float())
+        scores = torch.where(pos_mask[:, None], scores / np.sqrt(hd),
+                             _MASKED)
+        probs = _softmax_rows(scores, dtype)
+        ctx = torch.einsum("bnqk,bnkd->bqnd", probs, V).reshape(
+            s_dim, D, -1)
+        x = x + _dense(ctx, blk["out"])
+        x = _mlp_block(x, blk)
+    x = _ln(x, params["lnf"])
+    return (x @ params["wte"].T.to(x.dtype)).float(), arena
+
+
+# -- speculative decoding: the n-gram drafter and the accept step ------------
+
+_HASH_A = 2654435761          # 0x9E3779B1
+_HASH_B = 40503
+
+
+def _ngram_hash(a, b, size):
+    """Hash a 2-token drafter context into [0, size), bit-equal to the
+    JAX function's uint32 math: a and b taken mod 2^32, each product
+    mod 2^32, XOR, then % size. int64 throughout; the first product runs
+    as two 16-bit halves, so no intermediate reaches 2^49."""
+    a = torch.as_tensor(a).long() & _M32
+    b = torch.as_tensor(b).long() & _M32
+    ua = ((((a * (_HASH_A >> 16)) & 0xFFFF) << 16)
+          + a * (_HASH_A & 0xFFFF)) & _M32
+    ub = (b * _HASH_B) & _M32
+    return (ua ^ ub) % int(size)
+
+
+def spec_ngram_seed(table, slot, tokens, real_len):
+    """Reset one slot's drafter row and seed it with the prompt's
+    trigram statistics: context (tokens[j-2], tokens[j-1]) predicts
+    tokens[j] for every real j. tokens: (B,) right-padded prompt suffix;
+    real_len: its real length. table: (S, T+1) int64 written in place
+    and returned; column T is the trash column the pad positions land
+    in, -1 marks "no prediction". Where two positions name one column,
+    the later position's token wins (XLA's scatter order), resolved as a
+    max over positions so every device agrees."""
+    slot = int(slot)
+    size = table.shape[1] - 1
+    tokens = torch.as_tensor(tokens, device=table.device).long()
+    B = tokens.shape[0]
+    if B < 3:
+        table[slot] = -1
+        return table
+    j = torch.arange(B - 2, device=table.device)
+    idx = _ngram_hash(tokens[:-2], tokens[1:-1], size)
+    idx = torch.where(j + 2 < real_len, idx, size)
+    last = torch.full((size + 1,), -1, dtype=torch.int64,
+                      device=table.device)
+    last.scatter_reduce_(0, idx, j, reduce="amax")
+    table[slot] = torch.where(last >= 0, tokens[2:][last.clamp(min=0)],
+                              -1)
+    return table
+
+
+def _spec_step(verify, sample_fn, temps, eos_ids, speculate_k, carry):
+    """One draft -> verify -> accept pass of the speculative chunk loop,
+    shared by the slab and paged loops. carry = (tok, pool, ts, keys,
+    done, rem, prev, table); verify(inputs (S, k+1), pool, ts, done) ->
+    (logits (S, k+1, V), pool); sample_fn is the whole-pool sampler.
+    Returns (carry', (out (k+1, S), counts (S,))).
+
+    Acceptance is EXACT-MATCH against the sampler's own draw: candidate
+    j is sampled from logits j with the key after j splits (the
+    sequential schedule), and is valid only while every draft before it
+    matched, so each committed token is bit for bit what the
+    non-speculative path emits with the same seed. EOS/budget stops end
+    the committed run at the finish token; a frozen slot re-emits its
+    token with count 1 and its key advances one split. The table is
+    written in place, one column at a time in order, so where a pass
+    names one column twice the later write wins on every device."""
+    k = int(speculate_k)
+    tok, pool, ts, keys, done, rem, prev, table = carry
+    s_dim = tok.shape[0]
+    dev = tok.device
+    rows = torch.arange(s_dim, device=dev)
+    size = table.shape[1] - 1
+    # draft: k chained trigram lookups; a miss (-1) proposes token 0
+    drafts = []
+    a, b = prev, tok
+    for _ in range(k):
+        d = table[rows, _ngram_hash(a, b, size)]
+        d = torch.where(d < 0, 0, d)
+        drafts.append(d)
+        a, b = b, d
+    inputs = torch.stack([tok] + drafts, dim=1)          # (S, k+1)
+    logits, pool = verify(inputs, pool, ts, done)
+    cands, chain, cur = [], [keys], keys
+    for j in range(k + 1):
+        cj, cur = sample_fn(cur, logits[:, j], temps)
+        cands.append(cj)
+        chain.append(cur)
+    cands = torch.stack(cands, dim=1)                    # (S, k+1)
+    chain = torch.stack(chain, dim=1)                    # (S, k+2, 2)
+    dr = torch.stack(drafts, dim=1)                      # (S, k)
+    # candidate j is valid only while drafts 0..j-1 all matched
+    lead = torch.cumprod((cands[:, :k] == dr).long(), dim=1)
+    base = torch.cat([torch.ones((s_dim, 1), dtype=torch.bool,
+                                 device=dev), lead.bool()], dim=1)
+    jj = torch.arange(k + 1, device=dev)[None, :]
+    stop = (cands == eos_ids[:, None]) | (rem[:, None] - (jj + 1) <= 0)
+    stopped_before = torch.cat(
+        [torch.zeros((s_dim, 1), dtype=torch.bool, device=dev),
+         torch.cumsum(stop.long(), dim=1)[:, :-1] > 0], dim=1)
+    can = base & ~stopped_before             # monotone commit mask
+    c = can.sum(dim=1)                       # >= 1: j = 0 always commits
+    live = ~done
+    last = cands[rows, c - 1]
+    prev_commit = torch.where(c >= 2, cands[rows, (c - 2).clamp(min=0)],
+                              tok)
+    ndone = done | (can & stop).any(dim=1)
+    # every committed token registered under its 2-token context;
+    # frozen slots and rejected tails write the trash column
+    seq = torch.cat([prev[:, None], tok[:, None], cands], dim=1)
+    idx = _ngram_hash(seq[:, :k + 1], seq[:, 1:k + 2], size)
+    idx = torch.where(can & live[:, None], idx, size)
+    for j in range(k + 1):
+        table[rows, idx[:, j]] = cands[:, j]
+    out = torch.where(live[:, None],
+                      torch.where(can, cands, last[:, None]), tok[:, None])
+    counts = torch.where(live, c, 1)
+    keys = chain[rows, counts]
+    tok = torch.where(live, last, tok)
+    prev = torch.where(live, prev_commit, prev)
+    ts = torch.where(live, ts + c, ts)
+    rem = torch.where(live, rem - c, rem)
+    return ((tok, pool, ts, keys, ndone, rem, prev, table),
+            (out.T, counts))
+
+
 def gpt_decode_chunk_pages(params, cfg, tokens, arena, pt, ts, keys,
                            temps, done, remaining, eos_ids, chunk,
-                           sample_fn=None):
+                           sample_fn=None, speculate_k=0,
+                           spec_state=None):
     """`chunk` iterations of gpt_decode_step_pages + per-slot sampling +
     EOS/budget masking, queued back to back on the arena's device: the
     counterpart of the JAX function's lax.scan. Every mask and counter
@@ -456,23 +804,36 @@ def gpt_decode_chunk_pages(params, cfg, tokens, arena, pt, ts, keys,
     argmax. The page table is read-only here.
 
     Returns (block (chunk, S) int64 — block[i, s] is slot s's i-th
-    in-chunk token — tokens, arena, ts, keys, done, remaining)."""
+    in-chunk token — tokens, arena, ts, keys, done, remaining).
+
+    SPECULATIVE MODE (speculate_k > 0): as in gpt_decode_chunk_slots,
+    each iteration drafts speculate_k tokens from spec_state = (prev,
+    table), verifies them in one gpt_decode_verify_pages pass (frozen
+    slots' and past-the-row writes to scratch) and commits the accepted
+    run plus one corrected token. Returns (block (chunk, k+1, S), counts
+    (chunk, S), tokens, arena, ts, keys, done, remaining, (prev,
+    table))."""
     if sample_fn is None:
         sample_fn = greedy_sample
-    rows = []
-    tok = tokens
-    for _ in range(int(chunk)):
-        logits, arena = gpt_decode_step_pages(params, cfg, tok, arena, pt,
-                                              ts, done)
-        nxt, keys = sample_fn(keys, logits, temps)
-        emit = torch.where(done, tok, nxt)
-        remaining = torch.where(done, remaining, remaining - 1)
-        ndone = done | (emit == eos_ids) | (remaining <= 0)
-        ts = torch.where(done, ts, ts + 1)
-        done = ndone
-        tok = emit
-        rows.append(emit)
-    return torch.stack(rows), tok, arena, ts, keys, done, remaining
+    if int(speculate_k) > 0:
+        prev, table = spec_state
+
+        def verify(inputs, arena, ts, done):
+            return gpt_decode_verify_pages(params, cfg, inputs, arena, pt,
+                                           ts, done)
+
+        block, counts, carry = _spec_loop(
+            verify, sample_fn, temps, eos_ids, speculate_k, chunk,
+            (tokens, arena, ts, keys, done, remaining, prev, table))
+        tokens, arena, ts, keys, done, remaining, prev, table = carry
+        return (block, counts, tokens, arena, ts, keys, done, remaining,
+                (prev, table))
+
+    def step(tok, arena, ts, done):
+        return gpt_decode_step_pages(params, cfg, tok, arena, pt, ts, done)
+
+    return _chunk_loop(step, sample_fn, tokens, arena, ts, keys, temps,
+                       done, remaining, eos_ids, chunk)
 
 
 # -- serving sampler PRNG -----------------------------------------------------

@@ -5,17 +5,19 @@ Port of `paddle_tpu/serving/`: a paged KV block arena + page tables with
 hashed prefix sharing (`kv_cache`), an iteration-level scheduler that
 admits by pages needed and interleaves suffix prefills with fused
 chunked decode over a device-resident, overlapped pipeline
-(`scheduler`), a request-lifecycle engine with bounded admission and
-streaming callbacks, host-swap preemption and cross-engine migration
-(`engine`), the portable migration record (`migration`), request/engine
-metrics (`metrics`) and deterministic fault injection (`faults`).
+(`scheduler`, with speculative decoding: a per-slot n-gram drafter and
+one verify pass a chunk iteration), a request-lifecycle engine with
+bounded admission and streaming callbacks, host-swap preemption and
+cross-engine migration (`engine`), the portable migration record
+(`migration`), request/engine metrics (`metrics`) and deterministic
+fault injection (`faults`).
 
 Entry points: `inference.create_engine(config, gpt_config)` to serve a
 saved model dir, or `ServingEngine(params, cfg)` over a parameter tree
 from `models.gpt_decode.collect_gpt_params`.
 
-Not ported yet (ROADMAP A.1): adapters, speculation, quantized
-serving; the mesh (A.8).
+Not ported yet: quantized serving (ROADMAP A.1.4), adapters (A.1.5);
+the mesh (A.8).
 """
 
 from .engine import (DEFAULT_RETRY_AFTER_S, EngineOverloadError,

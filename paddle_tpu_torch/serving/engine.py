@@ -21,7 +21,9 @@ it, with strict priority over new admissions, once pages free; and
 `migrate_out`/`migrate_in` hand a running or parked sequence to another
 engine as a `migration.MigrationTicket` (the router's rebalancing and
 restarts). Resumed and migrated streams are bit-identical to
-never-preempted runs.
+never-preempted runs. With `ServingConfig(speculate_k=k)` every decode
+iteration drafts k tokens from a per-slot n-gram table and verifies them
+in one model pass; streams stay bit-identical to speculate_k=0.
 
 The engine runs on its parameters' device (`inference.create_engine`
 puts them on the card unless the Config says `disable_gpu()`).
@@ -116,9 +118,16 @@ class ServingConfig:
     callable over the running table. Resumed streams are bit-identical
     to never-preempted runs.
 
+    Speculation knobs: speculate_k > 0 turns every fused decode
+    iteration into a draft -> verify -> accept pass — a per-slot
+    n-gram drafter proposes speculate_k tokens, one model pass verifies
+    them, exact-match acceptance commits 1..speculate_k+1 tokens — with
+    token streams bit-identical to speculate_k=0; speculate_ngram sizes
+    the hashed per-slot drafter table.
+
     Not ported yet, each raising NotImplementedError when set:
-    speculate_k/speculate_ngram (ROADMAP A.1.3), weight_dtype/kv_dtype
-    (A.1.4), max_adapters/adapter_rank (A.1.5), mesh_shape (A.8)."""
+    weight_dtype/kv_dtype (ROADMAP A.1.4), max_adapters/adapter_rank
+    (A.1.5), mesh_shape (A.8)."""
 
     def __init__(self, num_slots: int = 4, max_queue: int = 16,
                  prefill_buckets: Optional[Sequence[int]] = None,
@@ -143,9 +152,6 @@ class ServingConfig:
                  tick_profile: bool = False,
                  clock: Callable[[], float] = time.monotonic):
         for knob, set_, item in (
-                (f"speculate_k={speculate_k}", speculate_k, "A.1.3"),
-                (f"speculate_ngram={speculate_ngram}",
-                 speculate_ngram != 512, "A.1.3"),
                 (f"weight_dtype={weight_dtype!r}",
                  weight_dtype is not None, "A.1.4"),
                 (f"kv_dtype={kv_dtype!r}", kv_dtype is not None, "A.1.4"),
@@ -169,9 +175,9 @@ class ServingConfig:
         self.prefix_cache = bool(prefix_cache)
         self.preempt = bool(preempt)
         self.preempt_policy = preempt_policy
-        # speculation at its only accepted value (migration tickets
-        # check it)
-        self.speculate_k = 0
+        # speculative decoding (off by default): the scheduler
+        # validates both; migration tickets check them
+        self.speculate_k = int(speculate_k)
         self.speculate_ngram = int(speculate_ngram)
         self.decode_chunk = int(decode_chunk)
         self.overlap = bool(overlap)
@@ -313,15 +319,22 @@ class ServingEngine:
         self.scheduler = ContinuousBatchingScheduler(
             params, cfg, self.kv, self.buckets, top_k=serving.top_k,
             decode_chunk=serving.decode_chunk, overlap=serving.overlap,
+            speculate_k=serving.speculate_k,
+            speculate_ngram=serving.speculate_ngram,
             prefill_chunk=serving.prefill_chunk)
         self.scheduler.on_prefill_chunk = self._on_prefill_chunk
         # launch-side heartbeat: bumped at dispatch ENQUEUE inside the
         # scheduler, so a device hang with the host blocked in the next
         # read still shows the last launch that went in
         self.scheduler.on_launch = self._on_dispatch_launched
+        # count-scaled histogram layout: one dispatch can emit up to
+        # num_slots * decode_chunk * (1 + speculate_k) tokens, and the
+        # acceptance histogram spans 0..speculate_k accepted a pass
         self.metrics = EngineMetrics(
             max_tokens_per_dispatch=(serving.num_slots
-                                     * serving.decode_chunk),
+                                     * serving.decode_chunk
+                                     * (1 + serving.speculate_k)),
+            speculate_k=serving.speculate_k,
             dispatch_timing=serving.dispatch_timing,
             tick_profile=serving.tick_profile)
         if serving.dispatch_timing:
@@ -614,6 +627,14 @@ class ServingEngine:
             emitted += 1
         if tp is not None:
             tp.lap("stream")
+        if self.scheduler.speculate_k:
+            # speculation telemetry: the scheduler's cumulative totals
+            # are the registry's truth, and each live verify pass feeds
+            # one accepted-run sample into the histogram
+            self.metrics.spec_proposed = self.scheduler.spec_proposed
+            self.metrics.spec_accepted = self.scheduler.spec_accepted
+            for run in self.scheduler.drain_spec_samples():
+                self.metrics.observe_spec_run(run)
         self.metrics.active_slots = self.kv.active_count
         self.metrics.swapped_slots = len(self._swapped)
         self.metrics.kv_blocks_used = self.kv.blocks_used
@@ -830,8 +851,9 @@ class ServingEngine:
                 "new residents")
         if self.faults is not None:
             self.faults.migration_phase("adopt")
-        # a ticket with drafter rows, a scale plane or an adapter fails
-        # here (TicketError): this engine has none of them
+        # a ticket whose drafter rows do not fit this engine's
+        # speculation config, or with a scale plane or an adapter, fails
+        # here (TicketError)
         ticket.validate_for(self)
         req = GenerationRequest(
             ticket.prompt, ticket.max_new, ticket.temperature,

@@ -76,11 +76,25 @@ Only the blocks a sequence owns move, both ways: eager torch has no
 fixed-shape executable to pad for, so a swap never touches the scratch
 block.
 
+SPECULATIVE DECODING (speculate_k > 0): every chunk iteration becomes a
+draft -> verify -> accept pass (gpt_decode._spec_step): each slot's
+hashed trigram table proposes speculate_k tokens, one multi-position
+verify pass scores them all, and exact-match acceptance against the
+sampler's own draw commits the matched run plus one corrected token.
+The carry grows the previous committed token and the (S, T+1) table;
+prefill seeds a slot's row from its prompt suffix and admission sets
+its previous token to the prompt's last. A dispatch returns a (chunk,
+k+1, S) block and (chunk, S) commit counts, copied to pinned memory
+behind one event. Streams stay bit-identical to speculate_k=0; only
+the number of tokens a model pass commits changes. `spec_passes`,
+`spec_proposed`, `spec_accepted` and the per-pass accepted runs
+(`drain_spec_samples`) count live passes only.
+
 Every device call runs on the stream the scheduler was built on (the
 engine's driver thread need not be the thread that built it, and the
 current stream is thread-local), under `torch.no_grad()`.
 
-Not ported yet (ROADMAP A.1): speculative decoding, adapters and the
+Not ported yet (ROADMAP A.1): adapters, quantized serving and the
 tensor-parallel mesh.
 """
 
@@ -148,10 +162,10 @@ class _Prefill:
 
     __slots__ = ("req", "suffix", "start", "cursor", "p_len", "max_new",
                  "temperature", "seed", "eos_id", "pages", "seq",
-                 "chunk_index")
+                 "chunk_index", "prev_tok")
 
     def __init__(self, req, suffix, start, p_len, max_new, temperature,
-                 seed, eos_id, pages, seq):
+                 seed, eos_id, pages, seq, prev_tok):
         self.req = req
         self.suffix = suffix              # (suffix_len,) int32 host copy
         self.start = start                # pfx_len at admission
@@ -164,6 +178,7 @@ class _Prefill:
         self.pages = pages                # (max_pages,) page row
         self.seq = seq                    # admission order
         self.chunk_index = 0              # next chunk's journal index
+        self.prev_tok = prev_tok          # prompt[-1], the drafter seed
 
 
 class SwappedSequence:
@@ -174,8 +189,9 @@ class SwappedSequence:
     bit-exactly. Field for field the JAX package's record, in its
     dtypes: payload (L, 2, n_blocks, heads, bs, hd) in the arena's
     dtype, token/ts/remaining/eos 0-d int32, temp 0-d float32, key_row
-    (2,) uint32. `spec` and `scales` (speculation, int8 arena) stay
-    None and `adapter_id` 0: those paths are not ported."""
+    (2,) uint32, and on a speculating engine `spec` = (prev 0-d int32,
+    drafter table row (T+1,) int32), else None. `scales` (int8 arena)
+    stays None and `adapter_id` 0: those paths are not ported."""
 
     __slots__ = ("req", "pos", "produced", "max_new", "eos_id",
                  "seq", "length", "n_blocks", "payload", "token", "ts",
@@ -371,12 +387,13 @@ class _Inflight(NamedTuple):
     """One launched-but-unread chunk dispatch."""
     host: Any           # (chunk, S) int64 token block on the host: pinned
     #                     memory a non_blocking copy fills (CUDA), or the
-    #                     block itself (CPU)
-    event: Any          # CUDA event recorded after the copy, or None
+    #                     block itself (CPU); (chunk, k+1, S) in spec mode
+    event: Any          # CUDA event recorded after the copies, or None
     index: int          # dispatch index at launch (matches live_from)
     size: int           # chunk length
     begin_ns: int       # launch stamp; 0 = tracing was off at launch
     host_s: float = 0.0  # launch-side host seconds (dispatch_timing on)
+    counts: Any = None  # spec mode: (chunk, S) commit counts on the host
 
 
 class ContinuousBatchingScheduler:
@@ -386,7 +403,8 @@ class ContinuousBatchingScheduler:
 
     def __init__(self, params, cfg, kv: SlotKVCache, buckets: ShapeBuckets,
                  top_k: int = 0, decode_chunk: int = 8,
-                 overlap: bool = True,
+                 overlap: bool = True, speculate_k: int = 0,
+                 speculate_ngram: int = 512,
                  prefill_chunk: Optional[int] = None):
         if int(decode_chunk) < 1:
             raise ValueError(
@@ -394,6 +412,12 @@ class ContinuousBatchingScheduler:
         if prefill_chunk is not None and int(prefill_chunk) < 1:
             raise ValueError(
                 f"prefill_chunk must be >= 1 or None, got {prefill_chunk}")
+        if int(speculate_k) < 0:
+            raise ValueError(
+                f"speculate_k must be >= 0, got {speculate_k}")
+        if int(speculate_ngram) < 1:
+            raise ValueError(
+                f"speculate_ngram must be >= 1, got {speculate_ngram}")
         self.params = params
         self.cfg = cfg
         self.kv = kv
@@ -401,6 +425,8 @@ class ContinuousBatchingScheduler:
         self.top_k = int(top_k)
         self.decode_chunk = int(decode_chunk)
         self.overlap = bool(overlap)
+        self.speculate_k = int(speculate_k)
+        self.speculate_ngram = int(speculate_ngram)
         # chunked prefill (None = monolithic): the per-tick prefill
         # token budget AND the per-dispatch chunk ceiling
         self.prefill_chunk = int(prefill_chunk) \
@@ -416,6 +442,13 @@ class ContinuousBatchingScheduler:
         # fired once per dispatched prefill chunk with its launch-side
         # wall seconds (serving_prefill_chunks + its histogram)
         self.on_prefill_chunk = None
+        # speculation telemetry over LIVE verify passes, accumulated at
+        # collect: the engine copies the totals into its counters and
+        # drains the accepted-run samples into its histogram
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_passes = 0
+        self._spec_samples: List[int] = []
         self._running: Dict[int, _Running] = {}
         self._compile_events: List[str] = []
         self._families: set = set()
@@ -433,6 +466,14 @@ class ContinuousBatchingScheduler:
                                    device=dev),
                        torch.full((s_dim,), -1, dtype=torch.int64,
                                   device=dev))
+        if self.speculate_k:
+            # drafter carry: previous committed token and the per-slot
+            # trigram table (its last column the trash column masked
+            # writes land in, -1 = no prediction)
+            self._state += (
+                torch.zeros((s_dim,), dtype=torch.int64, device=dev),
+                torch.full((s_dim, self.speculate_ngram + 1), -1,
+                           dtype=torch.int64, device=dev))
         # device page table: every row scratch until its slot admits
         self._pt = torch.zeros((s_dim, kv.max_pages), dtype=torch.int64,
                                device=dev)
@@ -463,29 +504,33 @@ class ContinuousBatchingScheduler:
     # -- families -------------------------------------------------------------
 
     def _prefill_family(self, tokens, pfx_len, real_len, pages, slot):
-        pages = torch.as_tensor(pages, dtype=torch.int64,
-                                device=self.device)
-        logits, _ = gd.gpt_prefill_pages(
-            self.params, self.cfg, tokens, pfx_len, real_len, self.kv.kv,
-            pages)
-        self._pt[slot] = pages
-        return logits[0]
+        return self._prefill_body(gd.gpt_prefill_pages, tokens, pfx_len,
+                                  real_len, pages, slot)
 
     def _prefill_chunk_family(self, tokens, start_pos, real_len, pages,
                               slot):
         # per-position math shared with _prefill_family; the page-row
         # install is idempotent across a prompt's chunks
+        return self._prefill_body(gd.gpt_prefill_chunk_pages, tokens,
+                                  start_pos, real_len, pages, slot)
+
+    def _prefill_body(self, prefill, tokens, start, real_len, pages, slot):
+        tokens = torch.as_tensor(tokens, device=self.device)
         pages = torch.as_tensor(pages, dtype=torch.int64,
                                 device=self.device)
-        logits, _ = gd.gpt_prefill_chunk_pages(
-            self.params, self.cfg, tokens, start_pos, real_len, self.kv.kv,
-            pages)
+        logits, _ = prefill(self.params, self.cfg, tokens, start, real_len,
+                            self.kv.kv, pages)
         self._pt[slot] = pages
+        if self.speculate_k:
+            # slot-reuse hygiene: wipe the previous occupant's n-grams
+            # and seed from THIS suffix (a prefix-cache hit's tokens are
+            # not here: seeding is best effort, drafts are verified)
+            gd.spec_ngram_seed(self._state[7], slot, tokens[0], real_len)
         return logits[0]
 
     def _admit_family(self, slot, seed, logits, temp, pos, max_new,
-                      eos_id):
-        tokens, ts, done, remaining, temps, eos_ids = self._state
+                      eos_id, prev_tok):
+        tokens, ts, done, remaining, temps, eos_ids = self._state[:6]
         temps[slot] = temp
         eos_ids[slot] = eos_id
         self._keys[slot] = gd.sample_key(seed, self.device)
@@ -500,36 +545,57 @@ class ContinuousBatchingScheduler:
         # ids are >= 0, so eos_id -1 never matches)
         done[slot] = (first == eos_id) | (max_new <= 1)
         remaining[slot] = max_new - 1
+        if self.speculate_k:
+            # first drafter context = (last prompt token, first sampled
+            # token); the table row was seeded at prefill
+            self._state[6][slot] = prev_tok
         return first
 
     def _chunk_family(self):
-        tokens, ts, done, remaining, temps, eos_ids = self._state
+        """One decode dispatch: the (chunk, S) token block, or in spec
+        mode the (chunk, k+1, S) block and its (chunk, S) counts."""
+        tokens, ts, done, remaining, temps, eos_ids = self._state[:6]
+        if self.speculate_k:
+            (block, counts, tokens, _, ts, self._keys, done, remaining,
+             spec) = gd.gpt_decode_chunk_pages(
+                self.params, self.cfg, tokens, self.kv.kv, self._pt, ts,
+                self._keys, temps, done, remaining, eos_ids,
+                self.decode_chunk, sample_fn=self._sample,
+                speculate_k=self.speculate_k,
+                spec_state=self._state[6:8])
+            self._state = (tokens, ts, done, remaining, temps,
+                           eos_ids) + spec
+            return block, counts
         block, tokens, _, ts, self._keys, done, remaining = \
             gd.gpt_decode_chunk_pages(
                 self.params, self.cfg, tokens, self.kv.kv, self._pt, ts,
                 self._keys, temps, done, remaining, eos_ids,
                 self.decode_chunk, sample_fn=self._sample)
         self._state = (tokens, ts, done, remaining, temps, eos_ids)
-        return block
+        return block, None
 
     def _swapout_family(self, blocks, slot):
         # read-only gather of the blocks the slot owns plus its rows of
-        # the decode carry and its key row; nothing is written
-        tokens, ts, _done, remaining, temps, eos_ids = self._state
+        # the decode carry, its key row and its drafter rows; nothing is
+        # written
+        tokens, ts, _done, remaining, temps, eos_ids = self._state[:6]
         idx = torch.as_tensor(blocks, dtype=torch.int64,
                               device=self.device)
         payload = self.kv.kv.index_select(2, idx)
         ints = torch.stack((tokens[slot], ts[slot], remaining[slot],
                             eos_ids[slot], self._keys[slot, 0],
                             self._keys[slot, 1]))
+        if self.speculate_k:
+            ints = torch.cat((ints, self._state[6][slot:slot + 1],
+                              self._state[7][slot]))
         return payload, ints, temps[slot:slot + 1]
 
     def _swapin_family(self, payload, blocks, slot, token, ts_v, rem,
-                       temp, eos, key_row):
+                       temp, eos, key_row, spec):
         # scatter the payload back through the adopted page row into the
         # SAME arena tensor (indexed assignment, never a new arena) and
         # rebuild the slot's carry rows exactly as saved
-        tokens, ts, done, remaining, temps, eos_ids = self._state
+        tokens, ts, done, remaining, temps, eos_ids = self._state[:6]
         n = payload.shape[2]
         idx = torch.as_tensor(blocks[:n], dtype=torch.int64,
                               device=self.device)
@@ -546,12 +612,17 @@ class ContinuousBatchingScheduler:
         remaining[slot] = int(rem)
         temps[slot] = float(temp)
         eos_ids[slot] = int(eos)
+        if self.speculate_k:
+            self._state[6][slot] = int(spec[0])
+            self._state[7][slot] = torch.as_tensor(
+                np.asarray(spec[1]).astype(np.int64), device=self.device)
 
     def _release_family(self, slot):
         # cancel path: the host verdict the device's done mask can't
         # know — freeze the slot and point its page row at scratch so its
         # ride-along writes stop touching blocks admission may reallocate
-        _tokens, _ts, done, remaining, _temps, _eos = self._state
+        # (the drafter rows ride along: the next admission resets them)
+        _tokens, _ts, done, remaining, _temps, _eos = self._state[:6]
         self._pt[slot] = 0
         done[slot] = True
         remaining[slot] = 0
@@ -664,7 +735,8 @@ class ContinuousBatchingScheduler:
             self._prefilling[slot] = _Prefill(
                 req, np.ascontiguousarray(prompt[0, pfx_len:]),
                 int(pfx_len), p_len, int(max_new), float(temperature),
-                int(seed), eos_id, pages, self._admit_counter)
+                int(seed), eos_id, pages, self._admit_counter,
+                int(prompt[0, -1]))
             self._admit_counter += 1
             return PREFILL_PENDING
         suffix_len = p_len - pfx_len
@@ -682,7 +754,7 @@ class ContinuousBatchingScheduler:
                 padded, int(pfx_len), suffix_len, pages, slot)
         event = self._sample_first(
             slot, req, logits, p_len, max_new, temperature, seed,
-            eos_id, self._admit_counter)
+            eos_id, int(prompt[0, -1]), self._admit_counter)
         self._admit_counter += 1
         rlog = _request_log.get_request_log()
         if rlog is not None:
@@ -693,14 +765,15 @@ class ContinuousBatchingScheduler:
         return event
 
     def _sample_first(self, slot, req, logits, p_len, max_new,
-                      temperature, seed, eos_id, seq) -> SequenceEvent:
+                      temperature, seed, eos_id, prev_tok,
+                      seq) -> SequenceEvent:
         """Sample the first token from last-position prefill logits and
         promote the slot to _running — the shared tail of monolithic
         admit() and the final prefill chunk."""
         first = self._call(
             "admit_sample", self._admit_family, slot, int(seed), logits,
             float(temperature), int(p_len), int(max_new),
-            -1 if eos_id is None else int(eos_id))
+            -1 if eos_id is None else int(eos_id), int(prev_tok))
         first = int(first)
         st = _Running(req, pos=p_len, max_new=max_new, eos_id=eos_id,
                       live_from=self._launches, seq=seq)
@@ -775,7 +848,7 @@ class ContinuousBatchingScheduler:
         del self._prefilling[slot]
         return self._sample_first(
             slot, pf.req, logits, pf.p_len, pf.max_new, pf.temperature,
-            pf.seed, pf.eos_id, pf.seq)
+            pf.seed, pf.eos_id, pf.prev_tok, pf.seq)
 
     def step(self) -> List[SequenceEvent]:
         """One pipeline tick: launch the next chunk dispatch over the
@@ -829,15 +902,22 @@ class ContinuousBatchingScheduler:
                                   slots=self.kv.num_slots,
                                   chunk=self.decode_chunk,
                                   index=self._launches):
-            block = self._call("decode_chunk", self._chunk_family)
+            block, counts = self._call("decode_chunk", self._chunk_family)
             event = None
             if block.is_cuda:
-                # the token block's copy to pinned host memory queues
-                # behind the chunk; _collect waits on the event
+                # the token block's (and counts') copy to pinned host
+                # memory queues behind the chunk; _collect waits on the
+                # one event
                 host = torch.empty(block.shape, dtype=block.dtype,
                                    pin_memory=True)
                 with torch.cuda.stream(self._stream):
                     host.copy_(block, non_blocking=True)
+                    if counts is not None:
+                        host_counts = torch.empty(
+                            counts.shape, dtype=counts.dtype,
+                            pin_memory=True)
+                        host_counts.copy_(counts, non_blocking=True)
+                        counts = host_counts
                 event = torch.cuda.Event()
                 event.record(self._stream)
             else:
@@ -846,7 +926,7 @@ class ContinuousBatchingScheduler:
             else 0.0
         self._inflight.append(_Inflight(host, event, self._launches,
                                         self.decode_chunk, begin_ns,
-                                        host_s))
+                                        host_s, counts))
         self._launches += 1
         if self.on_launch is not None:
             self.on_launch()
@@ -856,6 +936,7 @@ class ContinuousBatchingScheduler:
         if fl.event is not None:
             fl.event.synchronize()
         block = fl.host.numpy()
+        counts = None if fl.counts is None else fl.counts.numpy()
         if self.dispatch_timing and self.on_dispatch_timed is not None:
             self.on_dispatch_timed(fl.host_s,
                                    time.perf_counter() - dev_t0)
@@ -866,7 +947,9 @@ class ContinuousBatchingScheduler:
             {} if rlog is not None else None
         events: List[SequenceEvent] = []
         # iteration-major walk: token i of every slot before token i+1
-        # of any, the same time order the per-step path emits
+        # of any, the same time order the per-step path emits. In spec
+        # mode an iteration is one verify pass committing counts[i, slot]
+        # tokens a slot.
         for i in range(fl.size):
             for slot in sorted(self._running):
                 st = self._running[slot]
@@ -874,41 +957,57 @@ class ContinuousBatchingScheduler:
                     # admitted after this dispatch launched: its tokens
                     # start in a later block
                     continue
-                tok = int(block[i, slot])
-                st.produced += 1
-                st.pos += 1
-                self.kv.advance(slot)
-                finished = (st.produced >= st.max_new
-                            or (st.eos_id is not None
-                                and tok == st.eos_id))
-                if finished:
-                    # retire-without-stall: the slot froze on the device
-                    # at this exact token; its frozen repeats later in
-                    # this block are skipped because it leaves _running
-                    del self._running[slot]
-                    self.kv.free(slot)
-                if fl.begin_ns:
-                    # chunk-interpolated retroactive span: iteration i
-                    # of a C-iteration dispatch window gets [i/C,
-                    # (i+1)/C) of it
-                    w = end_ns - fl.begin_ns
-                    _TRACER.record_complete(
-                        "serving/decode_iter",
-                        fl.begin_ns + (i * w) // fl.size,
-                        fl.begin_ns + ((i + 1) * w) // fl.size,
-                        "serving",
-                        {"request_id": getattr(st.req, "request_id",
-                                               None),
-                         "slot": slot, "pos": st.pos, "token": tok,
-                         "finished": finished, "chunk_index": i,
-                         "dispatch": fl.index})
-                events.append(SequenceEvent(st.req, tok, finished))
-                if emitted is not None:
-                    ent = emitted.get(slot)
-                    if ent is None:
-                        ent = emitted[slot] = [st.req, 0, False]
-                    ent[1] += 1
-                    ent[2] = finished
+                if counts is None:
+                    toks = (int(block[i, slot]),)
+                else:
+                    n = int(counts[i, slot])
+                    toks = tuple(int(t) for t in block[i, :n, slot])
+                    # acceptance telemetry over live passes: k proposed,
+                    # n - 1 accepted (the +1 is the corrected token)
+                    self.spec_passes += 1
+                    self.spec_proposed += self.speculate_k
+                    self.spec_accepted += n - 1
+                    self._spec_samples.append(n - 1)
+                for j, tok in enumerate(toks):
+                    st.produced += 1
+                    st.pos += 1
+                    self.kv.advance(slot)
+                    finished = (st.produced >= st.max_new
+                                or (st.eos_id is not None
+                                    and tok == st.eos_id))
+                    if finished:
+                        # retire-without-stall: the slot froze on the
+                        # device at this exact token (in spec mode the
+                        # commit run ends here); its frozen repeats later
+                        # in this block are skipped: it leaves _running
+                        del self._running[slot]
+                        self.kv.free(slot)
+                    if fl.begin_ns:
+                        # chunk-interpolated retroactive span: token j of
+                        # pass i of a C-pass dispatch window gets its
+                        # sliver of [i/C, (i+1)/C)
+                        w = end_ns - fl.begin_ns
+                        lo = fl.begin_ns + (i * w) // fl.size
+                        hi = fl.begin_ns + ((i + 1) * w) // fl.size
+                        _TRACER.record_complete(
+                            "serving/decode_iter",
+                            lo + (j * (hi - lo)) // len(toks),
+                            lo + ((j + 1) * (hi - lo)) // len(toks),
+                            "serving",
+                            {"request_id": getattr(st.req, "request_id",
+                                                   None),
+                             "slot": slot, "pos": st.pos, "token": tok,
+                             "finished": finished, "chunk_index": i,
+                             "dispatch": fl.index})
+                    events.append(SequenceEvent(st.req, tok, finished))
+                    if emitted is not None:
+                        ent = emitted.get(slot)
+                        if ent is None:
+                            ent = emitted[slot] = [st.req, 0, False]
+                        ent[1] += 1
+                        ent[2] = finished
+                    if finished:
+                        break
         if emitted:
             for slot in sorted(emitted):
                 req, n, fin = emitted[slot]
@@ -917,6 +1016,13 @@ class ContinuousBatchingScheduler:
                            slot=slot, dispatch=fl.index, tokens=n,
                            finished=fin)
         return events
+
+    def drain_spec_samples(self) -> List[int]:
+        """Hand the accepted-run lengths gathered since the last drain to
+        the caller (the engine's acceptance histogram) and empty the
+        buffer."""
+        samples, self._spec_samples = self._spec_samples, []
+        return samples
 
     def cancel(self, req) -> bool:
         """Drop a running or mid-prefill sequence (client disconnect):
@@ -1002,12 +1108,17 @@ class ContinuousBatchingScheduler:
         if (key_row < 0).any() or (key_row > gd._M32).any():
             raise RuntimeError(
                 f"sampler key row {key_row} of slot {slot} is not uint32")
+        # the drafter rows in JAX's int32 (tickets cross packages)
+        spec = None
+        if self.speculate_k:
+            spec = (np.asarray(ints[6], np.int32),
+                    ints[7:].astype(np.int32))
         sw = SwappedSequence(
             st.req, st.pos, st.produced, st.max_new, st.eos_id, st.seq,
             self.kv.length(slot), n_blocks, payload,
             np.asarray(ints[0], np.int32), np.asarray(ints[1], np.int32),
             np.asarray(ints[2], np.int32), np.asarray(temp[0], np.float32),
-            np.asarray(ints[3], np.int32), key_row.astype(np.uint32))
+            np.asarray(ints[3], np.int32), key_row.astype(np.uint32), spec)
         self._call("release_slot", self._release_family, slot)
         self.kv.free(slot)
         if journal:
@@ -1043,7 +1154,7 @@ class ContinuousBatchingScheduler:
         row = self.kv.adopt_blocks(slot, sw.n_blocks, sw.length)
         self._call("swap_in", self._swapin_family, sw.payload, row,
                    slot, sw.token, sw.ts, sw.remaining, sw.temp, sw.eos,
-                   sw.key_row)
+                   sw.key_row, sw.spec)
         st = _Running(sw.req, pos=sw.pos, max_new=sw.max_new,
                       eos_id=sw.eos_id, live_from=self._launches,
                       seq=sw.seq)

@@ -10,6 +10,7 @@ names and registry-sourced columns) over `paddle_tpu_torch.serving` and
     python3 -m paddle_tpu_torch.tools.bench_serving tiny --http
     python3 -m paddle_tpu_torch.tools.bench_serving tiny --oversubscribe
     python3 -m paddle_tpu_torch.tools.bench_serving tiny --shared-prefix
+    python3 -m paddle_tpu_torch.tools.bench_serving tiny --speculate 0 4
     python3 -m paddle_tpu_torch.tools.bench_serving tiny --device cpu
 
 Each library row carries the dispatch amortization columns read back
@@ -24,12 +25,14 @@ threaded SSE clients (client-measured TTFT/TPOT next to the engine's).
 `--oversubscribe` runs requests whose page demand exceeds the arena
 with host-swap preemption on (`preemptions`, `swap_ins`, `swap_in_ms`,
 `swap_out_ms`); `--shared-prefix` compares the prefix cache off and
-on. `--debug-port N` serves the live diagnostics plane meanwhile.
+on; `--speculate K...` runs a repetitive-text mix once a speculate_k
+(`spec_accept_rate`, `accepted_per_pass`, `dispatches_per_token`).
+`--debug-port N` serves the live diagnostics plane meanwhile.
 
 The workloads of engine knobs the port lacks raise as the engine does:
-`--mesh` (ROADMAP A.8), `--speculate` (A.1.3), `--quantize` (A.1.4),
-`--adapters` (A.1.5). `--mixed` and `--rebalance` are not ported to
-this tool yet (ROADMAP A.2) and raise too.
+`--mesh` (ROADMAP A.8), `--quantize` (A.1.4), `--adapters` (A.1.5).
+`--mixed` and `--rebalance` are not ported to this tool yet (ROADMAP
+A.2) and raise too.
 """
 
 import argparse
@@ -52,7 +55,7 @@ MODELS = {
 }
 
 # the workloads whose engine knobs the port lacks, and their ROADMAP items
-_NOT_PORTED = {"--mesh": "A.8", "--speculate": "A.1.3",
+_NOT_PORTED = {"--mesh": "A.8",
                "--quantize": "A.1.4", "--adapters": "A.1.5",
                "--mixed": "A.2", "--rebalance": "A.2"}
 
@@ -441,6 +444,105 @@ def run_oversubscribe(name, requests=None, concurrency=None,
     return [row]
 
 
+# speculative workload geometry per model: (prefill buckets, motif
+# length, prompt length, max_new). Prompts tile a `motif_len`-token
+# motif to `prompt_len`, so the trigram drafter seeds from the prompt
+# and greedy continuations settle into drafter-predictable cycles.
+SPECULATE = {
+    "tiny": ((8, 16), 4, 16, 48),
+    "gpt2": ((32, 64), 8, 64, 64),
+}
+
+
+def run_speculate(name, speculate_ks=(0, 4), requests=None,
+                  concurrency=None, decode_chunk=8, device="cuda"):
+    """The speculative-decoding sweep: the repetitive-text mix once a
+    speculate_k value on a fresh engine, one row a K with
+    registry-sourced acceptance columns (tokens committed a verify pass,
+    draft accept rate) beside throughput. Streams are bit-identical at
+    every K; only the pass count changes."""
+    import paddle_tpu_torch as pt
+
+    gpt_kwargs, default_cc, _, _ = MODELS[name]
+    buckets, motif_len, prompt_len, max_new = SPECULATE[name]
+    cc = concurrency or min(4, max(default_cc))
+    requests = requests or int(
+        os.environ.get("BENCH_SERVING_REQUESTS", "16"))
+    cfg, params = build_params(gpt_kwargs, device)
+    max_len = prompt_len + max_new
+    rows = []
+    for k in speculate_ks:
+        rng = np.random.RandomState(0)       # same mix a K
+        eng = pt.serving.ServingEngine(
+            params, cfg,
+            pt.serving.ServingConfig(num_slots=cc, max_queue=requests,
+                                     prefill_buckets=buckets,
+                                     max_len=max_len,
+                                     decode_chunk=decode_chunk,
+                                     speculate_k=k))
+        prompts = [np.tile(rng.randint(0, cfg.vocab_size, (motif_len,)),
+                           -(-prompt_len // motif_len))[:prompt_len]
+                   .astype(np.int32) for _ in range(requests)]
+        # warm every family (random prompts: the large bucket cannot
+        # shrink into a prefix-cache hit), then drop the warm-up's
+        # registry rows and counters
+        wrng = np.random.RandomState(12345)
+        eng.generate([wrng.randint(0, cfg.vocab_size, (max(1, b - 2),))
+                      .astype(np.int32) for b in buckets],
+                     max_new_tokens=2)
+        old = eng.metrics
+        old.unregister()
+        eng.metrics = pt.serving.EngineMetrics(
+            max_tokens_per_dispatch=old.max_tokens_per_dispatch,
+            speculate_k=old.speculate_k)
+        eng.kv.prefix_hits = eng.kv.prefix_misses = 0
+        eng.scheduler.spec_proposed = eng.scheduler.spec_accepted = 0
+        eng.scheduler.spec_passes = 0
+        eng.scheduler.drain_spec_samples()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+        eng.run_until_drained()
+        dt = time.perf_counter() - t0
+        s = eng.stats()
+        label = s["engine_label"]
+        tokens = sum(len(r.tokens) for r in reqs)
+        dispatches = _registry_counter(label, "serving_dispatches_total")
+        proposed = _registry_counter(label, "serving_spec_proposed_total")
+        accepted = _registry_counter(label, "serving_spec_accepted_total")
+        # verify passes = proposed / k (each live pass proposes k), and
+        # every pass commits its accepted run + one corrected token
+        passes = proposed // k if k else None
+        rows.append({
+            "metric": f"{name}_serving_spec_c{cc}_s{k}",
+            "value": round(tokens / dt, 2),
+            "unit": "tokens/s",
+            "vs_baseline": None,
+            "extra": {
+                "requests": requests,
+                "completed": s["completed"],
+                "max_new": max_new,
+                "decode_chunk": decode_chunk,
+                "speculate_k": k,
+                "spec_proposed": proposed,
+                "spec_accepted": accepted,
+                "spec_accept_rate": round(accepted / proposed, 4)
+                    if proposed else None,
+                "accepted_per_pass": round(1 + accepted / passes, 3)
+                    if passes else None,
+                "dispatches": dispatches,
+                "dispatches_per_token": round(dispatches / tokens, 4)
+                    if tokens else None,
+                "tokens_per_dispatch": round(tokens / dispatches, 2)
+                    if dispatches else None,
+                "mean_ttft_ms": round(s["mean_ttft"] * 1e3, 2),
+                "mean_tpot_ms": round(s["mean_tpot"] * 1e3, 3),
+                "compiled_executables": s["compiled_executables"],
+            },
+        })
+        eng.close()
+    return rows
+
+
 def _registry_hist_ms(label, family, label_key="engine"):
     """Mean of a latency histogram in ms (sum/count of the registry
     snapshot series matching {label_key: label}) — the swap_in_ms /
@@ -729,9 +831,16 @@ def main(argv=None):
                     help="also drive a live paddle_tpu_torch.server over "
                          "the wire: one <model>_serving_http_c<cc> row "
                          "per concurrency")
-    for flag in ("--mesh", "--speculate"):
-        ap.add_argument(flag, type=int, nargs="+", default=None,
-                        help=f"not ported (ROADMAP {_NOT_PORTED[flag]})")
+    ap.add_argument("--speculate", type=int, nargs="+", default=None,
+                    metavar="K",
+                    help="run the speculative-decoding workload instead: "
+                         "the repetitive-text mix swept over these "
+                         "speculate_k values (e.g. 0 4), one row a K with "
+                         "registry-sourced accepted_per_pass / "
+                         "spec_accept_rate columns; streams are "
+                         "bit-identical at every K")
+    ap.add_argument("--mesh", type=int, nargs="+", default=None,
+                    help="not ported (ROADMAP A.8)")
     ap.add_argument("--adapters", type=int, default=None,
                     help="not ported (ROADMAP A.1.5)")
     for flag in ("--quantize", "--mixed", "--rebalance"):
@@ -746,13 +855,19 @@ def main(argv=None):
     bad = [k for k in args.decode_chunk if k < 1]
     if bad:
         ap.error(f"--decode-chunk values must be >= 1, got {bad}")
+    if args.speculate is not None:
+        bad = [k for k in args.speculate if k < 0]
+        if bad:
+            ap.error(f"--speculate values must be >= 0, got {bad}")
     for flag, item in _NOT_PORTED.items():
         if getattr(args, flag[2:]) not in (None, False):
             raise NotImplementedError(
                 f"bench_serving {flag} is not ported to paddle_tpu_torch "
                 f"yet (ROADMAP {item})")
     replacing = [f for f, on in (("--shared-prefix", args.shared_prefix),
-                                 ("--oversubscribe", args.oversubscribe))
+                                 ("--oversubscribe", args.oversubscribe),
+                                 ("--speculate",
+                                  args.speculate is not None))
                  if on]
     if len(replacing) > 1:
         ap.error(f"{replacing[0]} replaces the standard workload; "
@@ -775,6 +890,10 @@ def main(argv=None):
                 rows = run_shared_prefix(name, device=args.device)
             elif args.oversubscribe:
                 rows = run_oversubscribe(name, device=args.device)
+            elif args.speculate is not None:
+                rows = run_speculate(name,
+                                     speculate_ks=tuple(args.speculate),
+                                     device=args.device)
             else:
                 rows = run_model(name,
                                  decode_chunks=tuple(args.decode_chunk),

@@ -1139,7 +1139,9 @@ _SERVER_MODULES = ("server/__init__.py", "server/router.py",
                    "observability/debug_server.py",
                    "observability/timeseries.py",
                    "observability/train_stats.py",
-                   "tools/bench_serving.py")
+                   "tools/bench_serving.py", "models/gpt_decode.py",
+                   "serving/__init__.py", "serving/engine.py",
+                   "serving/scheduler.py", "inference/__init__.py")
 
 
 def test_server_modules_import_neither_jax_nor_paddle_tpu():

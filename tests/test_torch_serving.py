@@ -15,7 +15,8 @@ and block size, must emit them token for token:
     running, mid-chunk) retire at the right token;
   * the family count bounded by the buckets; the arena written in place;
   * every knob of a later slice raises NotImplementedError naming its
-    ROADMAP item; preempt=True and create_engine(debug_port=0) serve;
+    ROADMAP item; speculate_k/speculate_ngram, preempt=True and
+    create_engine(debug_port=0) serve;
     create_engine serves a saved model with disable_gpu() and raises on
     a GPU config without a GPU;
   * the new modules import neither jax nor paddle_tpu.
@@ -401,8 +402,6 @@ def test_tick_profile_and_dispatch_timing(world):
 # -- knobs out of this slice ---------------------------------------------------
 
 @pytest.mark.parametrize("knob,item", [
-    ({"speculate_k": 2}, "A.1.3"),
-    ({"speculate_ngram": 64}, "A.1.3"),
     ({"weight_dtype": "int8"}, "A.1.4"),
     ({"kv_dtype": "int8"}, "A.1.4"),
     ({"max_adapters": 4, "adapter_rank": 2}, "A.1.5"),
@@ -411,6 +410,22 @@ def test_tick_profile_and_dispatch_timing(world):
 def test_knobs_out_of_this_slice_raise(knob, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         ServingConfig(**knob)
+
+
+@pytest.mark.parametrize("knobs", [{"speculate_k": 2},
+                                   {"speculate_k": 3, "speculate_ngram": 64}])
+def test_speculation_knobs_serve(world, knobs):
+    """ServingConfig(speculate_k=..., speculate_ngram=...) builds and
+    serves the JAX engine's greedy streams (tests/test_torch_serving_spec
+    .py holds the speculative path to JAX's)."""
+    eng = make_engine(world, top_k=TOP_K, **knobs)
+    assert eng.config.speculate_k == knobs["speculate_k"]
+    outs = eng.generate(P3, 6)
+    for j, (p, a, b) in enumerate(zip(P3, world["refs"]["p3_greedy"],
+                                      outs)):
+        _same_or_near_tie(world, a, b, p.size, name=f"spec p3[{j}]")
+    assert eng.scheduler.spec_passes > 0
+    eng.close()
 
 
 def test_create_engine_and_kv_cache_knobs_out_of_this_slice_raise(world):

@@ -710,8 +710,10 @@ def test_port_ticket_resumes_on_jax(world, temp, seed):
 
 
 def test_jax_ticket_with_drafter_rows_is_refused(world):
-    """A ticket from a speculating JAX engine carries drafter rows this
-    engine has no place for: TicketError, nothing adopted."""
+    """A ticket from a speculating JAX engine carries drafter rows a
+    speculate_k=0 engine has no place for: TicketError, nothing adopted,
+    as the JAX engine refuses it too (tests/test_torch_serving_spec.py
+    adopts such tickets into speculating engines)."""
     p = np.asarray([3, 1, 4, 1, 5], np.int32)
     src = make_jax_engine(world, decode_chunk=4, max_len=48, speculate_k=2)
     req = src.submit(p, 30)
