@@ -151,6 +151,66 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 of one dispatch); the streams that parted and their
                 margins. It runs in a child process (--spec-only), like
                 phases 4 and 4b;
+ 4d. quant   -- quantized serving over the same GPT-2 small (fp32 weights
+                from --seed, saved and loaded through
+                inference.create_engine; the engine phases' geometry: 8
+                slots, buckets 64-512, max_len 1024, decode_chunk 8,
+                block_size 16): five engines serve the same 8 requests
+                from the seed (prompts 32-256, budget 64, no EOS, 4
+                greedy and 4 at temperature 0.8 with a seed each): fp32,
+                weight_dtype="int8", int8 weights with kv_dtype="int8",
+                create_engine(dtype=torch.bfloat16), and int8 weights
+                with int8 KV at speculate_k=4. Every request must emit its
+                whole budget; every w_q int8 with f32 scales on the card,
+                the int8 arena int8 with an f32 scale plane on the card,
+                the bf16 copy bf16 throughout; int8 weight_bytes <= half
+                of fp32's, int8 pool_bytes <= fp32's / 2.5, bf16's half
+                of fp32's. Greedy tokens within 1e-3 of the maximum of a
+                teacher-forced plain forward with the engine's semantics
+                (its quantized params; every K and V row fake-quantized
+                per (row, head) with the plain _quantize_rows on an int8
+                arena; TF32 off); the bf16 engine's greedy tokens within
+                2 (4L + 2) u max|z| of an fp32 forward's maximum over its
+                bf16 weights (u = 2^-8, L layers: the first-order bound
+                of its bf16 roundings, see BF16_U); the int8 arena's
+                layer-0 codes and scales for a fresh prompt equal bitwise
+                the plain _quantize_rows of the int8-weight engine's fp32
+                rows for it (later layers read dequantized attention and
+                differ by design); each quantized engine and the bf16 one
+                emit the same seeded streams on a second engine at
+                decode_chunk 4 without overlap; the spec engine's streams
+                equal its k=0 twin's or part first at a near tie (under
+                SPEC_TIE) of the twin's fake-quantized scores. No hand
+                kernel launches (counts zeroed just before each engine's
+                requests and read just after). Prints for each engine
+                tokens/s, TPOT p50/p99, weight_bytes, pool_bytes,
+                tokens_per_s_per_gb, the kernels and device and wall ms
+                of one decode iteration, torch.cuda.max_memory_allocated,
+                and for the int8 modes the JAX package's two budget
+                numbers (greedy_token_agreement, max_logit_delta, teacher
+                forced along the fp32 greedy trajectory through
+                bench_serving.quantized_logit_delta; set on a trained
+                tiny model, printed, not held). In a child process
+                (--quant-only);
+ 4e. adapters -- one engine with max_adapters=4, adapter_rank=8 over the
+                same GPT-2 small and geometry takes three adapters
+                (make_adapter(cfg, 8, seed + i)) and serves 12 requests:
+                4 on adapter 0 and 8 across adapters 1-3, half greedy,
+                half at temperature 0.8, prompts 32-256, budget 64. Every
+                stream must emit its budget; the adapter-0 streams equal
+                bitwise the same requests on an adapterless engine; each
+                adapter's streams equal a dedicated engine holding only
+                it or part first at a near tie (SPEC_TIE) of the plain
+                LoRA forward's scores; some adapter's greedy stream
+                differs from the base model's; greedy tokens lie within
+                1e-3 of a teacher-forced plain forward with the LoRA
+                delta in f32; a fourth upload LRU-evicts an unreferenced
+                adapter and evict_adapter of a referenced one raises
+                AdapterReferencedError; the pool is on the card and no
+                hand kernel launches. Prints tokens/s, TPOT p50/p99, the
+                kernels and device and wall ms of one decode iteration
+                beside the adapterless engine's, and adapter_pool_bytes.
+                In a child process (--adapters-only);
   5. train   -- GPT-2 small (dropout 0.1) train programs with Adam through
                 Executor.run on CUDAPlace(0): 3 steps at s=1024 b=2
                 (flash_fwd, flash_bwd_dkv, flash_bwd_dq) and 3 at s=512
@@ -1433,18 +1493,21 @@ def _engine_run(engine, reqs):
     torch.cuda.synchronize()
     t = time.perf_counter()
     out = [engine.submit(r["prompt"], r["max_new"],
-                         temperature=r["temperature"], seed=r["seed"])
+                         temperature=r["temperature"], seed=r["seed"],
+                         adapter_id=r.get("adapter_id", 0))
            for r in reqs]
     steps = engine.run_until_drained()
     torch.cuda.synchronize()
     return out, steps, time.perf_counter() - t
 
 
-def _launches_per_iteration(engine):
+def _launches_per_iteration(engine, host_ops=False):
     """Device events and kernels of one decode dispatch (every slot
     frozen after the drain: the same ops as a live one), each divided by
     the chunk; the dispatch's device busy time and its wall time; the
-    device events of one sampler call over the whole pool."""
+    device events of one sampler call over the whole pool; with
+    host_ops, the torch ops of one dispatch that took the most host
+    time (_host_ops), per iteration."""
     import torch
     sched = engine.scheduler
     chunk = sched.decode_chunk
@@ -1468,7 +1531,9 @@ def _launches_per_iteration(engine):
     temps = torch.full((s_dim,), 0.8, device="cuda")
     keys = sched._keys.clone()
     sampler = _device_events(lambda: sched._sample(keys, logits, temps))
-    return {"host_us_per_small_op": _op_cost_us(),
+    extra = {"host_ops_per_iteration": _host_ops(one, chunk)} \
+        if host_ops else {}
+    return {**extra, "host_us_per_small_op": _op_cost_us(),
             "sampler_kernels_per_iteration": len(sampler),"device_events_per_iteration": len(events) / chunk,
             "kernels_per_iteration": len(kernels) / chunk,
             "device_busy_ms_per_iteration":
@@ -1479,35 +1544,15 @@ def _launches_per_iteration(engine):
 def phase_engine(seed):
     import numpy as np
     import torch
-    import paddle_tpu_torch as ptt
     from paddle_tpu_torch.models import gpt_decode as gd
-    from paddle_tpu_torch.models.gpt import GPTConfig, gpt_lm_program
-    from paddle_tpu_torch.serving import ServingConfig
+    from paddle_tpu_torch.models.gpt import GPTConfig
 
     t_phase = time.perf_counter()
     cfg = GPTConfig()                      # GPT-2 small, full width/depth
-    exe = ptt.Executor(ptt.CUDAPlace(0))
-    scope = ptt.Scope()
-    with ptt.unique_name_guard():
-        main, startup, fetch = gpt_lm_program(cfg, 1024, is_test=True)
-    startup.random_seed = seed
-    exe.run(startup, scope=scope)
-    d = os.path.join(WORK_DIR, "gpt2_engine")
-    ptt.io.save_inference_model(d, ["tokens"], [fetch["logits"]], exe,
-                                main_program=main, scope=scope)
-    del scope
-
-    def engine(**kw):
-        sc = dict(num_slots=8, max_queue=32,
-                  prefill_buckets=(64, 128, 256, 512), max_len=1024,
-                  decode_chunk=8, block_size=16, prefix_cache=True)
-        sc.update(kw)
-        return ptt.inference.create_engine(
-            ptt.inference.Config(d), cfg, ServingConfig(**sc))
-
-    eng = engine()
+    d = _save_gpt2(seed, "gpt2_engine")
+    eng = _serving_engine(d, cfg)
     params = gd.param_tensors(eng.scheduler.params)
-    if not all(p.is_cuda for p in params) or not eng.kv.kv.is_cuda:
+    if not _on_card(*params, eng.kv.kv):
         fail("engine: params or arena not on the card")
     reqs = _engine_requests(seed, cfg.vocab_size)
     _engine_warmup(eng, seed, cfg.vocab_size)
@@ -1528,20 +1573,9 @@ def phase_engine(seed):
         fail("engine: no prefix-cache hits on the shared-prefix requests")
 
     # greedy tokens against a teacher-forced full forward on the card
-    not_argmax, worst = 0, 0.0
-    with torch.no_grad():
-        for r, q in zip(reqs, out):
-            if r["temperature"] != 0.0:
-                continue
-            seq = q.output()
-            p_len = r["prompt"].size
-            logits = gd.gpt_forward_logits(eng.scheduler.params, cfg,
-                                           seq[None, :-1])[0, p_len - 1:]
-            toks = torch.as_tensor(seq[p_len:], device=logits.device).long()
-            gap = (logits.max(-1).values
-                   - logits.gather(-1, toks[:, None])[:, 0]).cpu().numpy()
-            worst = max(worst, float(gap.max()))
-            not_argmax += int((gap > 0).sum())
+    not_argmax, worst, _ = _greedy_gaps(
+        lambda s: gd.gpt_forward_logits(eng.scheduler.params, cfg, s)[0],
+        reqs, [q.tokens for q in out])
     if not worst <= LOGIT_TOL:
         fail(f"engine: a greedy token lies {worst} below the teacher-forced "
              f"maximum (> {LOGIT_TOL})")
@@ -1554,7 +1588,7 @@ def phase_engine(seed):
     torch.cuda.empty_cache()
 
     # a second engine, chunk 4 and no overlap: the same seeded streams
-    eng2 = engine(decode_chunk=4, overlap=False)
+    eng2 = _serving_engine(d, cfg, decode_chunk=4, overlap=False)
     _engine_warmup(eng2, seed, cfg.vocab_size)
     out2, steps2, wall2 = _engine_run(eng2, reqs)
     diff = [i for i, (r, a, b) in enumerate(zip(reqs, out, out2))
@@ -1663,27 +1697,91 @@ def _live_handle(replica, min_emitted=2):
                - h.emitted) if live else None
 
 
-def _greedy_worst_gap(params, cfg, reqs, streams):
-    """(tokens not the exact argmax, worst gap below the maximum) of the
-    greedy streams against a teacher-forced full forward on the card."""
+def _greedy_gaps(forward, reqs, streams):
+    """(tokens not the exact argmax, worst gap below the maximum, and for
+    each greedy token its gap and its position's max |logit|) of the
+    greedy streams against forward(seq (1, s)) -> logits (s, V), teacher
+    forced over prompt + stream."""
     import numpy as np
     import torch
-    from paddle_tpu_torch.models import gpt_decode as gd
-    not_argmax, worst = 0, 0.0
+    not_argmax, worst, per_token = 0, 0.0, []
     with torch.no_grad():
         for r, toks in zip(reqs, streams):
             if r["temperature"] != 0.0:
                 continue
             seq = np.concatenate([r["prompt"], np.asarray(toks, "int32")])
             p_len = r["prompt"].size
-            logits = gd.gpt_forward_logits(params, cfg,
-                                           seq[None, :-1])[0, p_len - 1:]
+            logits = forward(seq[None, :-1])[p_len - 1:]
             t = torch.as_tensor(seq[p_len:], device=logits.device).long()
             gap = (logits.max(-1).values
                    - logits.gather(-1, t[:, None])[:, 0]).cpu().numpy()
+            scale = logits.abs().max(-1).values.cpu().numpy()
             worst = max(worst, float(gap.max()))
             not_argmax += int((gap > 0).sum())
-    return not_argmax, worst
+            per_token.append(np.stack([gap, scale], 1))
+    return not_argmax, worst, np.concatenate(per_token)
+
+
+def _first_parts(forward, reqs, base, other):
+    """Where an `other` stream differs from its `base` stream: the first
+    differing token of each and the top-2 margin there of the base
+    stream's scores (forward's logits for a greedy draw; logits /
+    temperature + the token's Gumbel noise, the key split once a token,
+    for a seeded one)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import gpt_decode as gd
+    parts = []
+    with torch.no_grad():
+        for n, (r, a, b) in enumerate(zip(reqs, base, other)):
+            diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+            if not diff:
+                continue
+            i = diff[0]
+            seq = np.concatenate([r["prompt"], np.asarray(a[:i], "int32")])
+            scores = forward(seq[None])[-1]
+            if r["temperature"] != 0.0:
+                key = gd.sample_key(r["seed"], scores.device)
+                for _ in range(i):
+                    key = gd.sample_split(key)
+                scores = (scores / r["temperature"]
+                          + gd.sample_gumbel(key, scores.numel()))
+            top = torch.topk(scores, 2).values.cpu().numpy()
+            parts.append({"request": n, "token": i,
+                          "margin": float(top[0] - top[1])})
+    return parts
+
+
+def _save_gpt2(seed, name):
+    """GPT-2 small (full width and depth, fp32 weights from the seed)
+    built on the card and saved with save_inference_model; returns the
+    directory."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models.gpt import GPTConfig, gpt_lm_program
+    cfg = GPTConfig()
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    scope = ptt.Scope()
+    with ptt.unique_name_guard():
+        main, startup, fetch = gpt_lm_program(cfg, 1024, is_test=True)
+    startup.random_seed = seed
+    exe.run(startup, scope=scope)
+    d = os.path.join(WORK_DIR, name)
+    ptt.io.save_inference_model(d, ["tokens"], [fetch["logits"]], exe,
+                                main_program=main, scope=scope)
+    return d
+
+
+def _serving_engine(d, cfg, dtype=None, **kw):
+    """create_engine over the saved dir at the engine phases' geometry
+    (8 slots, buckets 64-512, max_len 1024, decode_chunk 8, block 16)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.serving import ServingConfig
+    sc = dict(num_slots=8, max_queue=32,
+              prefill_buckets=(64, 128, 256, 512), max_len=1024,
+              decode_chunk=8, block_size=16)
+    sc.update(kw)
+    return ptt.inference.create_engine(ptt.inference.Config(d), cfg,
+                                       ServingConfig(**sc), dtype=dtype)
 
 
 def phase_server(seed):
@@ -1693,25 +1791,16 @@ def phase_server(seed):
     import torch
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.models import gpt_decode as gd
-    from paddle_tpu_torch.models.gpt import GPTConfig, gpt_lm_program
+    from paddle_tpu_torch.models.gpt import GPTConfig
     from paddle_tpu_torch.server import ServerConfig
     from paddle_tpu_torch.serving import ServingConfig, ServingEngine
 
     t_phase = time.perf_counter()
     cfg = GPTConfig()                      # GPT-2 small, full width/depth
-    exe = ptt.Executor(ptt.CUDAPlace(0))
-    scope = ptt.Scope()
-    with ptt.unique_name_guard():
-        main, startup, fetch = gpt_lm_program(cfg, 1024, is_test=True)
-    startup.random_seed = seed
-    exe.run(startup, scope=scope)
-    d = os.path.join(WORK_DIR, "gpt2_server")
-    ptt.io.save_inference_model(d, ["tokens"], [fetch["logits"]], exe,
-                                main_program=main, scope=scope)
-    del scope
+    d = _save_gpt2(seed, "gpt2_server")
     pred = ptt.inference.create_predictor(ptt.inference.Config(d))
     params = gd.collect_gpt_params(pred._scope, cfg)
-    if not all(p.is_cuda for p in gd.param_tensors(params)):
+    if not _on_card(*gd.param_tensors(params)):
         fail("server: params not on the card")
     serving = dict(num_slots=8, max_queue=32,
                    prefill_buckets=(64, 128, 256, 512), max_len=1024,
@@ -1722,7 +1811,7 @@ def phase_server(seed):
                               **serving)))
     router = srv.router
     engines = [r.engine for r in router.replicas]
-    if not all(e.kv.kv.is_cuda for e in engines):
+    if not _on_card(*(e.kv.kv for e in engines)):
         fail("server: a replica's arena is not on the card")
     reqs = _server_requests(seed, cfg.vocab_size)
     results = [None] * len(reqs)
@@ -1857,7 +1946,8 @@ def phase_server(seed):
     # greedy tokens against the teacher-forced maximum; seeded streams
     # against one engine with preempt off and the default arena
     streams = [res[1] for res in results]
-    not_argmax, worst = _greedy_worst_gap(params, cfg, reqs, streams)
+    not_argmax, worst, _ = _greedy_gaps(
+        lambda s: gd.gpt_forward_logits(params, cfg, s)[0], reqs, streams)
     if not worst <= LOGIT_TOL:
         fail(f"server: a greedy token lies {worst} below the teacher-forced "
              f"maximum (> {LOGIT_TOL})")
@@ -1950,68 +2040,22 @@ def _spec_requests(seed, vocab):
     return reqs + [mix[longest]] + rest
 
 
-def _near_tie_parts(params, cfg, reqs, base, spec):
-    """Where a k=4 stream differs from its k=0 stream: the first
-    differing token of each, with the top-2 margin of the k=0 stream's
-    scores there (logits for a greedy draw; logits / temperature + the
-    token's Gumbel noise for a seeded one, the key split once a token)."""
-    import numpy as np
-    import torch
-    from paddle_tpu_torch.models import gpt_decode as gd
-    parts = []
-    with torch.no_grad():
-        for n, (r, a, b) in enumerate(zip(reqs, base, spec)):
-            diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
-            if not diff:
-                continue
-            i = diff[0]
-            seq = np.concatenate([r["prompt"], np.asarray(a[:i], "int32")])
-            scores = gd.gpt_forward_logits(params, cfg, seq[None])[0, -1]
-            if r["temperature"] != 0.0:
-                key = gd.sample_key(r["seed"], scores.device)
-                for _ in range(i):
-                    key = gd.sample_split(key)
-                scores = (scores / r["temperature"]
-                          + gd.sample_gumbel(key, scores.numel()))
-            top = torch.topk(scores, 2).values.cpu().numpy()
-            parts.append({"request": n, "token": i,
-                          "margin": float(top[0] - top[1])})
-    return parts
-
-
 def phase_spec(seed):
     import numpy as np
     import torch
-    import paddle_tpu_torch as ptt
     from paddle_tpu_torch.models import gpt_decode as gd
-    from paddle_tpu_torch.models.gpt import GPTConfig, gpt_lm_program
-    from paddle_tpu_torch.serving import ServingConfig
+    from paddle_tpu_torch.models.gpt import GPTConfig
 
     t_phase = time.perf_counter()
     cfg = GPTConfig()                      # GPT-2 small, full width/depth
-    exe = ptt.Executor(ptt.CUDAPlace(0))
-    scope = ptt.Scope()
-    with ptt.unique_name_guard():
-        main, startup, fetch = gpt_lm_program(cfg, 1024, is_test=True)
-    startup.random_seed = seed
-    exe.run(startup, scope=scope)
-    d = os.path.join(WORK_DIR, "gpt2_spec")
-    ptt.io.save_inference_model(d, ["tokens"], [fetch["logits"]], exe,
-                                main_program=main, scope=scope)
-    del scope
+    d = _save_gpt2(seed, "gpt2_spec")
     reqs = _spec_requests(seed, cfg.vocab_size)
     names = list(KERNELS)
     runs, streams = {}, {}
     for k in (0, SPEC_K):
-        eng = ptt.inference.create_engine(
-            ptt.inference.Config(d), cfg, ServingConfig(
-                num_slots=8, max_queue=32,
-                prefill_buckets=(64, 128, 256, 512), max_len=1024,
-                decode_chunk=8, block_size=16, speculate_k=k,
-                speculate_ngram=512))
+        eng = _serving_engine(d, cfg, speculate_k=k, speculate_ngram=512)
         params = eng.scheduler.params
-        if not all(p.is_cuda for p in gd.param_tensors(params)) \
-                or not eng.kv.kv.is_cuda:
+        if not _on_card(*gd.param_tensors(params), eng.kv.kv):
             fail(f"spec: k={k} params or arena not on the card")
         _engine_warmup(eng, seed, cfg.vocab_size)
         before = eng.stats()
@@ -2029,8 +2073,9 @@ def phase_spec(seed):
             if not q.finished or len(q.tokens) != r["max_new"]:
                 fail(f"spec: k={k} request {i} emitted {len(q.tokens)} of "
                      f"{r['max_new']} tokens (state {q.state})")
-        not_argmax, worst = _greedy_worst_gap(params, cfg, reqs,
-                                              [q.tokens for q in out])
+        not_argmax, worst, _ = _greedy_gaps(
+            lambda s: gd.gpt_forward_logits(params, cfg, s)[0], reqs,
+            [q.tokens for q in out])
         if not worst <= LOGIT_TOL:
             fail(f"spec: k={k} a greedy token lies {worst} below the "
                  f"teacher-forced maximum (> {LOGIT_TOL})")
@@ -2073,8 +2118,9 @@ def phase_spec(seed):
         if k:
             # the k=4 streams against the k=0 ones: bitwise, or parted
             # at a near tie of the k=0 stream's scores
-            parts = _near_tie_parts(params, cfg, reqs, streams[0],
-                                    streams[k])
+            parts = _first_parts(
+                lambda s: gd.gpt_forward_logits(params, cfg, s)[0], reqs,
+                streams[0], streams[k])
         eng.close()
         del eng, params, sched
         torch.cuda.empty_cache()
@@ -2097,6 +2143,524 @@ def phase_spec(seed):
             / base["device_busy_ms_per_iteration"]),
         "verify_pass_over_iteration_wall_ms": (
             spec["wall_ms_per_iteration"] / base["wall_ms_per_iteration"]),
+        "wall_s": time.perf_counter() - t_phase}
+    emit(summary)
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: quantized serving (int8 weights, an int8 KV arena, a bf16 copy)
+# ---------------------------------------------------------------------------
+
+QUANT_REQUESTS = 8
+QUANT_BUDGET = 64
+# the engines of phase 4d: name -> (ServingConfig knobs, create_engine
+# dtype); the spec engine's k=0 twin is int8w_int8kv
+QUANT_MODES = (
+    ("fp32", {}, None),
+    ("int8w", {"weight_dtype": "int8"}, None),
+    ("int8w_int8kv", {"weight_dtype": "int8", "kv_dtype": "int8"}, None),
+    ("bf16", {}, "bfloat16"),
+    ("int8w_int8kv_spec4", {"weight_dtype": "int8", "kv_dtype": "int8",
+                            "speculate_k": SPEC_K}, None),
+)
+QUANT_PROBES = 2         # probe prompts of quantized_logit_delta
+# bf16's unit roundoff. A logit of the bf16 engine and the same logit of
+# an fp32 forward over the same (bf16) weights differ by the roundings on
+# the bf16 path: about four a block (the attention and MLP terms and the
+# two residual sums) and two after the last block (the final LN and the
+# head), each at most u relative. To first order, and taking each rounding
+# at the scale of the logits, the engine's logit lies within (4L + 2) u
+# max|z| of the exact one, so a greedy token lies at most twice that below
+# the fp32 forward's maximum: BF16_GAP_FACTOR = 2 (4L + 2) u, times the
+# position's max |z|.
+BF16_U = 2.0 ** -8
+
+
+def _free_card():
+    """Collect unreachable engines (an engine and its scheduler refer to
+    each other through their hooks) and return their blocks to the
+    card."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _on_card(*tensors):
+    """True when every tensor lies on the card."""
+    return all(t.is_cuda for t in tensors)
+
+
+def _quant_requests(seed, vocab):
+    """8 requests from the seed: prompts of 32..256 tokens, budget 64 with
+    no EOS, 4 greedy and 4 at temperature 0.8 with a seed each."""
+    import numpy as np
+    rng = np.random.RandomState(seed + 5)
+    lens = rng.permutation(
+        np.linspace(32, 256, QUANT_REQUESTS).astype(int))
+    return [{"prompt": rng.randint(0, vocab, int(n)).astype("int32"),
+             "max_new": QUANT_BUDGET,
+             "temperature": 0.0 if i % 2 == 0 else 0.8,
+             "seed": 5000 + i} for i, n in enumerate(lens)]
+
+
+def _plain_forward(params, cfg, tokens, kv_quant=False, lora=None):
+    """The plain teacher-forced forward (gpt_forward_logits: tokens (1, s)
+    -> logits (s, V) f32) with the two options the serving paths are held
+    to: kv_quant fake-quantizes every K and V row per (row, head) with the
+    plain _quantize_rows (the int8 codes times their f32 scale, what the
+    int8 arena stores and gathers), and lora = (pool, row) adds the
+    adapter's (x @ A) @ B in f32 to every projection."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import gpt_decode as gd
+    dev = params["wte"].device
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    b, s = tokens.shape
+    dtype = gd.compute_dtype(params)
+
+    def dense(x, p, li, nm):
+        y = gd._dense(x, p)
+        if lora is None:
+            return y
+        pool, row = lora
+        d = (x.float() @ pool[nm]["a"][row, li]) @ pool[nm]["b"][row, li]
+        return y + d.to(y.dtype)
+
+    def fake_quant(t):
+        if not kv_quant:
+            return t
+        q, sc = gd._quantize_rows(t)
+        return q.to(dtype) * sc[..., None].to(dtype)
+
+    x = (params["wte"][tokens] + params["wpe"][:s]).to(dtype)
+    mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=dev))
+    for li, blk in enumerate(params["blocks"]):
+        h = gd._ln(x, blk["ln1"])
+        q = gd._split_heads(dense(h, blk["q"], li, "q"), cfg.heads)
+        k = fake_quant(gd._split_heads(dense(h, blk["k"], li, "k"),
+                                       cfg.heads))
+        v = fake_quant(gd._split_heads(dense(h, blk["v"], li, "v"),
+                                       cfg.heads))
+        scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
+        scores = torch.where(mask, scores / np.sqrt(q.shape[-1]),
+                             gd._MASKED)
+        probs = gd._softmax_rows(scores, dtype)
+        ctx = torch.einsum("bnqk,bknd->bqnd", probs, v).reshape(b, s, -1)
+        x = x + dense(ctx, blk["out"], li, "out")
+        h = gd._ln(x, blk["ln2"])
+        x = x + dense(gd._gelu_tanh(dense(h, blk["mlp1"], li, "mlp1")),
+                      blk["mlp2"], li, "mlp2")
+    x = gd._ln(x, params["lnf"])
+    return (x @ params["wte"].T.to(x.dtype)).float()[0]
+
+
+def _run_summary(out, wall, stats, before):
+    """tokens/s, TTFT and TPOT p50/p99 and dispatches of one drained run."""
+    import numpy as np
+    n_tokens = sum(len(q.tokens) for q in out)
+    ttft = np.array([q.metrics.ttft for q in out]) * 1e3
+    tpot = np.array([q.metrics.tpot for q in out]) * 1e3
+    return {"output_tokens": n_tokens, "drain_s": wall,
+            "output_tokens_per_s": n_tokens / wall,
+            "ttft_p50_ms": float(np.percentile(ttft, 50)),
+            "ttft_p99_ms": float(np.percentile(ttft, 99)),
+            "tpot_p50_ms": float(np.percentile(tpot, 50)),
+            "tpot_p99_ms": float(np.percentile(tpot, 99)),
+            "decode_dispatches": stats["dispatches"] - before["dispatches"]}
+
+
+def _layer0_rows(eng, prompt):
+    """Admit `prompt` (one step: its prefill) and return layer 0's K and V
+    rows of its positions as the arena holds them: (data (2, heads, n, hd),
+    scales (2, heads, n) or None), on the host; then drain."""
+    import torch
+    from paddle_tpu_torch.models import gpt_decode as gd
+    req = eng.submit(prompt, 2)
+    eng.step()
+    slot = next(s for s, st in eng.scheduler._running.items()
+                if st.req is req)
+    pages = torch.as_tensor(eng.kv._slot_blocks[slot],
+                            device=eng.kv.kv.device)
+    n = prompt.size
+    data = torch.stack([gd._gather_pages(eng.kv.kv[0, j], pages)[:, :n]
+                        for j in (0, 1)]).cpu()
+    scales = None
+    if eng.kv.kv_scales is not None:
+        g = eng.kv.kv_scales[0][:, pages]         # (2, P, heads, bs)
+        scales = g.transpose(1, 2).reshape(2, g.shape[2], -1)[:, :, :n]
+        scales = scales.cpu()
+    eng.run_until_drained()
+    return data, scales
+
+
+def phase_quant(seed):
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import gpt_decode as gd
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.tools import bench_serving as bs
+
+    t_phase = time.perf_counter()
+    cfg = GPTConfig()                      # GPT-2 small, full width/depth
+    d = _save_gpt2(seed, "gpt2_quant")
+    reqs = _quant_requests(seed, cfg.vocab_size)
+    rng = np.random.RandomState(seed + 6)
+    probe = rng.randint(0, cfg.vocab_size, 100).astype("int32")
+    budget_prompts = [rng.randint(0, cfg.vocab_size, 64).astype("int32")
+                      for _ in range(QUANT_PROBES)]
+    names = list(KERNELS)
+    runs, streams, refs, layer0 = {}, {}, None, {}
+    for name, kw, dt in QUANT_MODES:
+        dtype = getattr(torch, dt) if dt else None
+        # the last engine's tensors go first (an engine and its
+        # scheduler hold each other through their hooks: a cycle only
+        # the collector frees), so the peak is this engine's own
+        _free_card()
+        torch.cuda.reset_peak_memory_stats()
+        left = torch.cuda.memory_allocated()
+        eng = _serving_engine(d, cfg, dtype, **kw)
+        params = eng.scheduler.params
+        if not _on_card(*gd.param_tensors(params), eng.kv.kv):
+            fail(f"quant: {name} params or arena not on the card")
+        if kw.get("weight_dtype") and not all(
+                blk[nm]["w_q"].dtype == torch.int8
+                and blk[nm]["w_s"].dtype == torch.float32
+                for blk in params["blocks"]
+                for nm in gd.ADAPTER_PROJECTIONS):
+            fail(f"quant: {name} projections are not int8 with f32 scales")
+        if kw.get("kv_dtype") and not (
+                eng.kv.kv.dtype == torch.int8
+                and eng.kv.kv_scales.dtype == torch.float32
+                and _on_card(eng.kv.kv_scales)
+                and eng.kv.kv_scales.shape == eng.kv.kv.shape[:-1]):
+            fail(f"quant: {name} arena is not int8 with an f32 scale "
+                 "plane on the card")
+        if dtype is not None and not (
+                eng.kv.kv.dtype == dtype and all(
+                    p.dtype == dtype for p in gd.param_tensors(params))):
+            fail(f"quant: {name} weights or arena are not {dt}")
+        _engine_warmup(eng, seed, cfg.vocab_size)
+        before = eng.stats()
+        zero_counts(names)
+        # ---- this engine's main path: counts zeroed just before ----
+        out, steps, wall = _engine_run(eng, reqs)
+        hand = read_counts(names)
+        # ----------------------------------------------------------
+        if any(hand.values()):
+            fail(f"quant: {name} launched hand kernels {hand}")
+        for i, (r, q) in enumerate(zip(reqs, out)):
+            if not q.finished or len(q.tokens) != r["max_new"]:
+                fail(f"quant: {name} request {i} emitted {len(q.tokens)} "
+                     f"of {r['max_new']} tokens (state {q.state})")
+        stats = eng.stats()
+        streams[name] = [list(q.tokens) for q in out]
+        run = {"mode": name, "weight_dtype": stats["weight_dtype"],
+               "kv_dtype": stats["kv_dtype"],
+               "speculate_k": kw.get("speculate_k", 0),
+               "weight_bytes": stats["weight_bytes"],
+               "pool_bytes": stats["pool_bytes"], "steps": steps,
+               **_run_summary(out, wall, stats, before),
+               "hand_kernel_launches": hand}
+        run["tokens_per_s_per_gb"] = (run["output_tokens_per_s"]
+                                      / (stats["pool_bytes"] / 2 ** 30))
+        # greedy tokens against the plain teacher-forced forward with the
+        # engine's semantics: its params (quantized ones for int8
+        # weights), every K/V row fake-quantized on an int8 arena; the
+        # bf16 engine against an fp32 forward over its bf16 weights
+        if name == "bf16":
+            p32 = {"wte": params["wte"].float(),
+                   "wpe": params["wpe"].float(),
+                   "lnf": {k: v.float() for k, v in params["lnf"].items()},
+                   "blocks": [{nm: {k: v.float() for k, v in p.items()}
+                               for nm, p in blk.items()}
+                              for blk in params["blocks"]]}
+            not_argmax, worst, per = _greedy_gaps(
+                lambda s: gd.gpt_forward_logits(p32, cfg, s)[0], reqs,
+                streams[name])
+            factor = 2 * (4 * cfg.layers + 2) * BF16_U
+            ratio = per[:, 0] / (factor * per[:, 1])
+            run.update({"bf16_gap_factor": factor,
+                        "bf16_worst_gap_over_bound": float(ratio.max()),
+                        "bf16_max_abs_logit": float(per[:, 1].max())})
+            if not ratio.max() <= 1.0:
+                fail(f"quant: bf16 a greedy token lies {worst} below the "
+                     f"fp32 forward's maximum, {ratio.max()} times the "
+                     f"bound {factor} max|z|")
+            del p32
+        else:
+            kv_quant = kw.get("kv_dtype") == "int8"
+            not_argmax, worst, _ = _greedy_gaps(
+                lambda s: _plain_forward(params, cfg, s, kv_quant=kv_quant),
+                reqs, streams[name])
+            if not worst <= LOGIT_TOL:
+                fail(f"quant: {name} a greedy token lies {worst} below the "
+                     f"teacher-forced maximum (> {LOGIT_TOL})")
+        run.update({"greedy_tokens_not_exact_argmax": not_argmax,
+                    "greedy_worst_gap": worst})
+        if name == "int8w_int8kv_spec4":
+            parts = _first_parts(
+                lambda s: _plain_forward(params, cfg, s, kv_quant=True),
+                reqs, streams["int8w_int8kv"], streams[name])
+            wide = [p for p in parts if not p["margin"] < SPEC_TIE]
+            if wide:
+                fail(f"quant: k={SPEC_K} streams part from k=0 outside a "
+                     f"near tie (margin < {SPEC_TIE}): {wide}")
+            sched = eng.scheduler
+            run.update({"streams_parted_at_near_tie": parts,
+                        "spec_proposed": sched.spec_proposed,
+                        "spec_accepted": sched.spec_accepted})
+        # JAX's budget numbers (set on a trained tiny model; printed,
+        # not held here): teacher-forced along the fp32 greedy
+        # trajectory through bench_serving's quantized_logit_delta
+        with torch.no_grad():
+            if name == "fp32":
+                refs = [bs._quant_probe(cfg, params, p, QUANT_BUDGET, None)
+                        for p in budget_prompts]
+            elif name in ("int8w", "int8w_int8kv"):
+                probes = [bs.quantized_logit_delta(
+                    cfg, None, params, p, QUANT_BUDGET,
+                    kv_dtype=kw.get("kv_dtype"), ref=ref)
+                    for p, ref in zip(budget_prompts, refs)]
+                run["max_logit_delta"] = max(x for x, _ in probes)
+                run["greedy_token_agreement"] = float(
+                    np.mean([a for _, a in probes]))
+                run["jax_budget"] = {"greedy_token_agreement": ">= 0.99",
+                                     "max_logit_delta": "<= 0.05"}
+        if name in ("int8w", "int8w_int8kv"):
+            layer0[name] = _layer0_rows(eng, probe)
+        run.update(_launches_per_iteration(eng, host_ops=True))
+        run["max_memory_allocated_mb"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 20
+        run["allocated_before_engine_mb"] = left / 2 ** 20
+        runs[name] = run
+        eng.close()
+        del eng, params
+        _free_card()
+        if name in ("int8w", "int8w_int8kv", "bf16"):
+            # a second engine, chunk 4 and no overlap: the same streams
+            eng2 = _serving_engine(d, cfg, dtype, decode_chunk=4,
+                                   overlap=False, **kw)
+            _engine_warmup(eng2, seed, cfg.vocab_size)
+            out2, _, _ = _engine_run(eng2, reqs)
+            diff = [i for i, (r, a, b) in enumerate(
+                zip(reqs, streams[name], out2))
+                if r["temperature"] != 0.0 and a != b.tokens]
+            if diff:
+                fail(f"quant: {name} seeded streams {diff} differ between "
+                     "decode_chunk 8 with overlap and 4 without")
+            run["greedy_identical_chunk4_no_overlap"] = sum(
+                a == b.tokens for r, a, b in zip(reqs, streams[name], out2)
+                if r["temperature"] == 0.0)
+            eng2.close()
+            del eng2
+            _free_card()
+    shutil.rmtree(d, ignore_errors=True)
+    # the int8 arena's layer-0 rows: the plain _quantize_rows of the fp32
+    # arena's rows for the same prompt (int8 weights on both engines, so
+    # layer 0's K and V are the same values)
+    (fp_rows, _), (q_rows, q_scales) = layer0["int8w"], \
+        layer0["int8w_int8kv"]
+    codes, scales = gd._quantize_rows(fp_rows.transpose(1, 2))
+    if not (torch.equal(codes, q_rows.transpose(1, 2))
+            and torch.equal(scales, q_scales.transpose(1, 2))):
+        fail("quant: the int8 arena's layer-0 rows are not the plain "
+             "_quantize_rows of the fp32 arena's")
+    f32, w8, kv8, b16 = (runs[n] for n in ("fp32", "int8w", "int8w_int8kv",
+                                           "bf16"))
+    if not w8["weight_bytes"] * 2 <= f32["weight_bytes"]:
+        fail(f"quant: int8 weight_bytes {w8['weight_bytes']} > half of "
+             f"fp32's {f32['weight_bytes']}")
+    if not kv8["pool_bytes"] * 2.5 <= f32["pool_bytes"]:
+        fail(f"quant: int8 pool_bytes {kv8['pool_bytes']} > fp32's "
+             f"{f32['pool_bytes']} / 2.5")
+    if not b16["pool_bytes"] * 2 == f32["pool_bytes"]:
+        fail(f"quant: bf16 pool_bytes {b16['pool_bytes']} is not half of "
+             f"fp32's {f32['pool_bytes']}")
+    summary = {
+        "phase": "quant", "model": "gpt2-small", "requests": len(reqs),
+        "num_slots": 8, "decode_chunk": 8, "block_size": 16,
+        "runs": [runs[n] for n, _, _ in QUANT_MODES],
+        "weight_bytes_ratio": f32["weight_bytes"] / w8["weight_bytes"],
+        "pool_bytes_ratio": f32["pool_bytes"] / kv8["pool_bytes"],
+        "layer0_rows_checked": int(probe.size),
+        "wall_s": time.perf_counter() - t_phase}
+    emit(summary)
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: multi-tenant LoRA adapters
+# ---------------------------------------------------------------------------
+
+ADAPTER_RANK = 8
+# (adapter id, greedy?) of the 12 requests: 4 on the base identity, 8
+# across adapters 1-3, half greedy
+ADAPTER_MIX = ((0, True), (0, False), (0, True), (0, False),
+               (1, True), (1, False), (1, True),
+               (2, True), (2, False), (2, False),
+               (3, True), (3, False))
+
+
+def _adapter_requests(seed, vocab):
+    """The 12 requests of ADAPTER_MIX in an order from the seed: prompts
+    of 32..256 tokens, budget 64, seeded ones at temperature 0.8."""
+    import numpy as np
+    rng = np.random.RandomState(seed + 7)
+    lens = rng.permutation(
+        np.linspace(32, 256, len(ADAPTER_MIX)).astype(int))
+    reqs = [{"prompt": rng.randint(0, vocab, int(n)).astype("int32"),
+             "max_new": QUANT_BUDGET, "adapter_id": aid,
+             "temperature": 0.0 if greedy else 0.8, "seed": 7000 + i}
+            for i, ((aid, greedy), n) in enumerate(zip(ADAPTER_MIX, lens))]
+    return [reqs[i] for i in rng.permutation(len(reqs))]
+
+
+def phase_adapters(seed):
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.serving import (AdapterReferencedError,
+                                          make_adapter)
+
+    t_phase = time.perf_counter()
+    cfg = GPTConfig()                      # GPT-2 small, full width/depth
+    d = _save_gpt2(seed, "gpt2_adapters")
+    reqs = _adapter_requests(seed, cfg.vocab_size)
+    weights = {aid: make_adapter(cfg, ADAPTER_RANK, seed + aid)
+               for aid in (1, 2, 3, 4)}
+    names = list(KERNELS)
+
+    def pool_engine(ids):
+        eng = _serving_engine(d, cfg, max_adapters=4,
+                              adapter_rank=ADAPTER_RANK)
+        for aid in ids:
+            eng.upload_adapter(aid, weights[aid])
+        return eng
+
+    eng = pool_engine((1, 2, 3))
+    pool = eng.adapters.pool
+    if not _on_card(*(t for p in pool.values() for t in p.values())):
+        fail("adapters: the pool is not on the card")
+    params = eng.scheduler.params
+    _engine_warmup(eng, seed, cfg.vocab_size)
+    before = eng.stats()
+    zero_counts(names)
+    # ---- the adapter engine's main path: counts zeroed just before ----
+    out, steps, wall = _engine_run(eng, reqs)
+    hand = read_counts(names)
+    # --------------------------------------------------------------
+    if any(hand.values()):
+        fail(f"adapters: launched hand kernels {hand}")
+    for i, (r, q) in enumerate(zip(reqs, out)):
+        if not q.finished or len(q.tokens) != r["max_new"]:
+            fail(f"adapters: request {i} emitted {len(q.tokens)} of "
+                 f"{r['max_new']} tokens (state {q.state})")
+    stats = eng.stats()
+    got = [list(q.tokens) for q in out]
+    run = {**_run_summary(out, wall, stats, before), "steps": steps,
+           "hand_kernel_launches": hand}
+    # greedy tokens against the plain teacher-forced forward with each
+    # request's LoRA delta in f32 (the base forward on adapter 0)
+    not_argmax, worst = 0, 0.0
+    for aid in (0, 1, 2, 3):
+        picks = [i for i, r in enumerate(reqs) if r["adapter_id"] == aid]
+        lora = (pool, eng.adapters.row_of(aid)) if aid else None
+        n, w, _ = _greedy_gaps(
+            lambda s: _plain_forward(params, cfg, s, lora=lora),
+            [reqs[i] for i in picks], [got[i] for i in picks])
+        not_argmax += n
+        worst = max(worst, w)
+    if not worst <= LOGIT_TOL:
+        fail(f"adapters: a greedy token lies {worst} below the "
+             f"teacher-forced maximum (> {LOGIT_TOL})")
+    run.update({"greedy_tokens_not_exact_argmax": not_argmax,
+                "greedy_worst_gap": worst,
+                **_launches_per_iteration(eng, host_ops=True)})
+    # the pool's LRU and refcount rules on the live engine: a fourth
+    # upload evicts the least recently used unreferenced adapter; a
+    # referenced one cannot be evicted
+    resident = eng.adapters.resident
+    eng.upload_adapter(4, weights[4])
+    if not (eng.adapters.evictions_total == 1
+            and len(eng.adapters.resident) == 3
+            and 4 in eng.adapters.resident):
+        fail(f"adapters: uploading a fourth adapter over {resident} left "
+             f"{eng.adapters.resident}")
+    pinned = eng.adapters.resident[0]
+    held = eng.submit(reqs[0]["prompt"], 4, adapter_id=pinned)
+    try:
+        eng.evict_adapter(pinned)
+        fail(f"adapters: evicting referenced adapter {pinned} did not raise")
+    except AdapterReferencedError:
+        pass
+    eng.run_until_drained()
+    if not held.finished or eng.adapters.refcount(pinned) != 0:
+        fail("adapters: the pinned request did not finish and release")
+    pool_bytes = eng.adapters.pool_bytes
+    del pool, params
+    # the adapterless engine: the same 12 requests on the base model
+    base_eng = _serving_engine(d, cfg)
+    _engine_warmup(base_eng, seed, cfg.vocab_size)
+    base_before = base_eng.stats()
+    base_out, _, base_wall = _engine_run(
+        base_eng, [dict(r, adapter_id=0) for r in reqs])
+    base = [list(q.tokens) for q in base_out]
+    base_run = {**_run_summary(base_out, base_wall, base_eng.stats(),
+                               base_before),
+                **_launches_per_iteration(base_eng, host_ops=True)}
+    base_eng.close()
+    del base_eng
+    _free_card()
+    diff0 = [i for i, r in enumerate(reqs)
+             if r["adapter_id"] == 0 and got[i] != base[i]]
+    if diff0:
+        fail(f"adapters: adapter-0 streams {diff0} differ from the "
+             "adapterless engine's")
+    moved = [i for i, r in enumerate(reqs) if r["adapter_id"]
+             and r["temperature"] == 0.0 and got[i] != base[i]]
+    if not moved:
+        fail("adapters: no adapter's greedy stream differs from the base "
+             "model's")
+    # each adapter's streams against a dedicated engine holding only it
+    parts = []
+    for aid in (1, 2, 3):
+        picks = [i for i, r in enumerate(reqs) if r["adapter_id"] == aid]
+        solo = pool_engine((aid,))
+        solo_out, _, _ = _engine_run(solo, [reqs[i] for i in picks])
+        solo_params = solo.scheduler.params
+        row = solo.adapters.row_of(aid)
+        sp = _first_parts(
+            lambda s: _plain_forward(solo_params, cfg, s,
+                                     lora=(solo.adapters.pool, row)),
+            [reqs[i] for i in picks], [got[i] for i in picks],
+            [list(q.tokens) for q in solo_out])
+        parts += [dict(p, adapter_id=aid, request=picks[p["request"]])
+                  for p in sp]
+        solo.close()
+        del solo, solo_params
+        _free_card()
+    eng.close()
+    del eng
+    _free_card()
+    shutil.rmtree(d, ignore_errors=True)
+    wide = [p for p in parts if not p["margin"] < SPEC_TIE]
+    if wide:
+        fail(f"adapters: co-batched streams part from their dedicated "
+             f"engines outside a near tie (margin < {SPEC_TIE}): {wide}")
+    summary = {
+        "phase": "adapters", "model": "gpt2-small", "requests": len(reqs),
+        "num_slots": 8, "decode_chunk": 8, "block_size": 16,
+        "adapter_rank": ADAPTER_RANK, "max_adapters": 4,
+        "adapter_pool_bytes": pool_bytes, "run": run,
+        "adapterless_run": base_run,
+        "adapter0_identical": sum(1 for r in reqs if r["adapter_id"] == 0),
+        "adapter_greedy_streams_off_base": len(moved),
+        "streams_parted_at_near_tie": parts,
+        "tokens_per_s_ratio": (run["output_tokens_per_s"]
+                               / base_run["output_tokens_per_s"]),
+        "iteration_device_ms_ratio": (
+            run["device_busy_ms_per_iteration"]
+            / base_run["device_busy_ms_per_iteration"]),
         "wall_s": time.perf_counter() - t_phase}
     emit(summary)
     return summary
@@ -3051,6 +3615,22 @@ def _device_events(fn):
             for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
+def _host_ops(fn, per=1, top=8):
+    """The torch ops of one call of `fn` with the most host time (self
+    CPU time in a torch.profiler trace of the CPU, which itself adds a
+    few us an op), each op's calls and ms divided by `per`."""
+    import torch
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                  reverse=True)
+    return [{"op": e.key, "calls": e.count / per,
+             "self_cpu_ms": e.self_cpu_time_total / 1e3 / per}
+            for e in rows[:top]]
+
+
 def _kernel_names(fn):
     """{kernel name: device ms} of one call of `fn`: which kernels a
     library call runs."""
@@ -3389,10 +3969,10 @@ def phase_times(serve, train, bert, spike, seed):
 
 
 def in_child(seed, flag):
-    """Phase 4, 4b or 4c in a process of its own (this script with
-    --engine-only, --server-only or --spec-only), its JSON lines passed
-    through, its
-    summary returned. After the engine's run, torch.profiler traces taken
+    """Phase 4, 4b, 4c, 4d or 4e in a process of its own (this script
+    with --engine-only, --server-only, --spec-only, --quant-only or
+    --adapters-only), its JSON lines passed through, its summary
+    returned. After the engine's run, torch.profiler traces taken
     later in the same process lost one kernel record a trace (PERF.md §6,
     the engine's calls 2-7), which the times phase's device-time checks
     refuse; the child's exit takes that state with it."""
@@ -3421,13 +4001,19 @@ def main():
                       help="run phase 4b alone, likewise")
     only.add_argument("--spec-only", action="store_true",
                       help="run phase 4c alone, likewise")
+    only.add_argument("--quant-only", action="store_true",
+                      help="run phase 4d alone, likewise")
+    only.add_argument("--adapters-only", action="store_true",
+                      help="run phase 4e alone, likewise")
     args = ap.parse_args()
     preflight()
     import torch
 
     alone = (phase_engine if args.engine_only else
              phase_server if args.server_only else
-             phase_spec if args.spec_only else None)
+             phase_spec if args.spec_only else
+             phase_quant if args.quant_only else
+             phase_adapters if args.adapters_only else None)
     if alone is not None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -3458,6 +4044,8 @@ def main():
         engine = in_child(args.seed, "--engine-only")
         server = in_child(args.seed, "--server-only")
         spec = in_child(args.seed, "--spec-only")
+        quant = in_child(args.seed, "--quant-only")
+        adapters = in_child(args.seed, "--adapters-only")
         train = phase_train(args.seed)
         bert = phase_bert(args.seed)
         resnet = phase_resnet(args.seed)
@@ -3470,6 +4058,7 @@ def main():
                    "wall_s": time.perf_counter() - t0, "build": build,
                    "kernel_cases": kernels, "serve": serve["summary"],
                    "engine": engine, "server": server, "spec": spec,
+                   "quant": quant, "adapters": adapters,
                    "train": train["summaries"],
                    "bert": bert["runs"],
                    "resnet": resnet, "spike": spike["rows"],

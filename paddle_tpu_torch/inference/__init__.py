@@ -149,23 +149,20 @@ def create_engine(config, gpt_config, serving=None, dtype=None,
 
     config: inference.Config (or a model_dir string); gpt_config: the
     models.gpt.GPTConfig the saved model was built with; serving: a
-    serving.ServingConfig (defaults apply when None); debug_port: when
-    not None, start (or join) the observability debug HTTP server on
-    that port (0 = ephemeral) — the bound port lands on
+    serving.ServingConfig (defaults apply when None); dtype: an optional
+    cast of the decode weight copy (e.g. torch.bfloat16: bf16 weights,
+    activations and KV arena; the predictor's scope keeps its own);
+    debug_port: when not None, start (or join) the observability debug
+    HTTP server on that port (0 = ephemeral) — the bound port lands on
     `engine.debug_port`, each engine holds one server reference, and
-    the server stops when the last referencing engine closes. Not
-    ported yet, raising NotImplementedError: dtype (ROADMAP A.1.4)."""
+    the server stops when the last referencing engine closes."""
     from ..models.gpt_decode import collect_gpt_params
     from ..serving import ServingConfig, ServingEngine
 
-    if dtype is not None:
-        raise NotImplementedError(
-            "create_engine(dtype=...) is not ported to paddle_tpu_torch "
-            "yet (ROADMAP A.1.4)")
     if isinstance(config, str):
         config = Config(config)
     pred = Predictor(config)
-    params = collect_gpt_params(pred._scope, gpt_config)
+    params = collect_gpt_params(pred._scope, gpt_config, dtype=dtype)
     engine = ServingEngine(params, gpt_config,
                            serving if serving is not None
                            else ServingConfig())

@@ -36,10 +36,24 @@ XLA's last write wins, and the port makes that rule explicit on every
 device (writes in order, one column a row at a time, or the last
 position's value resolved by a max over positions).
 
-Not ported yet (ROADMAP A.1): the int8 weight and KV paths
-(`quantize_params`, `_quantize_rows`) and the LoRA adapter path
-(`_lora_layer`, `_dense_a`). The constants below name the kernels those
-paths cover in the JAX package; the engine's validation reads them.
+Quantized serving: `quantize_params` turns the six matmul weights of
+every block into per-output-channel abs-max int8 with f32 scales, and
+`_dense` runs (x @ w_q) * w_s; an int8 arena is the pair (int8 data,
+f32 scale plane (layers, 2, num_blocks, heads, block_size)), every K/V
+row quantized per (row, head) at its scatter (`_kv_write`, data and
+scale through the same redirected block index) and dequantized at its
+page gather (`_kv_gather`), the only dequant site. The codes and scales
+are the JAX functions' bit for bit: the scale factor is a true division
+(127.0 / abs-max, never a multiply by a reciprocal), then a product,
+round half to even and a clamp to +-127.
+
+Multi-tenant LoRA adapters: a pool {proj: {"a": (N, L, in, rank),
+"b": (N, L, rank, out)}} over ADAPTER_PROJECTIONS, row 0 the all-zero
+identity. The paged functions gather each slot's A/B rows by its pool
+row and add (x @ A) @ B in f32 to every projection (`_dense_a`); rows
+on the identity take the base output through torch.where, never an add
+of zeros. Without a pool the paged functions run exactly the
+adapterless ops.
 """
 
 from __future__ import annotations
@@ -50,7 +64,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["collect_gpt_params", "gpt_forward_logits", "gpt_prefill",
+__all__ = ["collect_gpt_params", "quantize_params", "gpt_forward_logits",
+           "gpt_prefill",
            "gpt_prefill_padded", "gpt_decode_step",
            "gpt_decode_step_slots", "gpt_decode_verify_slots",
            "gpt_decode_chunk_slots", "gpt_prefill_pages",
@@ -62,14 +77,16 @@ __all__ = ["collect_gpt_params", "gpt_forward_logits", "gpt_prefill",
            "ADAPTER_PROJECTIONS", "threefry2x32", "sample_key",
            "sample_split", "sample_gumbel"]
 
-# The paged kernels whose in-graph KV dequant path exists in the JAX
-# package (a quantized arena may only flow through kernels named here).
+# The paged functions whose KV dequant path exists: a quantized arena
+# may only flow through functions named here (the engine's validation
+# reads this).
 QUANTIZED_KV_KERNELS = ("gpt_prefill_pages", "gpt_prefill_chunk_pages",
                         "gpt_decode_step_pages",
                         "gpt_decode_chunk_pages",
                         "gpt_decode_verify_pages")
 
-# The paged kernels whose per-slot LoRA gather-matmul path exists.
+# The paged functions whose per-slot LoRA gather-matmul path exists
+# (likewise read by the engine's validation).
 ADAPTER_KERNELS = ("gpt_prefill_pages", "gpt_prefill_chunk_pages",
                    "gpt_decode_step_pages",
                    "gpt_decode_chunk_pages",
@@ -87,16 +104,17 @@ def _ln_names(name):
     return f"{name}.scale", f"{name}.bias"
 
 
-def collect_gpt_params(scope, cfg, prefix="gpt"):
+def collect_gpt_params(scope, cfg, prefix="gpt", dtype=None):
     """Pull the GPT parameter tree out of an executor scope (the vars
     models/gpt.py's programs create). The tensors stay where the scope
-    holds them (the engine runs on their device)."""
+    holds them (the engine runs on their device); dtype=torch.bfloat16
+    casts the copy used for decoding (the scope's tensors untouched)."""
 
     def get(name):
         v = scope.find_var(name)
         if v is None:
             raise KeyError(f"param {name!r} not found in scope")
-        return v
+        return v.to(dtype) if dtype is not None else v
 
     def ln(name):
         s, b = _ln_names(name)
@@ -113,15 +131,46 @@ def collect_gpt_params(scope, cfg, prefix="gpt"):
     return p
 
 
+def quantize_params(params, cfg):
+    """Weight-only int8 quantization of the decode parameter tree: the
+    q/k/v/out/mlp1/mlp2 weights become per-OUTPUT-channel abs-max int8
+    {"w_q": int8 (in, out), "w_s": f32 (out,), "b": ...}; embeddings,
+    layer norms and biases are the same tensors. The codes and scales
+    equal the JAX function's bit for bit: 127.0 / abs-max by true
+    division, times the weight, rounded half to even, clamped to
+    +-127; the scale is abs-max / 127. Deterministic in the weights."""
+
+    def q(w):
+        w32 = w.float()
+        s = w32.abs().amax(0)                       # (out,)
+        safe = torch.where(s > 0, s, torch.ones_like(s))
+        wq = torch.round(w32 * (torch.full_like(safe, 127.0) / safe))
+        return (wq.clamp(-127, 127).to(torch.int8),
+                s / torch.full_like(s, 127.0))
+
+    out = {"wte": params["wte"], "wpe": params["wpe"],
+           "lnf": params["lnf"], "blocks": []}
+    for blk in params["blocks"]:
+        nb = {"ln1": blk["ln1"], "ln2": blk["ln2"]}
+        for nm in ADAPTER_PROJECTIONS:
+            wq, ws = q(blk[nm]["w"])
+            nb[nm] = {"w_q": wq, "w_s": ws, "b": blk[nm]["b"]}
+        out["blocks"].append(nb)
+    return out
+
+
 def param_tensors(params):
-    """Every tensor of a parameter tree, in a fixed order."""
+    """Every tensor of a parameter tree, in a fixed order (a quantized
+    projection's w_q and w_s in place of its w)."""
     out = [params["wte"], params["wpe"], params["lnf"]["g"],
            params["lnf"]["b"]]
     for blk in params["blocks"]:
         for nm in ("ln1", "ln2"):
             out += [blk[nm]["g"], blk[nm]["b"]]
         for nm in ADAPTER_PROJECTIONS:
-            out += [blk[nm]["w"], blk[nm]["b"]]
+            p = blk[nm]
+            out += ([p["w_q"], p["w_s"]] if "w_q" in p else [p["w"]])
+            out.append(p["b"])
     return out
 
 
@@ -140,7 +189,42 @@ def _ln(x, p, eps=1e-5):
 
 
 def _dense(x, p):
+    if "w_q" in p:
+        # weight-only int8: (x @ w_q) * s == x @ (w_q * s) for
+        # per-output-channel scales
+        y = (x @ p["w_q"].to(x.dtype)) * p["w_s"].to(x.dtype)
+        return y + p["b"].to(x.dtype)
     return x @ p["w"].to(x.dtype) + p["b"].to(x.dtype)
+
+
+def _lora_layer(adapters, adapter_ids, li, live):
+    """Per-layer gathered LoRA operands: {proj: (A, B, live) | None}.
+    adapter_ids is an (S,) tensor of pool rows (per-slot decode) or an
+    int row (single-sequence prefill); `live` is the (adapter_ids != 0)
+    mask over the slots, or None where every row is live. No pool, or
+    the prefill of a sequence on the identity row 0, gives None for
+    every projection: the base output exactly."""
+    if adapters is None or (isinstance(adapter_ids, int)
+                            and adapter_ids == 0):
+        return dict.fromkeys(ADAPTER_PROJECTIONS)
+    return {nm: (adapters[nm]["a"][adapter_ids, li],
+                 adapters[nm]["b"][adapter_ids, li], live)
+            for nm in ADAPTER_PROJECTIONS}
+
+
+def _dense_a(x, p, lora):
+    """_dense plus the gathered low-rank delta (x @ A) @ B in f32; rows
+    whose `live` is False take the base output through torch.where on
+    the whole row (an add of an all-zero delta could still flip -0.0).
+    lora=None is exactly _dense."""
+    y = _dense(x, p)
+    if lora is None:
+        return y
+    a, b, live = lora
+    # (B, in) @ (in, r) for a prefill row; (S, n, in) @ (S, in, r) a slot
+    d = torch.matmul(torch.matmul(x.float(), a), b)
+    out = y + d.to(y.dtype)
+    return out if live is None else torch.where(live, out, y)
 
 
 def _gelu_tanh(x):
@@ -159,9 +243,14 @@ def _softmax_rows(scores, dtype):
     return (probs / probs.sum(-1, keepdim=True)).to(dtype)
 
 
-def _mlp_block(x, blk):
+def _mlp_block(x, blk, la=None):
+    """The MLP half of a block; `la` the layer's LoRA operands from
+    _lora_layer (None, or None for every projection: no adapter)."""
+    la = la or {}
     h = _ln(x, blk["ln2"])
-    return x + _dense(_gelu_tanh(_dense(h, blk["mlp1"])), blk["mlp2"])
+    return x + _dense_a(_gelu_tanh(_dense_a(h, blk["mlp1"],
+                                            la.get("mlp1"))),
+                        blk["mlp2"], la.get("mlp2"))
 
 
 def _positions(params, pos):
@@ -469,15 +558,78 @@ def _gather_pages(plane, pages):
                      g.shape[-1])
 
 
+# -- quantized block arena ----------------------------------------------------
+#
+# A quantized arena is the pair (data, scales): data the usual (layers, 2,
+# num_blocks, heads, block_size, hd) in int8, scales the f32 plane
+# (layers, 2, num_blocks, heads, block_size), one abs-max scale per written
+# K/V row per head. Both are written in place through the same redirected
+# block index, so the scratch discipline covers both: a frozen slot's
+# write dirties scratch data AND scratch scales, never a reallocated
+# block's. Where several frozen slots write one scratch row, the data and
+# the scale may come from different slots; scratch is never read
+# unmasked by a live slot, so that row is never used.
+
+def _arena_parts(arena):
+    """(data, scales) of a paged arena; scales is None for the
+    full-precision (bare tensor) form."""
+    if isinstance(arena, tuple):
+        return arena
+    return arena, None
+
+
+def _arena_compute_dtype(params, data, scales):
+    """The activation dtype a paged function runs in: the arena's for a
+    full-precision arena, the params' wte-derived one for a quantized
+    arena (int8 is storage, never math)."""
+    if scales is None:
+        return data.dtype
+    return compute_dtype(params)
+
+
+def _quantize_rows(val):
+    """Per-(row, head) abs-max int8: val (..., heads, hd) -> (q int8 of
+    the same shape, scale f32 (..., heads)), bit for bit the JAX
+    function's (true division, round half to even, clamp to +-127). A
+    zero row quantizes to zeros with scale 0."""
+    v32 = val.float()
+    a = v32.abs().amax(-1)                           # (..., heads)
+    safe = torch.where(a > 0, a, torch.ones_like(a))
+    q = torch.round(v32 * (torch.full_like(safe, 127.0) / safe)[..., None])
+    return (q.clamp(-127, 127).to(torch.int8),
+            a / torch.full_like(a, 127.0))
+
+
 def _kv_write(arena, li, j, wblk, woff, val):
     """One K/V scatter (j = 0 for K, 1 for V) into the arena, in place:
-    row woff[i] of block wblk[i] takes val[i] (heads, hd)."""
-    plane = arena[li, j]                  # a view: the write lands in arena
-    plane[wblk, :, woff] = val
+    row woff[i] of block wblk[i] takes val[i] (heads, hd). On a
+    quantized arena the row is quantized at the scatter and its scale
+    lands in the scale plane through the same block index."""
+    data, scales = _arena_parts(arena)
+    if scales is None:
+        data[li, j][wblk, :, woff] = val     # a view: lands in the arena
+        return
+    q, s = _quantize_rows(val)
+    data[li, j][wblk, :, woff] = q
+    scales[li, j][wblk, :, woff] = s
+
+
+def _kv_gather(arena, li, j, pages, dtype):
+    """Page-gather one K or V matrix (..., heads, P*bs, hd); on a
+    quantized arena dequantized right there (int8 * its scale-plane
+    entry, in `dtype`), the only dequant site."""
+    data, scales = _arena_parts(arena)
+    k = _gather_pages(data[li, j], pages)
+    if scales is None:
+        return k
+    g = scales[li, j][pages]              # (..., P, heads, bs)
+    g = g.transpose(-3, -2)               # (..., heads, P, bs)
+    s = g.reshape(*g.shape[:-2], g.shape[-2] * g.shape[-1])
+    return k.to(dtype) * s[..., None].to(dtype)
 
 
 def gpt_prefill_pages(params, cfg, tokens, pfx_len, real_len, arena,
-                      pages):
+                      pages, adapters=None, adapter_id=None):
     """Paged prefill of ONE sequence's prompt SUFFIX into its arena
     blocks, attending over an already-cached prefix through the page
     row.
@@ -486,16 +638,21 @@ def gpt_prefill_pages(params, cfg, tokens, pfx_len, real_len, arena,
     many leading prompt positions are already resident (prefix-cache
     hits, a multiple of the block size; 0 = cold prompt). real_len: the
     real suffix length, >= 1. arena: (layers, 2, num_blocks, heads,
-    block_size, hd), written in place. pages: (P,) this sequence's page
-    row. Pad positions (j >= real_len) write to the scratch block.
+    block_size, hd), or the (int8 data, f32 scales) pair, written in
+    place. pages: (P,) this sequence's page row. Pad positions (j >=
+    real_len) write to the scratch block. `adapters`/`adapter_id`: the
+    LoRA pool and THIS sequence's pool row (an int; 0 = the identity),
+    so the prompt's K/V rows are computed under the adapter the decode
+    path serves; None without a pool.
 
     Returns (logits of position pfx_len+real_len-1, (1, V) f32, arena)."""
     return _prefill_pages_body(params, cfg, tokens, pfx_len, real_len,
-                               arena, pages)
+                               arena, pages, adapters, adapter_id)
 
 
 def gpt_prefill_chunk_pages(params, cfg, tokens, start_pos, real_len,
-                            arena, pages):
+                            arena, pages, adapters=None,
+                            adapter_id=None):
     """Budget-bounded CHUNKED-PREFILL pass: up to B suffix tokens of ONE
     sequence's prompt starting at absolute position `start_pos` (any
     position: the previous chunk's fill frontier). The math is
@@ -505,22 +662,24 @@ def gpt_prefill_chunk_pages(params, cfg, tokens, start_pos, real_len,
     Returns (logits of position start_pos+real_len-1, (1, V) f32,
     arena)."""
     return _prefill_pages_body(params, cfg, tokens, start_pos, real_len,
-                               arena, pages)
+                               arena, pages, adapters, adapter_id)
 
 
 def _prefill_pages_body(params, cfg, tokens, pfx_len, real_len, arena,
-                        pages):
+                        pages, adapters=None, adapter_id=None):
     """Shared body of gpt_prefill_pages / gpt_prefill_chunk_pages."""
     heads, hd = cfg.heads, cfg.hidden // cfg.heads
-    dev = arena.device
+    data, scales = _arena_parts(arena)
+    dev = data.device
     tokens = torch.as_tensor(tokens, device=dev).long()
     pages = torch.as_tensor(pages, device=dev).long()
     pfx_len, real_len = int(pfx_len), int(real_len)
     _b, B = tokens.shape
-    bs = arena.shape[4]
+    bs = data.shape[4]
     n_pages = pages.shape[0]
     L = n_pages * bs
-    dtype = arena.dtype
+    dtype = _arena_compute_dtype(params, data, scales)
+    row = None if adapters is None else int(adapter_id)
     j = torch.arange(B, device=dev)
     pos = pfx_len + j                              # absolute positions
     x = (params["wte"][tokens[0]] + _positions(params, pos)).to(dtype)
@@ -531,21 +690,22 @@ def _prefill_pages_body(params, cfg, tokens, pfx_len, real_len, arena,
                        pages[(pos // bs).clamp(max=n_pages - 1)], 0)
     woff = pos % bs
     for li, blk in enumerate(params["blocks"]):
+        la = _lora_layer(adapters, row, li, None)
         h = _ln(x, blk["ln1"])
-        q = _dense(h, blk["q"]).reshape(B, heads, hd)
-        k = _dense(h, blk["k"]).reshape(B, heads, hd)
-        v = _dense(h, blk["v"]).reshape(B, heads, hd)
+        q = _dense_a(h, blk["q"], la["q"]).reshape(B, heads, hd)
+        k = _dense_a(h, blk["k"], la["k"]).reshape(B, heads, hd)
+        v = _dense_a(h, blk["v"], la["v"]).reshape(B, heads, hd)
         _kv_write(arena, li, 0, wblk, woff, k)
         _kv_write(arena, li, 1, wblk, woff, v)
-        K = _gather_pages(arena[li, 0], pages)     # (heads, L, hd)
-        V = _gather_pages(arena[li, 1], pages)
+        K = _kv_gather(arena, li, 0, pages, dtype)  # (heads, L, hd)
+        V = _kv_gather(arena, li, 1, pages, dtype)
         scores = torch.einsum("bnd,nkd->bnk", q.float(), K.float())
         scores = torch.where(mask[:, None, :], scores / np.sqrt(hd),
                              _MASKED)
         probs = _softmax_rows(scores, dtype)
         ctx = torch.einsum("bnk,nkd->bnd", probs, V).reshape(B, -1)
-        x = x + _dense(ctx, blk["out"])
-        x = _mlp_block(x, blk)
+        x = x + _dense_a(ctx, blk["out"], la["out"])
+        x = _mlp_block(x, blk, la)
     last = x[real_len - 1][None, None]             # (1, 1, h)
     return _head_logits(params, last), arena
 
@@ -558,7 +718,8 @@ def _page_of(pt, ts, bs):
     return pt[rows, (ts // bs).clamp(max=pt.shape[1] - 1)]
 
 
-def gpt_decode_step_pages(params, cfg, tokens, arena, pt, ts, done=None):
+def gpt_decode_step_pages(params, cfg, tokens, arena, pt, ts, done=None,
+                          adapters=None, adapter_ids=None):
     """One cached decode step over a PAGED pool: every slot advances at
     its own absolute position, its K/V living in arena blocks indirected
     through the page table. tokens/ts: (S,) ints, pt: (S, P) page table,
@@ -567,17 +728,24 @@ def gpt_decode_step_pages(params, cfg, tokens, arena, pt, ts, done=None):
 
     `done` (S,) bool redirects frozen slots' K/V writes to the scratch
     block 0 (their gathers still read stale blocks: garbage logits the
-    host discards); done=None keeps every write live."""
+    host discards); done=None keeps every write live.
+
+    `adapters`/`adapter_ids`: the LoRA pool and an (S,) tensor of pool
+    rows, one a slot, so co-batched slots each run their own adapter in
+    this one call (row 0 selects the base output); None without a
+    pool."""
     heads = cfg.heads
     hd = cfg.hidden // cfg.heads
-    dev = arena.device
+    data, scales = _arena_parts(arena)
+    dev = data.device
     tokens = torch.as_tensor(tokens, device=dev).long()
     ts = torch.as_tensor(ts, device=dev).long()
     pt = torch.as_tensor(pt, device=dev).long()
-    bs = arena.shape[4]
+    bs = data.shape[4]
     s_dim, n_pages = pt.shape
     L = n_pages * bs
-    dtype = arena.dtype
+    dtype = _arena_compute_dtype(params, data, scales)
+    live = None if adapters is None else (adapter_ids != 0)[:, None, None]
     x = (params["wte"][tokens]
          + _positions(params, ts)).to(dtype)[:, None]
     pos_mask = torch.arange(L, device=dev)[None, :] <= ts[:, None]
@@ -586,22 +754,23 @@ def gpt_decode_step_pages(params, cfg, tokens, arena, pt, ts, done=None):
         wblk = torch.where(done, 0, wblk)      # frozen -> scratch block
     woff = ts % bs
     for li, blk in enumerate(params["blocks"]):
+        la = _lora_layer(adapters, adapter_ids, li, live)
         h = _ln(x, blk["ln1"])
-        q = _dense(h, blk["q"]).reshape(s_dim, heads, 1, hd)
-        k = _dense(h, blk["k"]).reshape(s_dim, heads, hd)
-        v = _dense(h, blk["v"]).reshape(s_dim, heads, hd)
+        q = _dense_a(h, blk["q"], la["q"]).reshape(s_dim, heads, 1, hd)
+        k = _dense_a(h, blk["k"], la["k"]).reshape(s_dim, heads, hd)
+        v = _dense_a(h, blk["v"], la["v"]).reshape(s_dim, heads, hd)
         _kv_write(arena, li, 0, wblk, woff, k)
         _kv_write(arena, li, 1, wblk, woff, v)
-        K = _gather_pages(arena[li, 0], pt)        # (S, heads, L, hd)
-        V = _gather_pages(arena[li, 1], pt)
+        K = _kv_gather(arena, li, 0, pt, dtype)    # (S, heads, L, hd)
+        V = _kv_gather(arena, li, 1, pt, dtype)
         scores = torch.einsum("bnqd,bnkd->bnqk", q.float(), K.float())
         scores = torch.where(pos_mask[:, None, None, :],
                              scores / np.sqrt(hd), _MASKED)
         probs = _softmax_rows(scores, dtype)
         ctx = torch.einsum("bnqk,bnkd->bnqd", probs, V)
         ctx = ctx.transpose(1, 2).reshape(s_dim, 1, -1)
-        x = x + _dense(ctx, blk["out"])
-        x = _mlp_block(x, blk)
+        x = x + _dense_a(ctx, blk["out"], la["out"])
+        x = _mlp_block(x, blk, la)
     return _head_logits(params, x), arena
 
 
@@ -611,26 +780,29 @@ def greedy_sample(keys, logits, temps):
     return logits.argmax(-1), keys
 
 
-def gpt_decode_verify_pages(params, cfg, toks, arena, pt, ts, done=None):
+def gpt_decode_verify_pages(params, cfg, toks, arena, pt, ts, done=None,
+                            adapters=None, adapter_ids=None):
     """gpt_decode_verify_slots over the PAGED pool: toks (S, D) at
     positions ts..ts+D-1 a slot, the D K/V writes through the page
     table. Two kinds of write go to the scratch block 0: those of `done`
     slots (a retired slot's reallocated blocks are never dirtied by its
     ride-along verify) and those whose page index runs past the row
     (pidx >= P: a draft's overshoot). Candidates at such positions read
-    garbage and are never committed. Returns (logits (S, D, V) f32,
-    arena)."""
+    garbage and are never committed. `adapters`/`adapter_ids` as in
+    gpt_decode_step_pages. Returns (logits (S, D, V) f32, arena)."""
     heads = cfg.heads
     hd = cfg.hidden // cfg.heads
-    dev = arena.device
+    data, scales = _arena_parts(arena)
+    dev = data.device
     toks = torch.as_tensor(toks, device=dev).long()
     ts = torch.as_tensor(ts, device=dev).long()
     pt = torch.as_tensor(pt, device=dev).long()
-    bs = arena.shape[4]
+    bs = data.shape[4]
     s_dim, n_pages = pt.shape
     D = toks.shape[1]
     L = n_pages * bs
-    dtype = arena.dtype
+    dtype = _arena_compute_dtype(params, data, scales)
+    live = None if adapters is None else (adapter_ids != 0)[:, None, None]
     rows = torch.arange(s_dim, device=dev)[:, None]
     pos = ts[:, None] + torch.arange(D, device=dev)[None, :]     # (S, D)
     x = (params["wte"][toks] + _positions(params, pos)).to(dtype)
@@ -642,22 +814,23 @@ def gpt_decode_verify_pages(params, cfg, toks, arena, pt, ts, done=None):
         wblk = torch.where(done[:, None], 0, wblk)
     woff = pos % bs
     for li, blk in enumerate(params["blocks"]):
+        la = _lora_layer(adapters, adapter_ids, li, live)
         h = _ln(x, blk["ln1"])
-        q = _dense(h, blk["q"]).reshape(s_dim, D, heads, hd)
-        k = _dense(h, blk["k"]).reshape(s_dim, D, heads, hd)
-        v = _dense(h, blk["v"]).reshape(s_dim, D, heads, hd)
+        q = _dense_a(h, blk["q"], la["q"]).reshape(s_dim, D, heads, hd)
+        k = _dense_a(h, blk["k"], la["k"]).reshape(s_dim, D, heads, hd)
+        v = _dense_a(h, blk["v"], la["v"]).reshape(s_dim, D, heads, hd)
         _kv_write(arena, li, 0, wblk, woff, k)
         _kv_write(arena, li, 1, wblk, woff, v)
-        K = _gather_pages(arena[li, 0], pt)        # (S, heads, L, hd)
-        V = _gather_pages(arena[li, 1], pt)
+        K = _kv_gather(arena, li, 0, pt, dtype)    # (S, heads, L, hd)
+        V = _kv_gather(arena, li, 1, pt, dtype)
         scores = torch.einsum("bqnd,bnkd->bnqk", q.float(), K.float())
         scores = torch.where(pos_mask[:, None], scores / np.sqrt(hd),
                              _MASKED)
         probs = _softmax_rows(scores, dtype)
         ctx = torch.einsum("bnqk,bnkd->bqnd", probs, V).reshape(
             s_dim, D, -1)
-        x = x + _dense(ctx, blk["out"])
-        x = _mlp_block(x, blk)
+        x = x + _dense_a(ctx, blk["out"], la["out"])
+        x = _mlp_block(x, blk, la)
     x = _ln(x, params["lnf"])
     return (x @ params["wte"].T.to(x.dtype)).float(), arena
 
@@ -786,7 +959,8 @@ def _spec_step(verify, sample_fn, temps, eos_ids, speculate_k, carry):
 def gpt_decode_chunk_pages(params, cfg, tokens, arena, pt, ts, keys,
                            temps, done, remaining, eos_ids, chunk,
                            sample_fn=None, speculate_k=0,
-                           spec_state=None):
+                           spec_state=None, adapters=None,
+                           adapter_ids=None):
     """`chunk` iterations of gpt_decode_step_pages + per-slot sampling +
     EOS/budget masking, queued back to back on the arena's device: the
     counterpart of the JAX function's lax.scan. Every mask and counter
@@ -812,7 +986,12 @@ def gpt_decode_chunk_pages(params, cfg, tokens, arena, pt, ts, keys,
     slots' and past-the-row writes to scratch) and commits the accepted
     run plus one corrected token. Returns (block (chunk, k+1, S), counts
     (chunk, S), tokens, arena, ts, keys, done, remaining, (prev,
-    table))."""
+    table)).
+
+    `arena` may be the (int8 data, f32 scales) pair: every write
+    quantizes, every gather dequantizes. `adapters`/`adapter_ids` (the
+    LoRA pool and the (S,) pool rows of the carry) reach every step or
+    verify pass; both are read-only here."""
     if sample_fn is None:
         sample_fn = greedy_sample
     if int(speculate_k) > 0:
@@ -820,7 +999,8 @@ def gpt_decode_chunk_pages(params, cfg, tokens, arena, pt, ts, keys,
 
         def verify(inputs, arena, ts, done):
             return gpt_decode_verify_pages(params, cfg, inputs, arena, pt,
-                                           ts, done)
+                                           ts, done, adapters=adapters,
+                                           adapter_ids=adapter_ids)
 
         block, counts, carry = _spec_loop(
             verify, sample_fn, temps, eos_ids, speculate_k, chunk,
@@ -830,7 +1010,9 @@ def gpt_decode_chunk_pages(params, cfg, tokens, arena, pt, ts, keys,
                 (prev, table))
 
     def step(tok, arena, ts, done):
-        return gpt_decode_step_pages(params, cfg, tok, arena, pt, ts, done)
+        return gpt_decode_step_pages(params, cfg, tok, arena, pt, ts, done,
+                                     adapters=adapters,
+                                     adapter_ids=adapter_ids)
 
     return _chunk_loop(step, sample_fn, tokens, arena, ts, keys, temps,
                        done, remaining, eos_ids, chunk)

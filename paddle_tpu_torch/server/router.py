@@ -5,8 +5,8 @@ A copy of `paddle_tpu/server/router.py` (pure Python) over the port's
 engine's scheduler runs every device call on the stream it was built on
 and under `torch.no_grad()`, so a driver thread needs no set-up of its
 own. Two replicas on one card share the parameter tensors and hold an
-arena each. Adapter bindings (`AdapterConfig` with a nonzero id) raise
-NotImplementedError at construction (ROADMAP A.1.5).
+arena each. Tenants bind to LoRA adapters through `AdapterConfig`; a
+request's explicit `adapter_id` (0 included) overrides its binding.
 
 The reference saturates inference hardware by fanning requests over many
 trainer/DeviceWorker instances around AnalysisPredictor (PAPER.md layer
@@ -1231,13 +1231,6 @@ class Router:
         # migration plane keep the same adapter without re-resolution
         self._adapter_cfg = dict(adapters or {})
         self._default_adapter = default_adapter
-        bound = [c.adapter_id for c in list(self._adapter_cfg.values())
-                 + [default_adapter] if c is not None and c.adapter_id]
-        if bound:
-            raise NotImplementedError(
-                f"Router adapter bindings {bound} are not ported to "
-                "paddle_tpu_torch yet (ROADMAP A.1.5: the engine has no "
-                "adapter pool)")
         self._buckets: Dict[str, Optional[TokenBucket]] = {}
         self._bucket_lock = threading.Lock()
         self._admit_lock = threading.Lock()

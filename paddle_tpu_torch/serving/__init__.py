@@ -9,17 +9,21 @@ chunked decode over a device-resident, overlapped pipeline
 one verify pass a chunk iteration), a request-lifecycle engine with
 bounded admission and streaming callbacks, host-swap preemption and
 cross-engine migration (`engine`), the portable migration record
-(`migration`), request/engine metrics (`metrics`) and deterministic
-fault injection (`faults`).
+(`migration`), request/engine metrics (`metrics`), deterministic
+fault injection (`faults`) and the multi-tenant LoRA adapter pool
+(`adapters`). ServingConfig(weight_dtype="int8", kv_dtype="int8")
+serves int8 weights and an int8 KV arena with its scale plane.
 
 Entry points: `inference.create_engine(config, gpt_config)` to serve a
 saved model dir, or `ServingEngine(params, cfg)` over a parameter tree
 from `models.gpt_decode.collect_gpt_params`.
 
-Not ported yet: quantized serving (ROADMAP A.1.4), adapters (A.1.5);
-the mesh (A.8).
+Not ported yet: the mesh (ROADMAP A.8).
 """
 
+from .adapters import (AdapterError, AdapterGeometryError, AdapterPool,
+                       AdapterPoolFullError, AdapterReferencedError,
+                       UnknownAdapterError, adapter_geometry, make_adapter)
 from .engine import (DEFAULT_RETRY_AFTER_S, EngineOverloadError,
                      GenerationRequest, ServingConfig, ServingEngine)
 from .faults import FaultPlan, InjectedFault
@@ -36,4 +40,7 @@ __all__ = ["ServingEngine", "ServingConfig", "GenerationRequest",
            "ContinuousBatchingScheduler", "SequenceEvent",
            "SwappedSequence", "FaultPlan", "InjectedFault",
            "EngineMetrics", "RequestMetrics", "MigrationTicket",
-           "MigrationError", "TicketError", "TICKET_VERSION"]
+           "MigrationError", "TicketError", "TICKET_VERSION",
+           "AdapterPool", "AdapterError", "UnknownAdapterError",
+           "AdapterGeometryError", "AdapterPoolFullError",
+           "AdapterReferencedError", "adapter_geometry", "make_adapter"]

@@ -23,13 +23,18 @@ engine as a `migration.MigrationTicket` (the router's rebalancing and
 restarts). Resumed and migrated streams are bit-identical to
 never-preempted runs. With `ServingConfig(speculate_k=k)` every decode
 iteration drafts k tokens from a per-slot n-gram table and verifies them
-in one model pass; streams stay bit-identical to speculate_k=0.
+in one model pass; streams stay bit-identical to speculate_k=0. With
+`weight_dtype="int8"` the engine quantizes its weights at construction
+(`gpt_decode.quantize_params`) and with `kv_dtype="int8"` it serves from
+an int8 arena with an f32 scale plane; with `max_adapters`/
+`adapter_rank` it holds a LoRA pool (`adapters.AdapterPool`) and each
+request decodes under its own `adapter_id`.
 
 The engine runs on its parameters' device (`inference.create_engine`
 puts them on the card unless the Config says `disable_gpu()`).
-`ServingConfig` keeps the JAX signature; each knob of a serving slice
-not ported yet raises NotImplementedError at construction, naming its
-ROADMAP item, and nothing falls back to another path.
+`ServingConfig` keeps the JAX signature; mesh_shape (ROADMAP A.8) raises
+NotImplementedError at construction, and nothing falls back to another
+path.
 """
 
 from __future__ import annotations
@@ -125,9 +130,22 @@ class ServingConfig:
     token streams bit-identical to speculate_k=0; speculate_ngram sizes
     the hashed per-slot drafter table.
 
-    Not ported yet, each raising NotImplementedError when set:
-    weight_dtype/kv_dtype (ROADMAP A.1.4), max_adapters/adapter_rank
-    (A.1.5), mesh_shape (A.8)."""
+    Quantization knobs (both None = full precision): weight_dtype="int8"
+    serves per-output-channel int8 matmul weights with f32 scales,
+    kv_dtype="int8" an int8 block arena with an f32 scale plane
+    (quantized at every K/V scatter, dequantized at every page gather).
+    Any other string raises ValueError; a quantized engine is
+    bit-identical to itself across chunk sizes, preemption and
+    migration, not to fp32.
+
+    Adapter knobs (both None = no pool): max_adapters=N (>= 2, row 0 the
+    base identity) and adapter_rank=r allocate a LoRA pool; upload with
+    ServingEngine.upload_adapter and route with submit(adapter_id=k).
+    Co-batched requests run different adapters in one dispatch, and
+    adapter_id=0 streams are bit-identical to an adapterless engine.
+
+    Not ported yet: mesh_shape (ROADMAP A.8) raises
+    NotImplementedError."""
 
     def __init__(self, num_slots: int = 4, max_queue: int = 16,
                  prefill_buckets: Optional[Sequence[int]] = None,
@@ -151,18 +169,39 @@ class ServingConfig:
                  dispatch_timing: bool = False,
                  tick_profile: bool = False,
                  clock: Callable[[], float] = time.monotonic):
-        for knob, set_, item in (
-                (f"weight_dtype={weight_dtype!r}",
-                 weight_dtype is not None, "A.1.4"),
-                (f"kv_dtype={kv_dtype!r}", kv_dtype is not None, "A.1.4"),
-                (f"max_adapters={max_adapters!r}",
-                 max_adapters is not None, "A.1.5"),
-                (f"adapter_rank={adapter_rank!r}",
-                 adapter_rank is not None, "A.1.5"),
-                (f"mesh_shape={mesh_shape!r}", mesh_shape is not None,
-                 "A.8")):
-            if set_:
-                raise _not_ported(knob, item)
+        if mesh_shape is not None:
+            raise _not_ported(f"mesh_shape={mesh_shape!r}", "A.8")
+        # quantized serving: an unknown dtype string is a loud config
+        # error, never a silent fp32 fallback
+        for knob, val in (("weight_dtype", weight_dtype),
+                          ("kv_dtype", kv_dtype)):
+            if val not in (None, "int8"):
+                raise ValueError(
+                    f"unknown {knob} {val!r}: expected None (full "
+                    "precision) or 'int8' — quantized serving never "
+                    "falls back silently")
+        self.weight_dtype = weight_dtype
+        self.kv_dtype = kv_dtype
+        # the adapter pool needs both its row count and its rank
+        if (max_adapters is None) != (adapter_rank is None):
+            raise ValueError(
+                "max_adapters and adapter_rank must be set together "
+                f"(got max_adapters={max_adapters!r}, "
+                f"adapter_rank={adapter_rank!r}) — an adapter pool "
+                "needs both its row count and its rank")
+        if max_adapters is not None:
+            if not isinstance(max_adapters, int) \
+                    or isinstance(max_adapters, bool) or max_adapters < 2:
+                raise ValueError(
+                    f"max_adapters must be an int >= 2 (row 0 is the "
+                    f"reserved base identity), got {max_adapters!r}")
+            if not isinstance(adapter_rank, int) \
+                    or isinstance(adapter_rank, bool) or adapter_rank < 1:
+                raise ValueError(
+                    f"adapter_rank must be an int >= 1, got "
+                    f"{adapter_rank!r}")
+        self.max_adapters = max_adapters
+        self.adapter_rank = adapter_rank
         self.num_slots = int(num_slots)
         self.max_queue = int(max_queue)
         self.prefill_buckets = tuple(prefill_buckets) \
@@ -206,7 +245,8 @@ class GenerationRequest:
                  on_token: Optional[Callable[["GenerationRequest", int],
                                              Any]],
                  clock: Callable[[], float],
-                 request_id: Optional[str] = None):
+                 request_id: Optional[str] = None,
+                 adapter_id: int = 0):
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         self.max_new_tokens = int(max_new_tokens)
         self.temperature = float(temperature)
@@ -217,7 +257,7 @@ class GenerationRequest:
         self.state = "queued"
         self.metrics = RequestMetrics(clock)
         self.request_id = request_id
-        self.adapter_id = 0                    # no adapters (A.1.5)
+        self.adapter_id = int(adapter_id)
         self._submit_ns: Optional[int] = None  # tracer queue-wait anchor
 
     @property
@@ -304,24 +344,63 @@ class ServingEngine:
             buckets = _default_buckets(max_len)
         self.buckets = ShapeBuckets(buckets)
         self.device = params["wte"].device
+        # coverage asserts: a quantized arena or an adapter pool may only
+        # reach the paged functions whose dequant / low-rank path exists
+        # (gpt_decode.QUANTIZED_KV_KERNELS / ADAPTER_KERNELS); refusing
+        # beats reading int8 rows as values or serving base tokens
+        if serving.kv_dtype == "int8" and serving.speculate_k > 0 \
+                and "gpt_decode_verify_pages" not in \
+                _gd.QUANTIZED_KV_KERNELS:
+            raise ValueError(
+                "kv_dtype='int8' with speculate_k > 0 requires the "
+                "verify kernel's dequant path "
+                "(gpt_decode.QUANTIZED_KV_KERNELS lacks "
+                "'gpt_decode_verify_pages') — refusing rather than "
+                "silently reading quantized rows as values")
+        if serving.max_adapters is not None:
+            needed = {"gpt_prefill_pages", "gpt_decode_chunk_pages"}
+            if serving.speculate_k > 0:
+                needed.add("gpt_decode_verify_pages")
+            if serving.prefill_chunk is not None:
+                needed.add("gpt_prefill_chunk_pages")
+            missing = sorted(needed - set(_gd.ADAPTER_KERNELS))
+            if missing:
+                raise ValueError(
+                    "max_adapters requires the per-slot adapter path in "
+                    f"every dispatched kernel; gpt_decode.ADAPTER_KERNELS "
+                    f"lacks {missing} — refusing rather than silently "
+                    "serving base-model tokens")
+        compute = _gd.compute_dtype(params)
+        if serving.weight_dtype == "int8":
+            params = _gd.quantize_params(params, cfg)
+        # parameter bytes AS SERVED (int8 weights and their scales after
+        # quantization) and the weight dtype stats() reports: the knob
+        # when set, else the embedding table's dtype
         self.weight_bytes = int(sum(t.numel() * t.element_size()
                                     for t in _gd.param_tensors(params)))
-        # no adapter pool (ROADMAP A.1.5): the server and migration
-        # tickets read this
+        self._weight_dtype = serving.weight_dtype or \
+            str(params["wte"].dtype).replace("torch.", "")
+        # the LoRA pool on the engine's device (None = adapterless: the
+        # server and migration tickets read this)
         self.adapters = None
-        self._weight_dtype = str(params["wte"].dtype).replace("torch.", "")
-        self.kv = SlotKVCache(cfg, serving.num_slots, max_len,
-                              _gd.compute_dtype(params),
+        if serving.max_adapters is not None:
+            from .adapters import AdapterPool
+            self.adapters = AdapterPool(cfg, serving.max_adapters,
+                                        serving.adapter_rank,
+                                        device=self.device)
+        self.kv = SlotKVCache(cfg, serving.num_slots, max_len, compute,
                               block_size=serving.block_size,
                               num_blocks=serving.kv_blocks,
                               prefix_cache=serving.prefix_cache,
+                              kv_dtype=serving.kv_dtype,
                               device=self.device)
         self.scheduler = ContinuousBatchingScheduler(
             params, cfg, self.kv, self.buckets, top_k=serving.top_k,
             decode_chunk=serving.decode_chunk, overlap=serving.overlap,
             speculate_k=serving.speculate_k,
             speculate_ngram=serving.speculate_ngram,
-            prefill_chunk=serving.prefill_chunk)
+            prefill_chunk=serving.prefill_chunk,
+            adapters=self.adapters)
         self.scheduler.on_prefill_chunk = self._on_prefill_chunk
         # launch-side heartbeat: bumped at dispatch ENQUEUE inside the
         # scheduler, so a device hang with the host blocked in the next
@@ -336,6 +415,7 @@ class ServingEngine:
                                      * (1 + serving.speculate_k)),
             speculate_k=serving.speculate_k,
             dispatch_timing=serving.dispatch_timing,
+            adapters=self.adapters is not None,
             tick_profile=serving.tick_profile)
         if serving.dispatch_timing:
             self.scheduler.dispatch_timing = True
@@ -395,6 +475,8 @@ class ServingEngine:
         self.metrics.kv_pool_per_chip_bytes = self.kv.hbm_per_chip_bytes
         self.metrics.kv_dtype_bytes = self.kv.kv.element_size()
         self.metrics.weight_bytes = self.weight_bytes
+        if self.adapters is not None:
+            self._sync_adapter_metrics()
 
     # -- admission ----------------------------------------------------------
 
@@ -404,11 +486,17 @@ class ServingEngine:
                adapter_id: int = 0) -> GenerationRequest:
         """Enqueue one generate request. Raises ValueError for requests
         that can never be served (too long for the buckets/pool, an
-        adapter id on this adapterless engine) and EngineOverloadError
-        when the queue is full (backpressure: nothing queues
-        unboundedly)."""
+        unknown or unresident adapter_id) and EngineOverloadError when
+        the queue is full (backpressure: nothing queues unboundedly).
+        adapter_id pins the named LoRA adapter (upload_adapter) for the
+        request's whole life: its pool row cannot be evicted or
+        overwritten until the request finishes, cancels or migrates
+        away."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
-        if int(adapter_id):
+        adapter_id = int(adapter_id)
+        if adapter_id < 0:
+            raise ValueError(f"adapter_id must be >= 0, got {adapter_id}")
+        if adapter_id and self.adapters is None:
             raise ValueError(
                 f"adapter_id {adapter_id} on an engine with no adapter "
                 "pool (ServingConfig(max_adapters=..., adapter_rank=...))")
@@ -432,7 +520,8 @@ class ServingEngine:
             prompt, max_new_tokens, temperature, seed, eos_id, on_token,
             self.config.clock,
             request_id=f"{self.metrics.engine_label}-"
-                       f"{next(self._rid_counter)}")
+                       f"{next(self._rid_counter)}",
+            adapter_id=adapter_id)
         if _TRACER.enabled:  # queue-wait anchor; no clock read when off
             req._submit_ns = time.monotonic_ns()
         rlog = _request_log.get_request_log()
@@ -440,11 +529,19 @@ class ServingEngine:
             rlog.event("submitted", request_id=req.request_id,
                        engine=self.metrics.engine_label,
                        prompt_len=int(prompt.size),
-                       max_new=int(max_new_tokens), adapter_id=0)
+                       max_new=int(max_new_tokens),
+                       adapter_id=adapter_id)
         with self._lock:
+            # pin the adapter row first: an unknown id is the typed 4xx
+            # (UnknownAdapterError, a ValueError) and does not count as
+            # a submission
+            if adapter_id:
+                self.adapters.acquire(adapter_id)
             self.metrics.submitted += 1
             if len(self._queue) >= self.config.max_queue:
                 self.metrics.shed += 1
+                if adapter_id:   # a shed request pins nothing
+                    self.adapters.release(adapter_id)
                 req.state = "shed"
                 shed_depth = len(self._queue)
                 queued_depth = None
@@ -486,6 +583,11 @@ class ServingEngine:
             req.state = "finished"
             req.metrics.mark_finished()
             self.metrics.record(req.metrics)
+            if req.adapter_id and self.adapters is not None:
+                # terminal unpin: the row is LRU-evictable again (lock:
+                # submit acquires from client threads)
+                with self._lock:
+                    self.adapters.release(req.adapter_id)
             rlog = _request_log.get_request_log()
             if rlog is not None:
                 rlog.event(
@@ -592,7 +694,7 @@ class ServingEngine:
             if rlog is not None:
                 rlog.event("admitted", request_id=req.request_id,
                            queue_wait_s=req.metrics.queue_wait,
-                           adapter_id=0)
+                           adapter_id=req.adapter_id)
             if _TRACER.enabled and req._submit_ns is not None:
                 _TRACER.record_complete(
                     "serving/queue_wait", req._submit_ns,
@@ -602,7 +704,7 @@ class ServingEngine:
                 event = self.scheduler.admit(
                     req, req.prompt, req.max_new_tokens,
                     temperature=req.temperature, seed=req.seed,
-                    eos_id=req.eos_id)
+                    eos_id=req.eos_id, adapter_id=req.adapter_id)
                 assert event is not None  # can_admit checked, same thread
                 if event is not PREFILL_PENDING:
                     self._emit(event)
@@ -665,10 +767,12 @@ class ServingEngine:
             # blocks are free)
             reserved = sum(s.n_blocks for s in self._swapped)
             need = self.kv.blocks_needed(
-                req.prompt, req.prompt.size + req.max_new_tokens)
+                req.prompt, req.prompt.size + req.max_new_tokens,
+                adapter_id=req.adapter_id)
             if self.kv.blocks_available < reserved + need:
                 return False
-        if self.scheduler.can_admit(req.prompt, req.max_new_tokens):
+        if self.scheduler.can_admit(req.prompt, req.max_new_tokens,
+                                    adapter_id=req.adapter_id):
             return True
         if not self.config.preempt or self._swapped:
             # preempting while sequences already wait in the swap pool
@@ -676,7 +780,8 @@ class ServingEngine:
             # always queues
             return False
         while not self.scheduler.can_admit(req.prompt,
-                                           req.max_new_tokens):
+                                           req.max_new_tokens,
+                                           adapter_id=req.adapter_id):
             if not self._preempt_once(req):
                 return False
         return True
@@ -691,7 +796,8 @@ class ServingEngine:
         # swap_out needs an empty pipeline; the fence's tokens fan out
         # NOW (and may retire slots — re-check before evicting)
         self._fence()
-        if self.scheduler.can_admit(req.prompt, req.max_new_tokens):
+        if self.scheduler.can_admit(req.prompt, req.max_new_tokens,
+                                    adapter_id=req.adapter_id):
             return True
         slot = self.scheduler.pick_victim(self.config.preempt_policy)
         if slot is None:
@@ -777,7 +883,9 @@ class ServingEngine:
                 self.metrics.swapped_slots = len(self._swapped)
                 sw.req.state = "migrated"
                 ticket = MigrationTicket.from_swapped(
-                    sw, self.kv.block_size, mesh_shape=self.mesh_shape)
+                    sw, self.kv.block_size, mesh_shape=self.mesh_shape,
+                    adapter_digest=self._adapter_digest_for(sw))
+                self._release_migrated(sw)
                 if rlog is not None:
                     rlog.event("migrate_out", request_id=rid,
                                replica=self.metrics.engine_label,
@@ -820,7 +928,9 @@ class ServingEngine:
         sw = self.scheduler.swap_out(slot, journal=False)
         sw.req.state = "migrated"
         ticket = MigrationTicket.from_swapped(
-            sw, self.kv.block_size, mesh_shape=self.mesh_shape)
+            sw, self.kv.block_size, mesh_shape=self.mesh_shape,
+            adapter_digest=self._adapter_digest_for(sw))
+        self._release_migrated(sw)
         if rlog is not None:
             rlog.event("migrate_out", request_id=rid,
                        replica=self.metrics.engine_label,
@@ -829,6 +939,23 @@ class ServingEngine:
                        produced=ticket.produced,
                        adapter_id=ticket.adapter_id)
         return ticket
+
+    def _adapter_digest_for(self, sw) -> bytes:
+        """The content digest a migration ticket commits for the
+        sequence's adapter (b"" for the base identity or an adapterless
+        engine), read before the pin is released."""
+        aid = getattr(sw, "adapter_id", 0)
+        if not aid or self.adapters is None:
+            return b""
+        return self.adapters.digest_of(aid)
+
+    def _release_migrated(self, sw) -> None:
+        """Drop the departing sequence's adapter pin: the ticket carries
+        (id, digest) and the target acquires it on adoption."""
+        aid = getattr(sw, "adapter_id", 0)
+        if aid and self.adapters is not None:
+            with self._lock:
+                self.adapters.release(aid)
 
     def migrate_in(self, ticket, on_token: Optional[Callable] = None
                    ) -> GenerationRequest:
@@ -851,15 +978,22 @@ class ServingEngine:
                 "new residents")
         if self.faults is not None:
             self.faults.migration_phase("adopt")
-        # a ticket whose drafter rows do not fit this engine's
-        # speculation config, or with a scale plane or an adapter, fails
-        # here (TicketError)
+        # a ticket whose KV dtype, scale plane, adapter (id and content
+        # digest) or drafter rows do not fit this engine fails here
+        # (TicketError), nothing mutated
         ticket.validate_for(self)
+        aid = getattr(ticket, "adapter_id", 0)
+        if aid:
+            # validate_for proved residency and the digest; pin the row
+            # for the adopted request's life, as submit does
+            with self._lock:
+                self.adapters.acquire(aid)
         req = GenerationRequest(
             ticket.prompt, ticket.max_new, ticket.temperature,
             ticket.seed, ticket.eos_id, on_token, self.config.clock,
             request_id=f"{self.metrics.engine_label}-"
-                       f"{next(self._rid_counter)}")
+                       f"{next(self._rid_counter)}",
+            adapter_id=aid)
         req.tokens = list(ticket.tokens)
         req.state = "running"
         # adoption stamps: queue_wait/ttft here measure the handoff-to-
@@ -875,7 +1009,7 @@ class ServingEngine:
                        replica=self.metrics.engine_label,
                        rerouted_from=ticket.request_id,
                        bytes=ticket.swap_bytes,
-                       produced=ticket.produced, adapter_id=0)
+                       produced=ticket.produced, adapter_id=aid)
         return req
 
     def _on_dispatch_launched(self) -> None:
@@ -982,6 +1116,12 @@ class ServingEngine:
                 req.state = "cancelled"
                 self._pending_cancels.append(req)
                 cancelled_from = "running"
+            if cancelled_from is not None and req.adapter_id \
+                    and self.adapters is not None:
+                # terminal unpin (a cancelled request's emissions are
+                # swallowed, so a row reassigned before the stepping
+                # thread frees the slot only feeds discarded tokens)
+                self.adapters.release(req.adapter_id)
         if cancelled_from is None:
             return False
         rlog = _request_log.get_request_log()
@@ -989,6 +1129,56 @@ class ServingEngine:
             rlog.event("cancelled", request_id=req.request_id,
                        was=cancelled_from, tokens=len(req.tokens))
         return True
+
+    # -- multi-tenant adapters ----------------------------------------------
+
+    def _require_adapters(self):
+        if self.adapters is None:
+            raise ValueError(
+                "this engine has no adapter pool "
+                "(ServingConfig(max_adapters=..., adapter_rank=...))")
+        return self.adapters
+
+    def _sync_adapter_metrics(self) -> None:
+        """Mirror the pool's host bookkeeping into the registry series."""
+        pool = self.adapters
+        self.metrics.adapters_resident = pool.resident_count
+        self.metrics.adapter_pool_bytes = pool.pool_bytes
+        self.metrics.adapter_uploads = pool.uploads_total
+        self.metrics.adapter_evictions = pool.evictions_total
+
+    def upload_adapter(self, adapter_id: int, weights) -> int:
+        """Install a LoRA adapter's A/B stack under `adapter_id`,
+        validating its geometry against the base model and LRU-evicting
+        the oldest unreferenced resident under pressure. Returns the pool
+        row claimed. Typed AdapterError subclasses (all ValueError) on bad
+        geometry, a referenced id, or a pool with every row pinned. An
+        indexed copy into the pool's tensors: the next dispatch reads
+        it."""
+        pool = self._require_adapters()
+        with self._lock:
+            row = pool.upload(adapter_id, weights)
+            self._sync_adapter_metrics()
+        rlog = _request_log.get_request_log()
+        if rlog is not None:
+            rlog.event("adapter_upload", engine=self.metrics.engine_label,
+                       adapter_id=int(adapter_id), row=row,
+                       resident=pool.resident_count)
+        return row
+
+    def evict_adapter(self, adapter_id: int) -> None:
+        """Explicitly drop a resident adapter, freeing its pool row.
+        AdapterReferencedError while any live request pins it;
+        UnknownAdapterError if it is not resident."""
+        pool = self._require_adapters()
+        with self._lock:
+            pool.evict(adapter_id)
+            self._sync_adapter_metrics()
+        rlog = _request_log.get_request_log()
+        if rlog is not None:
+            rlog.event("adapter_evict", engine=self.metrics.engine_label,
+                       adapter_id=int(adapter_id),
+                       resident=pool.resident_count)
 
     # -- observability ------------------------------------------------------
 
@@ -1019,6 +1209,10 @@ class ServingEngine:
         s["weight_bytes"] = self.weight_bytes
         # host memory the swap pool pins (0 when nothing is parked)
         s["swap_pool_bytes"] = sum(sw.swap_bytes for sw in self._swapped)
+        # adapter pool occupancy: resident count, device bytes, uploads
+        # and evictions
+        if self.adapters is not None:
+            s.update(self.adapters.occupancy())
         s["compiled_executables"] = self.scheduler.compile_count
         s["engine_label"] = self.metrics.engine_label
         return s

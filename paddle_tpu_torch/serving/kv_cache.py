@@ -32,9 +32,13 @@ Host-swap preemption and migration resume a sequence through
 what an admission would consume while parked sequences hold a page
 reservation.
 
-Not ported yet: the int8 arena with its scale plane (`kv_dtype`) and a
-sharded arena (`mesh_shards`, `arena_device`); each raises
-NotImplementedError.
+kv_dtype="int8" stores the arena as int8 with an f32 scale plane
+`(layers, 2, num_blocks, heads, block_size)` beside it, one scale per
+K/V row per head (`gpt_decode._kv_write` quantizes at the scatter,
+`_kv_gather` dequantizes at the page gather); `arena` is what the paged
+functions take, the pair for an int8 pool. Not ported yet: a sharded
+arena (`mesh_shards`, `arena_device`), which raises NotImplementedError
+(ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -111,10 +115,10 @@ class SlotKVCache:
             raise NotImplementedError(
                 "a sharded KV arena (mesh_shards / arena_device) is not "
                 "ported yet (ROADMAP A.8)")
-        if kv_dtype is not None:
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r} is not ported yet (ROADMAP A.1.4: "
-                "int8 weights and KV)")
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(
+                f"unknown kv_dtype {kv_dtype!r}: expected None "
+                "(full precision) or 'int8'")
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if max_len < 1:
@@ -135,12 +139,23 @@ class SlotKVCache:
                 f"num_blocks must be >= 2 (scratch + 1), got {num_blocks}")
         self.prefix_cache_enabled = bool(prefix_cache)
         heads, hd = cfg.heads, cfg.hidden // cfg.heads
-        self.dtype = dtype if dtype is not None else torch.float32
+        # kv_dtype="int8": one byte a K/V value plus the f32 scale plane;
+        # None keeps the compute dtype (float32 / bfloat16)
+        quantized = kv_dtype == "int8"
+        if quantized:
+            self.dtype = torch.int8
+        else:
+            self.dtype = dtype if dtype is not None else torch.float32
         shape = (cfg.layers, 2, self.num_blocks, heads, self.block_size,
                  hd)
-        # the arena: allocated once, written in place by every dispatch
+        # the arena (and its scale plane): allocated once, written in
+        # place by every dispatch, always together
         self.kv = torch.zeros(shape, dtype=self.dtype, device=device)
+        self.kv_scales = torch.zeros(shape[:-1], dtype=torch.float32,
+                                     device=device) if quantized else None
         self._pool_bytes = self.kv.numel() * self.kv.element_size()
+        if quantized:
+            self._pool_bytes += self.kv_scales.numel() * 4
         # -- slot allocator (page-table rows) --
         self._free = list(range(self.num_slots - 1, -1, -1))  # pop->0,1,..
         self._free_set = set(self._free)           # O(1) double-free check
@@ -533,21 +548,26 @@ class SlotKVCache:
     # -- arena ----------------------------------------------------------------
 
     @property
+    def arena(self):
+        """What the paged functions take: the data tensor for a
+        full-precision pool, the (int8 data, f32 scale plane) pair for an
+        int8 pool. Both are written in place, so nothing is stored back
+        after a dispatch."""
+        if self.kv_scales is not None:
+            return (self.kv, self.kv_scales)
+        return self.kv
+
+    @property
     def kv_dtype(self) -> str:
-        """The arena's storage dtype name ("float32" / "bfloat16") — the
-        string occupancy() reports."""
+        """The arena's storage dtype name ("float32" / "bfloat16" /
+        "int8") — the string occupancy() reports."""
         return str(self.dtype).replace("torch.", "")
 
     @property
-    def kv_scales(self):
-        """The int8 arena's scale plane; None on this full-precision
-        arena (what migration tickets check)."""
-        return None
-
-    @property
     def pool_bytes(self) -> int:
-        """Whole-arena device footprint, constant for the engine's life
-        (every dispatch writes the same tensor in place)."""
+        """Whole-arena device footprint from the storage itemsize, plus
+        the scale plane on an int8 pool; constant for the engine's life
+        (every dispatch writes the same tensors in place)."""
         return self._pool_bytes
 
     @property

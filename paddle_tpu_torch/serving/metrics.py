@@ -9,8 +9,8 @@ first), and engine gauges (active slots, queue depth, shed count).
 
 A copy of `paddle_tpu/serving/metrics.py` (pure Python): the same
 series under the same names, so a scrape reads the port's engine as it
-reads the JAX one (the series of paths not ported yet — speculation,
-adapters — stay at zero).
+reads the JAX one (the adapter families exist only on an engine with an
+adapter pool, as in JAX).
 
 Storage is `paddle_tpu_torch.observability.metrics`: every EngineMetrics
 instance owns labeled series (`engine="<n>"`) under stable names —

@@ -90,12 +90,25 @@ the number of tokens a model pass commits changes. `spec_passes`,
 `spec_proposed`, `spec_accepted` and the per-pass accepted runs
 (`drain_spec_samples`) count live passes only.
 
+QUANTIZED KV (SlotKVCache(kv_dtype="int8")): every paged call takes
+`kv.arena`, the (int8 data, f32 scale plane) pair, and writes both in
+place; swap-out gathers the scale plane's rows with the blocks'
+(`SwappedSequence.scales`) and swap-in scatters both back, the int8
+rows verbatim, never re-quantized.
+
+MULTI-TENANT ADAPTERS (adapters=AdapterPool): a per-slot adapter POOL
+ROW vector rides as the LAST element of the decode carry (row 0 = the
+base identity) and the pool's tensors are passed into every prefill
+and chunk call, read-only (an upload is an indexed copy into the same
+tensors, so the next call reads it). Host records keep the LOGICAL
+adapter id; the row is re-resolved at swap-in. With adapters=None the
+carry and every call are exactly the adapterless ones.
+
 Every device call runs on the stream the scheduler was built on (the
 engine's driver thread need not be the thread that built it, and the
 current stream is thread-local), under `torch.no_grad()`.
 
-Not ported yet (ROADMAP A.1): adapters, quantized serving and the
-tensor-parallel mesh.
+Not ported yet: the tensor-parallel mesh (ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -141,9 +154,10 @@ class _Running:
     reset at admission."""
 
     __slots__ = ("req", "pos", "produced", "max_new", "eos_id",
-                 "live_from", "seq")
+                 "live_from", "seq", "adapter_id")
 
-    def __init__(self, req, pos, max_new, eos_id, live_from, seq=0):
+    def __init__(self, req, pos, max_new, eos_id, live_from, seq=0,
+                 adapter_id=0):
         self.req = req
         self.pos = pos                    # absolute position fed next
         self.produced = 1                 # prefill already sampled one
@@ -151,6 +165,7 @@ class _Running:
         self.eos_id = eos_id
         self.live_from = live_from        # first dispatch carrying tokens
         self.seq = seq                    # admission order
+        self.adapter_id = adapter_id      # LOGICAL adapter id (0 = base)
 
 
 class _Prefill:
@@ -162,10 +177,10 @@ class _Prefill:
 
     __slots__ = ("req", "suffix", "start", "cursor", "p_len", "max_new",
                  "temperature", "seed", "eos_id", "pages", "seq",
-                 "chunk_index", "prev_tok")
+                 "chunk_index", "prev_tok", "adapter_id")
 
     def __init__(self, req, suffix, start, p_len, max_new, temperature,
-                 seed, eos_id, pages, seq, prev_tok):
+                 seed, eos_id, pages, seq, prev_tok, adapter_id=0):
         self.req = req
         self.suffix = suffix              # (suffix_len,) int32 host copy
         self.start = start                # pfx_len at admission
@@ -179,6 +194,7 @@ class _Prefill:
         self.seq = seq                    # admission order
         self.chunk_index = 0              # next chunk's journal index
         self.prev_tok = prev_tok          # prompt[-1], the drafter seed
+        self.adapter_id = adapter_id      # LOGICAL adapter id (0 = base)
 
 
 class SwappedSequence:
@@ -190,8 +206,10 @@ class SwappedSequence:
     dtypes: payload (L, 2, n_blocks, heads, bs, hd) in the arena's
     dtype, token/ts/remaining/eos 0-d int32, temp 0-d float32, key_row
     (2,) uint32, and on a speculating engine `spec` = (prev 0-d int32,
-    drafter table row (T+1,) int32), else None. `scales` (int8 arena)
-    stays None and `adapter_id` 0: those paths are not ported."""
+    drafter table row (T+1,) int32), else None. On an int8 arena
+    `scales` holds the scale-plane rows of the payload's blocks (L, 2,
+    n_blocks, heads, bs) float32, else None; `adapter_id` is the LOGICAL
+    adapter id the sequence decodes under (0 = base)."""
 
     __slots__ = ("req", "pos", "produced", "max_new", "eos_id",
                  "seq", "length", "n_blocks", "payload", "token", "ts",
@@ -405,7 +423,7 @@ class ContinuousBatchingScheduler:
                  top_k: int = 0, decode_chunk: int = 8,
                  overlap: bool = True, speculate_k: int = 0,
                  speculate_ngram: int = 512,
-                 prefill_chunk: Optional[int] = None):
+                 prefill_chunk: Optional[int] = None, adapters=None):
         if int(decode_chunk) < 1:
             raise ValueError(
                 f"decode_chunk must be >= 1, got {decode_chunk}")
@@ -431,6 +449,9 @@ class ContinuousBatchingScheduler:
         # token budget AND the per-dispatch chunk ceiling
         self.prefill_chunk = int(prefill_chunk) \
             if prefill_chunk is not None else None
+        # multi-tenant LoRA pool (serving.adapters.AdapterPool) or None;
+        # its tensors are read at every call, never copied
+        self.adapters = adapters
         self.device = kv.kv.device
         # every device call runs on this stream, whichever thread drives
         # the scheduler (None on the CPU)
@@ -474,6 +495,11 @@ class ContinuousBatchingScheduler:
                 torch.zeros((s_dim,), dtype=torch.int64, device=dev),
                 torch.full((s_dim, self.speculate_ngram + 1), -1,
                            dtype=torch.int64, device=dev))
+        if self.adapters is not None:
+            # per-slot adapter POOL ROW vector, always the last carry
+            # element: row 0 is the base identity
+            self._state += (torch.zeros((s_dim,), dtype=torch.int64,
+                                        device=dev),)
         # device page table: every row scratch until its slot admits
         self._pt = torch.zeros((s_dim, kv.max_pages), dtype=torch.int64,
                                device=dev)
@@ -503,23 +529,27 @@ class ContinuousBatchingScheduler:
 
     # -- families -------------------------------------------------------------
 
-    def _prefill_family(self, tokens, pfx_len, real_len, pages, slot):
+    def _prefill_family(self, tokens, pfx_len, real_len, pages, slot,
+                        adapter_id=0):
         return self._prefill_body(gd.gpt_prefill_pages, tokens, pfx_len,
-                                  real_len, pages, slot)
+                                  real_len, pages, slot, adapter_id)
 
     def _prefill_chunk_family(self, tokens, start_pos, real_len, pages,
-                              slot):
+                              slot, adapter_id=0):
         # per-position math shared with _prefill_family; the page-row
         # install is idempotent across a prompt's chunks
         return self._prefill_body(gd.gpt_prefill_chunk_pages, tokens,
-                                  start_pos, real_len, pages, slot)
+                                  start_pos, real_len, pages, slot,
+                                  adapter_id)
 
-    def _prefill_body(self, prefill, tokens, start, real_len, pages, slot):
+    def _prefill_body(self, prefill, tokens, start, real_len, pages, slot,
+                      adapter_id):
         tokens = torch.as_tensor(tokens, device=self.device)
         pages = torch.as_tensor(pages, dtype=torch.int64,
                                 device=self.device)
         logits, _ = prefill(self.params, self.cfg, tokens, start, real_len,
-                            self.kv.kv, pages)
+                            self.kv.arena, pages,
+                            **self._adapter_args(adapter_id))
         self._pt[slot] = pages
         if self.speculate_k:
             # slot-reuse hygiene: wipe the previous occupant's n-grams
@@ -529,7 +559,7 @@ class ContinuousBatchingScheduler:
         return logits[0]
 
     def _admit_family(self, slot, seed, logits, temp, pos, max_new,
-                      eos_id, prev_tok):
+                      eos_id, prev_tok, adapter_row=0):
         tokens, ts, done, remaining, temps, eos_ids = self._state[:6]
         temps[slot] = temp
         eos_ids[slot] = eos_id
@@ -549,58 +579,71 @@ class ContinuousBatchingScheduler:
             # first drafter context = (last prompt token, first sampled
             # token); the table row was seeded at prefill
             self._state[6][slot] = prev_tok
+        if self.adapters is not None:
+            # from the next chunk on, the slot gathers this pool row
+            self._state[-1][slot] = adapter_row
         return first
 
     def _chunk_family(self):
         """One decode dispatch: the (chunk, S) token block, or in spec
         mode the (chunk, k+1, S) block and its (chunk, S) counts."""
         tokens, ts, done, remaining, temps, eos_ids = self._state[:6]
+        akw, tail = {}, ()
+        if self.adapters is not None:
+            tail = self._state[-1:]
+            akw = {"adapters": self.adapters.pool, "adapter_ids": tail[0]}
         if self.speculate_k:
             (block, counts, tokens, _, ts, self._keys, done, remaining,
              spec) = gd.gpt_decode_chunk_pages(
-                self.params, self.cfg, tokens, self.kv.kv, self._pt, ts,
+                self.params, self.cfg, tokens, self.kv.arena, self._pt, ts,
                 self._keys, temps, done, remaining, eos_ids,
                 self.decode_chunk, sample_fn=self._sample,
                 speculate_k=self.speculate_k,
-                spec_state=self._state[6:8])
+                spec_state=self._state[6:8], **akw)
             self._state = (tokens, ts, done, remaining, temps,
-                           eos_ids) + spec
+                           eos_ids) + spec + tail
             return block, counts
         block, tokens, _, ts, self._keys, done, remaining = \
             gd.gpt_decode_chunk_pages(
-                self.params, self.cfg, tokens, self.kv.kv, self._pt, ts,
+                self.params, self.cfg, tokens, self.kv.arena, self._pt, ts,
                 self._keys, temps, done, remaining, eos_ids,
-                self.decode_chunk, sample_fn=self._sample)
-        self._state = (tokens, ts, done, remaining, temps, eos_ids)
+                self.decode_chunk, sample_fn=self._sample, **akw)
+        self._state = (tokens, ts, done, remaining, temps, eos_ids) + tail
         return block, None
 
     def _swapout_family(self, blocks, slot):
-        # read-only gather of the blocks the slot owns plus its rows of
-        # the decode carry, its key row and its drafter rows; nothing is
-        # written
+        # read-only gather of the blocks the slot owns (and their
+        # scale-plane rows on an int8 arena) plus its rows of the decode
+        # carry, its key row and its drafter rows; nothing is written
         tokens, ts, _done, remaining, temps, eos_ids = self._state[:6]
         idx = torch.as_tensor(blocks, dtype=torch.int64,
                               device=self.device)
         payload = self.kv.kv.index_select(2, idx)
+        scales = None if self.kv.kv_scales is None \
+            else self.kv.kv_scales.index_select(2, idx)
         ints = torch.stack((tokens[slot], ts[slot], remaining[slot],
                             eos_ids[slot], self._keys[slot, 0],
                             self._keys[slot, 1]))
         if self.speculate_k:
             ints = torch.cat((ints, self._state[6][slot:slot + 1],
                               self._state[7][slot]))
-        return payload, ints, temps[slot:slot + 1]
+        return payload, scales, ints, temps[slot:slot + 1]
 
-    def _swapin_family(self, payload, blocks, slot, token, ts_v, rem,
-                       temp, eos, key_row, spec):
-        # scatter the payload back through the adopted page row into the
-        # SAME arena tensor (indexed assignment, never a new arena) and
-        # rebuild the slot's carry rows exactly as saved
+    def _swapin_family(self, payload, scales, blocks, slot, token, ts_v,
+                       rem, temp, eos, key_row, spec, adapter_row):
+        # scatter the payload (and its scale-plane rows, verbatim) back
+        # through the adopted page row into the SAME arena tensors
+        # (indexed assignment, never a new arena) and rebuild the slot's
+        # carry rows exactly as saved
         tokens, ts, done, remaining, temps, eos_ids = self._state[:6]
         n = payload.shape[2]
         idx = torch.as_tensor(blocks[:n], dtype=torch.int64,
                               device=self.device)
         self.kv.kv[:, :, idx] = _from_host(payload, self.kv.kv.dtype,
                                            self.device)
+        if scales is not None:
+            self.kv.kv_scales[:, :, idx] = _from_host(
+                scales, torch.float32, self.device)
         self._pt[slot] = torch.as_tensor(blocks, dtype=torch.int64,
                                          device=self.device)
         self._keys[slot] = torch.as_tensor(
@@ -616,6 +659,8 @@ class ContinuousBatchingScheduler:
             self._state[6][slot] = int(spec[0])
             self._state[7][slot] = torch.as_tensor(
                 np.asarray(spec[1]).astype(np.int64), device=self.device)
+        if self.adapters is not None:
+            self._state[-1][slot] = int(adapter_row)
 
     def _release_family(self, slot):
         # cancel path: the host verdict the device's done mask can't
@@ -695,18 +740,36 @@ class ContinuousBatchingScheduler:
             buf = self._staging[bucket] = np.zeros((1, bucket), np.int64)
         return buf
 
-    def can_admit(self, prompt: np.ndarray, max_new: int) -> bool:
+    def _adapter_args(self, adapter_id: int) -> Dict[str, Any]:
+        """The adapter keywords of a prefill call: the pool's tensors and
+        the sequence's pool ROW with adapters on, none without (so an
+        adapterless call is exactly the pre-adapter one). The row is
+        looked up here, at every call."""
+        if self.adapters is None:
+            if adapter_id:
+                raise ValueError(
+                    f"adapter_id {adapter_id} on an engine with no "
+                    "adapter pool (ServingConfig(max_adapters=...))")
+            return {}
+        return {"adapters": self.adapters.pool,
+                "adapter_id": self.adapters.row_of(adapter_id)}
+
+    def can_admit(self, prompt: np.ndarray, max_new: int,
+                  adapter_id: int = 0) -> bool:
         """True when admit() would succeed RIGHT NOW: a page-table row
         is free and the arena can supply the pages the request needs
-        (prefix-cache hits counted, LRU blocks evictable)."""
+        (prefix-cache hits counted, LRU blocks evictable; the adapter id
+        salts the prefix digests)."""
         if self.kv.free_count < 1:
             return False
         prompt = np.asarray(prompt, np.int32).reshape(-1)
-        return self.kv.can_map(prompt, prompt.size + int(max_new))
+        return self.kv.can_map(prompt, prompt.size + int(max_new),
+                               adapter_id=adapter_id)
 
     def admit(self, req, prompt: np.ndarray, max_new: int,
               temperature: float = 0.0, seed: int = 0,
-              eos_id: Optional[int] = None) -> Optional[SequenceEvent]:
+              eos_id: Optional[int] = None,
+              adapter_id: int = 0) -> Optional[SequenceEvent]:
         """Claim a slot, map the pages the request needs (hash-hit
         prefix blocks shared in, refcounted), prefill the prompt SUFFIX
         into the fresh blocks (padded to its shape bucket), sample the
@@ -726,7 +789,8 @@ class ContinuousBatchingScheduler:
         prompt = np.asarray(prompt, np.int32).reshape(1, -1)
         p_len = prompt.shape[1]
         mapped = self.kv.map_slot(slot, prompt[0], p_len + int(max_new),
-                                  register=self.prefill_chunk is None)
+                                  register=self.prefill_chunk is None,
+                                  adapter_id=adapter_id)
         if mapped is None:
             self.kv.free(slot)           # page shortage: slot untouched
             return None
@@ -736,7 +800,7 @@ class ContinuousBatchingScheduler:
                 req, np.ascontiguousarray(prompt[0, pfx_len:]),
                 int(pfx_len), p_len, int(max_new), float(temperature),
                 int(seed), eos_id, pages, self._admit_counter,
-                int(prompt[0, -1]))
+                int(prompt[0, -1]), adapter_id=adapter_id)
             self._admit_counter += 1
             return PREFILL_PENDING
         suffix_len = p_len - pfx_len
@@ -751,10 +815,11 @@ class ContinuousBatchingScheduler:
                                                      None)):
             logits = self._call(
                 f"prefill:L{bucket}", self._prefill_family,
-                padded, int(pfx_len), suffix_len, pages, slot)
+                padded, int(pfx_len), suffix_len, pages, slot, adapter_id)
         event = self._sample_first(
             slot, req, logits, p_len, max_new, temperature, seed,
-            eos_id, int(prompt[0, -1]), self._admit_counter)
+            eos_id, int(prompt[0, -1]), self._admit_counter,
+            adapter_id=adapter_id)
         self._admit_counter += 1
         rlog = _request_log.get_request_log()
         if rlog is not None:
@@ -766,17 +831,20 @@ class ContinuousBatchingScheduler:
 
     def _sample_first(self, slot, req, logits, p_len, max_new,
                       temperature, seed, eos_id, prev_tok,
-                      seq) -> SequenceEvent:
+                      seq, adapter_id=0) -> SequenceEvent:
         """Sample the first token from last-position prefill logits and
         promote the slot to _running — the shared tail of monolithic
         admit() and the final prefill chunk."""
+        row = 0 if self.adapters is None \
+            else self.adapters.row_of(adapter_id)
         first = self._call(
             "admit_sample", self._admit_family, slot, int(seed), logits,
             float(temperature), int(p_len), int(max_new),
-            -1 if eos_id is None else int(eos_id), int(prev_tok))
+            -1 if eos_id is None else int(eos_id), int(prev_tok), row)
         first = int(first)
         st = _Running(req, pos=p_len, max_new=max_new, eos_id=eos_id,
-                      live_from=self._launches, seq=seq)
+                      live_from=self._launches, seq=seq,
+                      adapter_id=adapter_id)
         finished = (st.produced >= max_new
                     or (eos_id is not None and first == eos_id))
         if finished:
@@ -828,7 +896,7 @@ class ContinuousBatchingScheduler:
                                                      "request_id", None)):
             logits = self._call(
                 f"prefill_chunk:L{bucket}", self._prefill_chunk_family,
-                padded, start, n, pf.pages, slot)
+                padded, start, n, pf.pages, slot, pf.adapter_id)
         pf.cursor += n
         # publish this prompt's full blocks whose fill is now queued
         self.kv.register_prefix(slot, pf.start + pf.cursor)
@@ -848,7 +916,8 @@ class ContinuousBatchingScheduler:
         del self._prefilling[slot]
         return self._sample_first(
             slot, pf.req, logits, pf.p_len, pf.max_new, pf.temperature,
-            pf.seed, pf.eos_id, pf.prev_tok, pf.seq)
+            pf.seed, pf.eos_id, pf.prev_tok, pf.seq,
+            adapter_id=pf.adapter_id)
 
     def step(self) -> List[SequenceEvent]:
         """One pipeline tick: launch the next chunk dispatch over the
@@ -1098,10 +1167,12 @@ class ContinuousBatchingScheduler:
         st = self._running.pop(slot)
         n_blocks = self.kv.mapped_block_count(slot)
         blocks = self.kv.page_table[slot, :n_blocks].copy()
-        payload, ints, temp = self._call(
+        payload, scales, ints, temp = self._call(
             "swap_out", self._swapout_family, blocks, slot)
         with _on_stream(self._stream):
             payload = _to_host(payload, self._stream)
+            if scales is not None:
+                scales = _to_host(scales, self._stream)
             ints = ints.cpu().numpy()
             temp = temp.cpu().numpy()
         key_row = ints[4:6]
@@ -1118,7 +1189,8 @@ class ContinuousBatchingScheduler:
             self.kv.length(slot), n_blocks, payload,
             np.asarray(ints[0], np.int32), np.asarray(ints[1], np.int32),
             np.asarray(ints[2], np.int32), np.asarray(temp[0], np.float32),
-            np.asarray(ints[3], np.int32), key_row.astype(np.uint32), spec)
+            np.asarray(ints[3], np.int32), key_row.astype(np.uint32), spec,
+            scales=scales, adapter_id=st.adapter_id)
         self._call("release_slot", self._release_family, slot)
         self.kv.free(slot)
         if journal:
@@ -1152,12 +1224,17 @@ class ContinuousBatchingScheduler:
         slot = self.kv.alloc()
         assert slot is not None          # free_count held, same thread
         row = self.kv.adopt_blocks(slot, sw.n_blocks, sw.length)
-        self._call("swap_in", self._swapin_family, sw.payload, row,
-                   slot, sw.token, sw.ts, sw.remaining, sw.temp, sw.eos,
-                   sw.key_row, sw.spec)
+        aid = getattr(sw, "adapter_id", 0)
+        # the pool ROW is looked up at resume (the engine holds the id's
+        # refcount across the park, so the row is still the adapter's)
+        adapter_row = 0 if self.adapters is None \
+            else self.adapters.row_of(aid)
+        self._call("swap_in", self._swapin_family, sw.payload, sw.scales,
+                   row, slot, sw.token, sw.ts, sw.remaining, sw.temp,
+                   sw.eos, sw.key_row, sw.spec, adapter_row)
         st = _Running(sw.req, pos=sw.pos, max_new=sw.max_new,
                       eos_id=sw.eos_id, live_from=self._launches,
-                      seq=sw.seq)
+                      seq=sw.seq, adapter_id=aid)
         st.produced = sw.produced
         self._running[slot] = st
         rlog = _request_log.get_request_log()

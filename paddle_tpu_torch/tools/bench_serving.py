@@ -11,6 +11,8 @@ names and registry-sourced columns) over `paddle_tpu_torch.serving` and
     python3 -m paddle_tpu_torch.tools.bench_serving tiny --oversubscribe
     python3 -m paddle_tpu_torch.tools.bench_serving tiny --shared-prefix
     python3 -m paddle_tpu_torch.tools.bench_serving tiny --speculate 0 4
+    python3 -m paddle_tpu_torch.tools.bench_serving tiny --quantize
+    python3 -m paddle_tpu_torch.tools.bench_serving tiny --adapters 3
     python3 -m paddle_tpu_torch.tools.bench_serving tiny --device cpu
 
 Each library row carries the dispatch amortization columns read back
@@ -27,12 +29,20 @@ with host-swap preemption on (`preemptions`, `swap_ins`, `swap_in_ms`,
 `swap_out_ms`); `--shared-prefix` compares the prefix cache off and
 on; `--speculate K...` runs a repetitive-text mix once a speculate_k
 (`spec_accept_rate`, `accepted_per_pass`, `dispatches_per_token`).
+`--quantize` serves one greedy mix at fp32, int8 weights and int8
+weights + int8 KV (`weight_bytes`, `pool_bytes`, `tokens_per_s_per_gb`,
+the teacher-forced `greedy_token_agreement` and `max_logit_delta` of
+`quantized_logit_delta`, `stream_agreement`), each quantized mode's
+streams asserted identical on a second fresh engine; `--adapters N`
+serves the mix through 1 and then N co-batched LoRA adapters (the
+registry's `adapters_resident` / `adapter_pool_bytes` /
+`adapter_uploads` / `adapter_evictions`), streams asserted identical on
+a second fresh engine and, for N, on a dedicated engine an adapter.
 `--debug-port N` serves the live diagnostics plane meanwhile.
 
-The workloads of engine knobs the port lacks raise as the engine does:
-`--mesh` (ROADMAP A.8), `--quantize` (A.1.4), `--adapters` (A.1.5).
-`--mixed` and `--rebalance` are not ported to this tool yet (ROADMAP
-A.2) and raise too.
+The workload of the engine knob the port lacks raises as the engine
+does: `--mesh` (ROADMAP A.8). `--mixed` and `--rebalance` are not
+ported to this tool yet (ROADMAP A.2) and raise too.
 """
 
 import argparse
@@ -55,9 +65,7 @@ MODELS = {
 }
 
 # the workloads whose engine knobs the port lacks, and their ROADMAP items
-_NOT_PORTED = {"--mesh": "A.8",
-               "--quantize": "A.1.4", "--adapters": "A.1.5",
-               "--mixed": "A.2", "--rebalance": "A.2"}
+_NOT_PORTED = {"--mesh": "A.8", "--mixed": "A.2", "--rebalance": "A.2"}
 
 
 def build_params(gpt_kwargs, device="cuda"):
@@ -486,16 +494,8 @@ def run_speculate(name, speculate_ks=(0, 4), requests=None,
         # warm every family (random prompts: the large bucket cannot
         # shrink into a prefix-cache hit), then drop the warm-up's
         # registry rows and counters
-        wrng = np.random.RandomState(12345)
-        eng.generate([wrng.randint(0, cfg.vocab_size, (max(1, b - 2),))
-                      .astype(np.int32) for b in buckets],
-                     max_new_tokens=2)
-        old = eng.metrics
-        old.unregister()
-        eng.metrics = pt.serving.EngineMetrics(
-            max_tokens_per_dispatch=old.max_tokens_per_dispatch,
-            speculate_k=old.speculate_k)
-        eng.kv.prefix_hits = eng.kv.prefix_misses = 0
+        _warm(eng, cfg, buckets)
+        _fresh_metrics(pt, eng)
         eng.scheduler.spec_proposed = eng.scheduler.spec_accepted = 0
         eng.scheduler.spec_passes = 0
         eng.scheduler.drain_spec_samples()
@@ -540,6 +540,342 @@ def run_speculate(name, speculate_ks=(0, 4), requests=None,
             },
         })
         eng.close()
+    return rows
+
+
+# quantize workload geometry per model: (prefill buckets, prompt
+# length, max_new, per-engine slots). Only the quantization mode varies
+# across rows, so tokens_per_s_per_gb is comparable and the fp32 row is
+# the accuracy reference.
+QUANTIZE = {
+    "tiny": ((8, 16), 12, 32, 4),
+    "gpt2": ((32, 64), 48, 32, 4),
+}
+
+# the --quantize sweep's modes: row suffix -> (weight_dtype, kv_dtype)
+QUANTIZE_MODES = (
+    ("fp32", None, None),
+    ("int8w", "int8", None),
+    ("int8w_int8kv", "int8", "int8"),
+)
+
+
+def _quant_probe(cfg, pp, prompt, steps, kv_dtype, drive=None):
+    """One single-sequence pass through the paged prefill + decode
+    functions on a fresh arena of `kv_dtype` on the params' device:
+    self-driven greedy when `drive` is None, teacher-forced with
+    `drive`'s tokens otherwise. Returns (logits (steps, V) numpy, greedy
+    tokens)."""
+    import torch
+    from paddle_tpu_torch.models import gpt_decode as gd
+
+    prompt = np.asarray(prompt, np.int32).reshape(-1)
+    dev = pp["wte"].device
+    bs = 8
+    P = -(-(prompt.size + steps) // bs)
+    heads, hd = cfg.heads, cfg.hidden // cfg.heads
+    shape = (cfg.layers, 2, P + 1, heads, bs, hd)
+    arena = torch.zeros(shape, dtype=torch.float32, device=dev) \
+        if kv_dtype is None else (
+            torch.zeros(shape, dtype=torch.int8, device=dev),
+            torch.zeros(shape[:-1], dtype=torch.float32, device=dev))
+    pages = torch.arange(1, P + 1, device=dev)
+    with torch.no_grad():
+        logits, arena = gd.gpt_prefill_pages(
+            pp, cfg, prompt[None], 0, prompt.size, arena, pages)
+        out_logits = [logits[0].cpu().numpy()]
+        toks = []
+        tok = int(np.argmax(out_logits[-1]))
+        for i in range(steps - 1):
+            toks.append(tok)
+            feed = drive[i] if drive is not None else tok
+            logits, arena = gd.gpt_decode_step_pages(
+                pp, cfg, [feed], arena, pages[None], [prompt.size + i])
+            out_logits.append(logits[0].cpu().numpy())
+            tok = int(np.argmax(out_logits[-1]))
+    toks.append(tok)
+    return np.stack(out_logits), toks
+
+
+def quantized_logit_delta(cfg, params, qparams, prompt, steps,
+                          kv_dtype=None, ref=None):
+    """Per-token logit-delta probe: ONE sequence through the paged
+    prefill + decode functions twice — fp32 params on an fp32 arena
+    (greedy, self-driven) and `qparams` on a `kv_dtype` arena
+    TEACHER-FORCED with the fp32 trajectory's tokens — returning (max
+    |logit delta| over every decode position, greedy agreement fraction
+    along that trajectory). Conditioned on the same context at every
+    position, so it measures what quantization does to the functions,
+    not error compounding through a diverged prefix. `ref` (the fp32
+    probe's (logits, tokens)) may be computed once and shared across
+    modes."""
+    if ref is None:
+        ref = _quant_probe(cfg, params, prompt, steps, None)
+    ref_logits, ref_toks = ref
+    q_logits, q_toks = _quant_probe(cfg, qparams, prompt, steps,
+                                    kv_dtype, drive=ref_toks)
+    delta = float(np.max(np.abs(ref_logits - q_logits)))
+    agree = float(np.mean([a == b for a, b in zip(ref_toks, q_toks)]))
+    return delta, agree
+
+
+def _fresh_metrics(pt, eng, adapters=False):
+    """Drop the warm-up's registry rows: a new EngineMetrics of the same
+    layout, and the allocator's cache counters reset."""
+    old = eng.metrics
+    old.unregister()
+    eng.metrics = pt.serving.EngineMetrics(
+        max_tokens_per_dispatch=old.max_tokens_per_dispatch,
+        speculate_k=old.speculate_k, adapters=adapters)
+    if adapters:
+        eng._sync_adapter_metrics()
+    eng.kv.prefix_hits = eng.kv.prefix_misses = 0
+
+
+def _warm(eng, cfg, buckets):
+    """One request a prefill bucket (random prompts: no later request
+    hits their blocks)."""
+    wrng = np.random.RandomState(12345)
+    eng.generate([wrng.randint(0, cfg.vocab_size, (max(1, b - 2),))
+                  .astype(np.int32) for b in buckets], max_new_tokens=2)
+
+
+def run_quantize(name, requests=None, max_new=None, decode_chunk=8,
+                 device="cuda"):
+    """The --quantize sweep: the same greedy mix on fresh engines at
+    each quantization mode (fp32, int8 weights, int8 weights + int8 KV),
+    buckets warmed, one row a mode with `weight_dtype`/`kv_dtype`,
+    `weight_bytes`, `pool_bytes`, `tokens_per_s_per_gb` (tokens/s over
+    the arena's bytes), `greedy_token_agreement` and `max_logit_delta`
+    (quantized_logit_delta, teacher-forced along the fp32 greedy
+    trajectory over four probe prompts) and `stream_agreement` (the
+    free-running streams position by position against the fp32 row's:
+    one near-tie flip early in a stream moves every later position, so
+    this is informational). Before any row prints, each quantized mode
+    runs again on a second fresh engine and its streams are asserted
+    identical."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import gpt_decode as gd
+
+    gpt_kwargs, _, _, _ = MODELS[name]
+    buckets, prompt_len, row_max_new, slots = QUANTIZE[name]
+    max_new = max_new or row_max_new
+    requests = requests or int(
+        os.environ.get("BENCH_SERVING_REQUESTS", "16"))
+    cfg, params = build_params(gpt_kwargs, device)
+    max_len = prompt_len + max_new
+    probe_rng = np.random.RandomState(7)
+    probe_prompts = [probe_rng.randint(0, cfg.vocab_size, (prompt_len,))
+                     for _ in range(4)]
+    probe_refs = None                    # fp32 trajectories, shared
+
+    def run_mix(weight_dtype, kv_dtype):
+        rng = np.random.RandomState(0)        # same mix a mode
+        eng = pt.serving.ServingEngine(
+            params, cfg,
+            pt.serving.ServingConfig(
+                num_slots=slots, max_queue=requests,
+                prefill_buckets=buckets, max_len=max_len,
+                decode_chunk=decode_chunk,
+                weight_dtype=weight_dtype, kv_dtype=kv_dtype))
+        prompts = [rng.randint(0, cfg.vocab_size, (prompt_len,))
+                   .astype(np.int32) for _ in range(requests)]
+        _warm(eng, cfg, buckets)
+        _fresh_metrics(pt, eng)
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+        eng.run_until_drained()
+        dt = time.perf_counter() - t0
+        s = eng.stats()
+        dispatches = _registry_counter(s["engine_label"],
+                                       "serving_dispatches_total")
+        eng.close()
+        return [tuple(r.tokens) for r in reqs], s, dt, dispatches
+
+    rows, base_streams = [], None
+    for suffix, weight_dtype, kv_dtype in QUANTIZE_MODES:
+        streams, s, dt, dispatches = run_mix(weight_dtype, kv_dtype)
+        if weight_dtype is None and kv_dtype is None:
+            base_streams = streams
+            agreement, delta, stream_agreement = 1.0, 0.0, 1.0
+        else:
+            # determinism, asserted before the row prints: a second
+            # fresh engine at the same mode gives the same streams
+            streams2, _, _, _ = run_mix(weight_dtype, kv_dtype)
+            assert streams == streams2, (
+                f"quantized mode {suffix} streams are not "
+                "deterministic across fresh engines")
+            pairs = [(a, b) for qs, rs in zip(streams, base_streams)
+                     for a, b in zip(qs, rs)]
+            stream_agreement = round(
+                sum(a == b for a, b in pairs) / len(pairs), 4) \
+                if pairs else None
+            qparams = gd.quantize_params(params, cfg) \
+                if weight_dtype == "int8" else params
+            if probe_refs is None:
+                probe_refs = [_quant_probe(cfg, params, pp, max_new,
+                                           None)
+                              for pp in probe_prompts]
+            probes = [quantized_logit_delta(
+                cfg, params, qparams, pp, max_new, kv_dtype=kv_dtype,
+                ref=ref)
+                for pp, ref in zip(probe_prompts, probe_refs)]
+            delta = round(max(d for d, _ in probes), 5)
+            agreement = round(
+                sum(a for _, a in probes) / len(probes), 4)
+        tokens = sum(len(st) for st in streams)
+        rows.append({
+            "metric": f"{name}_serving_quant_{suffix}",
+            "value": round(tokens / dt, 2),
+            "unit": "tokens/s",
+            "vs_baseline": None,
+            "extra": {
+                "requests": requests,
+                "completed": s["completed"],
+                "max_new": max_new,
+                "num_slots": slots,
+                "decode_chunk": decode_chunk,
+                "weight_dtype": s["weight_dtype"],
+                "kv_dtype": s["kv_dtype"],
+                "weight_bytes": s["weight_bytes"],
+                "pool_bytes": s["pool_bytes"],
+                # tokens/s a GB of KV arena resident (pool_bytes is
+                # dtype-aware: int8 data + the scale plane)
+                "tokens_per_s_per_gb": round(
+                    (tokens / dt) / (s["pool_bytes"] / 2 ** 30), 2),
+                "greedy_token_agreement": agreement,
+                "max_logit_delta": delta,
+                "stream_agreement": stream_agreement,
+                "streams_deterministic": True,   # asserted above
+                "dispatches": dispatches,
+                "tokens_per_dispatch": round(tokens / dispatches, 2)
+                    if dispatches else None,
+                "mean_ttft_ms": round(s["mean_ttft"] * 1e3, 2)
+                    if s["mean_ttft"] is not None else None,
+                "mean_tpot_ms": round(s["mean_tpot"] * 1e3, 3)
+                    if s["mean_tpot"] is not None else None,
+                "compiled_executables": s["compiled_executables"],
+            },
+        })
+    return rows
+
+
+def run_adapters(name, n_adapters=None, requests=None, max_new=None,
+                 decode_chunk=8, adapter_rank=4, device="cuda"):
+    """The --adapters sweep: the same greedy mix on fresh engines
+    serving ONE LoRA adapter, then N distinct adapters co-batched
+    (requests round-robin over the ids), one row a pool population with
+    the registry-sourced pool columns (the serving_adapter* families)
+    beside tokens/s. Before any row prints: determinism (a second fresh
+    engine at the same population gives the same streams) and, for N,
+    isolation (each request's stream equals a dedicated fresh engine
+    holding only its adapter) are asserted."""
+    import paddle_tpu_torch as pt
+
+    gpt_kwargs, _, _, _ = MODELS[name]
+    buckets, prompt_len, row_max_new, slots = QUANTIZE[name]
+    max_new = max_new or row_max_new
+    n_adapters = n_adapters or 3
+    requests = requests or int(
+        os.environ.get("BENCH_SERVING_REQUESTS", "16"))
+    cfg, params = build_params(gpt_kwargs, device)
+    max_len = prompt_len + max_new
+    # one prompt mix for every row and engine; what varies is the
+    # adapter each request decodes through
+    mix_rng = np.random.RandomState(0)
+    prompts = [mix_rng.randint(0, cfg.vocab_size, (prompt_len,))
+               .astype(np.int32) for _ in range(requests)]
+
+    def engine(upload_ids, n_requests):
+        eng = pt.serving.ServingEngine(
+            params, cfg,
+            pt.serving.ServingConfig(
+                num_slots=slots, max_queue=n_requests,
+                prefill_buckets=buckets, max_len=max_len,
+                decode_chunk=decode_chunk,
+                max_adapters=n_adapters + 1,
+                adapter_rank=adapter_rank))
+        for aid in upload_ids:
+            eng.upload_adapter(
+                aid, pt.serving.make_adapter(cfg, adapter_rank, seed=aid))
+        return eng
+
+    def run_mix(adapter_ids, upload_ids):
+        eng = engine(upload_ids, requests)
+        _warm(eng, cfg, buckets)
+        _fresh_metrics(pt, eng, adapters=True)
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new_tokens=max_new, adapter_id=aid)
+                for p, aid in zip(prompts, adapter_ids)]
+        eng.run_until_drained()
+        dt = time.perf_counter() - t0
+        s = eng.stats()
+        label = s["engine_label"]
+        reg = {col: _registry_counter(label, family) for col, family in
+               (("dispatches", "serving_dispatches_total"),
+                ("adapters_resident", "serving_adapters_resident"),
+                ("adapter_pool_bytes", "serving_adapter_pool_bytes"),
+                ("adapter_uploads", "serving_adapter_uploads_total"),
+                ("adapter_evictions",
+                 "serving_adapter_evictions_total"))}
+        eng.close()
+        return [tuple(r.tokens) for r in reqs], s, dt, reg
+
+    all_ids = list(range(1, n_adapters + 1))
+    rows = []
+    for n_pop in sorted({1, n_adapters}):
+        ids = all_ids[:n_pop]
+        adapter_ids = [ids[i % len(ids)] for i in range(requests)]
+        streams, s, dt, reg = run_mix(adapter_ids, ids)
+        streams2, _, _, _ = run_mix(adapter_ids, ids)
+        assert streams == streams2, (
+            f"{n_pop}-adapter streams are not deterministic across "
+            "fresh engines")
+        if n_pop > 1:
+            # isolation: each co-batched request against a dedicated
+            # engine holding only its adapter
+            for aid in ids:
+                picks = [i for i, a in enumerate(adapter_ids) if a == aid]
+                solo = engine([aid], len(picks))
+                reqs = [solo.submit(prompts[i], max_new_tokens=max_new,
+                                    adapter_id=aid) for i in picks]
+                solo.run_until_drained()
+                solo.close()
+                assert [tuple(r.tokens) for r in reqs] \
+                    == [streams[i] for i in picks], (
+                    f"adapter {aid}: co-batched streams differ from a "
+                    "dedicated single-adapter engine")
+        tokens = sum(len(st) for st in streams)
+        rows.append({
+            "metric": f"{name}_serving_adapters_{n_pop}",
+            "value": round(tokens / dt, 2),
+            "unit": "tokens/s",
+            "vs_baseline": None,
+            "extra": {
+                "requests": requests,
+                "completed": s["completed"],
+                "max_new": max_new,
+                "num_slots": slots,
+                "decode_chunk": decode_chunk,
+                "n_adapters": n_pop,
+                "adapter_rank": adapter_rank,
+                "adapters_resident": reg["adapters_resident"],
+                "adapter_pool_bytes": reg["adapter_pool_bytes"],
+                "adapter_uploads": reg["adapter_uploads"],
+                "adapter_evictions": reg["adapter_evictions"],
+                "streams_deterministic": True,    # asserted above
+                "streams_isolated": n_pop > 1,    # asserted above
+                "dispatches": reg["dispatches"],
+                "tokens_per_dispatch": round(
+                    tokens / reg["dispatches"], 2)
+                    if reg["dispatches"] else None,
+                "mean_ttft_ms": round(s["mean_ttft"] * 1e3, 2)
+                    if s["mean_ttft"] is not None else None,
+                "mean_tpot_ms": round(s["mean_tpot"] * 1e3, 3)
+                    if s["mean_tpot"] is not None else None,
+                "compiled_executables": s["compiled_executables"],
+            },
+        })
     return rows
 
 
@@ -839,11 +1175,23 @@ def main(argv=None):
                          "registry-sourced accepted_per_pass / "
                          "spec_accept_rate columns; streams are "
                          "bit-identical at every K")
+    ap.add_argument("--quantize", action="store_true",
+                    help="run the quantized-serving sweep instead: the "
+                         "same greedy mix on fresh engines at fp32, "
+                         "int8 weights, and int8 weights + int8 KV — "
+                         "one row a mode with weight/KV bytes, "
+                         "tokens_per_s_per_gb, greedy_token_agreement "
+                         "and max_logit_delta; every quantized row's "
+                         "streams asserted deterministic first")
+    ap.add_argument("--adapters", type=int, default=None, metavar="N",
+                    help="run the multi-tenant adapter sweep instead: "
+                         "the same greedy mix with 1 vs N LoRA adapters "
+                         "resident, one row a population with the "
+                         "registry's pool columns; streams asserted "
+                         "deterministic and isolated first")
     ap.add_argument("--mesh", type=int, nargs="+", default=None,
                     help="not ported (ROADMAP A.8)")
-    ap.add_argument("--adapters", type=int, default=None,
-                    help="not ported (ROADMAP A.1.5)")
-    for flag in ("--quantize", "--mixed", "--rebalance"):
+    for flag in ("--mixed", "--rebalance"):
         ap.add_argument(flag, action="store_true",
                         help=f"not ported (ROADMAP {_NOT_PORTED[flag]})")
     ap.add_argument("--json", metavar="OUT", default=None,
@@ -864,10 +1212,14 @@ def main(argv=None):
             raise NotImplementedError(
                 f"bench_serving {flag} is not ported to paddle_tpu_torch "
                 f"yet (ROADMAP {item})")
+    if args.adapters is not None and args.adapters < 1:
+        ap.error(f"--adapters must be >= 1, got {args.adapters}")
     replacing = [f for f, on in (("--shared-prefix", args.shared_prefix),
                                  ("--oversubscribe", args.oversubscribe),
                                  ("--speculate",
-                                  args.speculate is not None))
+                                  args.speculate is not None),
+                                 ("--quantize", args.quantize),
+                                 ("--adapters", args.adapters is not None))
                  if on]
     if len(replacing) > 1:
         ap.error(f"{replacing[0]} replaces the standard workload; "
@@ -894,6 +1246,11 @@ def main(argv=None):
                 rows = run_speculate(name,
                                      speculate_ks=tuple(args.speculate),
                                      device=args.device)
+            elif args.quantize:
+                rows = run_quantize(name, device=args.device)
+            elif args.adapters is not None:
+                rows = run_adapters(name, n_adapters=args.adapters,
+                                    device=args.device)
             else:
                 rows = run_model(name,
                                  decode_chunks=tuple(args.decode_chunk),

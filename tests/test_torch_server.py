@@ -1118,19 +1118,62 @@ def test_create_engine_debug_port_serves_tickz_and_compilez(trained,
     assert dbg.get_debug_server() is None
 
 
-def test_adapter_bindings_raise_not_ported(trained):
-    """The router's adapter branch names its ROADMAP item; an explicit
-    adapter id on an adapterless engine is the engine's 400."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A.1.5"):
-        Router([make_engine(trained)],
-               adapters={"acme": AdapterConfig(3)})
-    router = Router([make_engine(trained)],
-                    adapters={"base": AdapterConfig(0)})
+def test_adapter_bindings_route_to_the_pool(trained):
+    """A tenant bound to adapter 3 decodes under it (the stream of an
+    engine asked for adapter 3 directly); an explicit adapter_id,
+    0 included, overrides the binding; an unbound tenant gets the base
+    model; /v1/generate's adapter_id reaches the pool and /healthz's row
+    carries kv_dtype, weight_bytes and adapters_resident; an explicit id
+    on an adapterless engine is the engine's 400."""
+    cfg, params = trained
+    prompt = np.asarray([1, 2, 3], np.int32)
+
+    def pool_engine(**kw):
+        eng = ServingEngine(params, cfg, ServingConfig(
+            num_slots=2, prefill_buckets=(4, 8), max_len=32,
+            max_adapters=4, adapter_rank=2, **kw))
+        eng.upload_adapter(3, ptt.serving.make_adapter(cfg, 2, 3))
+        return eng
+
+    direct = pool_engine()
+    want = {aid: direct.generate([prompt], 6, adapter_id=aid)[0]
+            [prompt.size:].tolist() for aid in (0, 3)}
+    direct.close()
+    assert want[0] != want[3]
+    router = Router([pool_engine()], adapters={"acme": AdapterConfig(3)},
+                    default_adapter=AdapterConfig(0))
+    router.start()
     try:
-        with pytest.raises(ValueError, match="no adapter pool"):
-            router.submit([1, 2, 3], 2, adapter_id=2)
+        for kw, aid in (({"tenant": "acme"}, 3),
+                        ({"tenant": "acme", "adapter_id": 0}, 0),
+                        ({"tenant": "other"}, 0),
+                        ({"tenant": "other", "adapter_id": 3}, 3)):
+            tokens, _ = router.submit(prompt, 6, **kw).result(timeout=60)
+            assert tokens == want[aid], kw
     finally:
         router.close(drain=False)
+    srv = GenerationServer([pool_engine(kv_dtype="int8")], ServerConfig())
+    srv.serve()
+    try:
+        status, _, tokens, _ = sse_generate(
+            srv.port, {"prompt": prompt.tolist(), "max_new_tokens": 6,
+                       "adapter_id": 3})
+        assert status == 200 and len(tokens) == 6
+        _, body = _get_json(srv.port, "/healthz", expect=200)
+        rep = body["replicas"][0]
+        assert rep["adapters_resident"] == 1
+        assert rep["kv_dtype"] == "int8"
+        assert rep["weight_bytes"] == srv.router.replicas[0].engine \
+            .weight_bytes
+    finally:
+        srv.shutdown()
+    plain = Router([make_engine(trained)],
+                   adapters={"base": AdapterConfig(0)})
+    try:
+        with pytest.raises(ValueError, match="no adapter pool"):
+            plain.submit([1, 2, 3], 2, adapter_id=2)
+    finally:
+        plain.close(drain=False)
 
 
 _SERVER_MODULES = ("server/__init__.py", "server/router.py",
@@ -1141,7 +1184,8 @@ _SERVER_MODULES = ("server/__init__.py", "server/router.py",
                    "observability/train_stats.py",
                    "tools/bench_serving.py", "models/gpt_decode.py",
                    "serving/__init__.py", "serving/engine.py",
-                   "serving/scheduler.py", "inference/__init__.py")
+                   "serving/scheduler.py", "serving/adapters.py",
+                   "serving/kv_cache.py", "inference/__init__.py")
 
 
 def test_server_modules_import_neither_jax_nor_paddle_tpu():
@@ -1159,12 +1203,12 @@ def test_server_modules_import_neither_jax_nor_paddle_tpu():
                     f"{rel} imports {n}"
 
 
-@pytest.mark.parametrize("flag,item", [("--quantize", "A.1.4"),
+@pytest.mark.parametrize("flag,item", [("--mesh 2", "A.8"),
                                        ("--mixed", "A.2")])
 def test_bench_serving_unported_workloads_raise(flag, item):
     from paddle_tpu_torch.tools import bench_serving
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        bench_serving.main(["tiny", "--device", "cpu", flag])
+        bench_serving.main(["tiny", "--device", "cpu"] + flag.split())
 
 
 def test_bench_serving_oversubscribe_and_http_rows():

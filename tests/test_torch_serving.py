@@ -14,9 +14,11 @@ and block size, must emit them token for token:
     EngineOverloadError's fields; EOS mid-chunk and cancel (queued,
     running, mid-chunk) retire at the right token;
   * the family count bounded by the buckets; the arena written in place;
-  * every knob of a later slice raises NotImplementedError naming its
-    ROADMAP item; speculate_k/speculate_ngram, preempt=True and
-    create_engine(debug_port=0) serve;
+  * mesh_shape raises NotImplementedError naming its ROADMAP item;
+    weight_dtype/kv_dtype, max_adapters/adapter_rank, create_engine(
+    dtype=), speculate_k/speculate_ngram, preempt=True and
+    create_engine(debug_port=0) serve (tests/test_torch_serving_quant.py
+    and tests/test_torch_serving_adapters.py hold the first two to JAX);
     create_engine serves a saved model with disable_gpu() and raises on
     a GPU config without a GPU;
   * the new modules import neither jax nor paddle_tpu.
@@ -402,14 +404,31 @@ def test_tick_profile_and_dispatch_timing(world):
 # -- knobs out of this slice ---------------------------------------------------
 
 @pytest.mark.parametrize("knob,item", [
-    ({"weight_dtype": "int8"}, "A.1.4"),
-    ({"kv_dtype": "int8"}, "A.1.4"),
-    ({"max_adapters": 4, "adapter_rank": 2}, "A.1.5"),
     ({"mesh_shape": (2,)}, "A.8"),
 ])
 def test_knobs_out_of_this_slice_raise(knob, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         ServingConfig(**knob)
+
+
+@pytest.mark.parametrize("knob", [
+    {"weight_dtype": "int8"},
+    {"kv_dtype": "int8"},
+    {"max_adapters": 4, "adapter_rank": 2},
+])
+def test_quant_and_adapter_knobs_serve(world, knob):
+    """The knobs of A.1.4 and A.1.5 build and serve: every request
+    finishes its budget, the stats report the served dtypes and the
+    pool, and the drain leaks nothing."""
+    eng = make_engine(world, top_k=TOP_K, **knob)
+    outs = eng.generate(P3, 6)
+    assert [o.size for o in outs] == [p.size + 6 for p in P3]
+    s = eng.stats()
+    assert s["weight_dtype"] == knob.get("weight_dtype", "float32")
+    assert s["kv_dtype"] == knob.get("kv_dtype", "float32")
+    assert (s.get("max_adapters") == 4) == ("max_adapters" in knob)
+    assert s["completed"] == 3 and s["blocks_used"] == 0
+    eng.close()
 
 
 @pytest.mark.parametrize("knobs", [{"speculate_k": 2},
@@ -430,12 +449,42 @@ def test_speculation_knobs_serve(world, knobs):
 
 def test_create_engine_and_kv_cache_knobs_out_of_this_slice_raise(world):
     cfg = world["tcfg"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A.1.4"):
-        ptt.inference.create_engine("unused", cfg, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.1.4"):
-        SlotKVCache(cfg, 2, 16, kv_dtype="int8")
     with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
         SlotKVCache(cfg, 2, 16, mesh_shards=2)
+
+
+def test_create_engine_dtype_and_int8_kv_cache_build(world, tmp_path):
+    """create_engine(dtype=torch.bfloat16) serves a saved model on a bf16
+    copy and a bf16 arena; SlotKVCache(kv_dtype="int8") builds the int8
+    arena and its f32 scale plane, pool_bytes counting both."""
+    cfg = world["cfg"]
+    scope = pt.Scope()
+    with pt.scope_guard(scope):
+        for name, arr in world["arrays"].items():
+            scope.set_var(name, arr)
+        with pt.unique_name_guard():
+            main, _, fetches = gpt_lm_program(cfg, 8, is_test=True)
+        pt.io.save_inference_model(str(tmp_path), ["tokens"],
+                                   [fetches["logits"]], pt.Executor(),
+                                   main_program=main)
+    conf = ptt.inference.Config(str(tmp_path))
+    conf.disable_gpu()
+    eng = ptt.inference.create_engine(
+        conf, world["tcfg"], ServingConfig(num_slots=2,
+                                           prefill_buckets=(4, 8),
+                                           max_len=32),
+        dtype=torch.bfloat16)
+    assert all(t.dtype == torch.bfloat16
+               for t in tgd.param_tensors(eng.scheduler.params))
+    assert eng.kv.kv.dtype == torch.bfloat16
+    outs = eng.generate(P3, 6)
+    assert [o.size for o in outs] == [p.size + 6 for p in P3]
+    assert eng.stats()["weight_dtype"] == "bfloat16"
+    eng.close()
+    kv = SlotKVCache(world["tcfg"], 2, 16, kv_dtype="int8")
+    assert kv.kv.dtype == torch.int8 and kv.kv_dtype == "int8"
+    assert kv.kv_scales.dtype == torch.float32
+    assert kv.pool_bytes == kv.kv.numel() + kv.kv_scales.numel() * 4
 
 
 @pytest.mark.parametrize("policy", ["newest", "oldest"])
