@@ -211,6 +211,26 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 kernels and device and wall ms of one decode iteration
                 beside the adapterless engine's, and adapter_pool_bytes.
                 In a child process (--adapters-only);
+ 4f. bench   -- the training benchmark entry points at their default
+                shapes with 5 timed steps: tools.bench_gpt.run (GPT-2
+                small s512 b16 AMP, fused attention; 3 telemetry steps),
+                its counts zeroed just before and read just after:
+                flash_small_fwd and flash_small_bwd 12 launches a step
+                each (bf16, 192 x 512 x 64), the others none; then
+                tools.bench_bert.run (BERT-base s128 b128 AMP einsum, no
+                kernel). Each JSON row must carry bench.py's keys, a
+                finite loss, 0 < MFU <= 1 and the card in extra.device;
+                bench_gpt's telemetry segment exactly one recompile and no
+                NaN step. Then 3 steps of bench_gpt's program with
+                Executor(donate=True) and donate=False from the same seed
+                (deterministic algorithms on): every parameter and
+                optimizer state bitwise equal, both peaks printed; one
+                GPT-2 small step (s512 b4) with FLAGS_check_nan_inf=1
+                clean, then with an inf injected into gpt/l0/ln1.scale,
+                which must raise naming the first op that reads it; and
+                bench_serving's --mixed and --rebalance workloads on gpt2
+                (each asserts its streams identical). In a child process
+                (--bench-only);
   5. train   -- GPT-2 small (dropout 0.1) train programs with Adam through
                 Executor.run on CUDAPlace(0): 3 steps at s=1024 b=2
                 (flash_fwd, flash_bwd_dkv, flash_bwd_dq) and 3 at s=512
@@ -2667,6 +2687,215 @@ def phase_adapters(seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 4f: the training benchmark entry points and the executor surface
+# ---------------------------------------------------------------------------
+
+BENCH_STEPS = 5           # timed steps of each bench (their default: 30)
+BENCH_TELEMETRY_STEPS = 3
+DONATE_STEPS = 3
+
+
+def _bench_row(row, metric):
+    """Hold one bench JSON object: bench.py's keys, a finite loss, an MFU
+    in (0, 1], the card named in extra.device."""
+    import math
+    missing = {"metric", "value", "unit", "vs_baseline", "extra"} - set(row)
+    if missing or row["metric"] != metric:
+        fail(f"bench row {row.get('metric')}: missing {missing}")
+    e = row["extra"]
+    if not math.isfinite(e["loss"]):
+        fail(f"{metric}: non-finite loss {e['loss']}")
+    if not (row["value"] is not None and 0 < row["value"] <= 1):
+        fail(f"{metric}: MFU {row['value']} not in (0, 1]")
+    if e["device"] != card_line():
+        fail(f"{metric}: extra.device {e['device']!r} is not the card")
+
+
+def _donation_run(donate, seed, feed):
+    """DONATE_STEPS steps of bench_gpt's program (GPT-2 small, s512 b16,
+    AMP, fused attention) from the startup's seed: (parameter and state
+    tensors, the step's peak bytes, seconds)."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models.gpt import GPTConfig, gpt_lm_program
+    with ptt.unique_name_guard():
+        main, startup, f = gpt_lm_program(GPTConfig(attn_impl="fused"), 512,
+                                          learning_rate=1e-4, amp=True)
+    main.random_seed = startup.random_seed = seed
+    exe = ptt.Executor(donate=donate)
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope)
+    _free_card()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    for _ in range(DONATE_STEPS):
+        exe.run(main, feed=feed, fetch_list=[f["loss"]], scope=scope,
+                return_numpy=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    state = {n: scope.find_var(n) for n in scope.var_names()
+             if isinstance(scope.find_var(n), torch.Tensor)}
+    return state, peak, secs
+
+
+def _nan_inf_check(seed):
+    """FLAGS_check_nan_inf=1 on one GPT-2 small step (s512 b4, fp32) on
+    the card: clean, it runs; with an inf injected into one parameter it
+    raises FloatingPointError naming the first op that consumes it."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models.gpt import GPTConfig, gpt_lm_program
+    with ptt.unique_name_guard():
+        main, startup, f = gpt_lm_program(GPTConfig(), 512,
+                                          learning_rate=1e-4)
+    startup.random_seed = seed
+    feed = {"tokens": np.random.RandomState(seed).randint(
+        0, 50257, (4, 512)).astype(np.int64)}
+    os.environ["FLAGS_check_nan_inf"] = "1"
+    try:
+        exe = ptt.Executor()
+        scope = ptt.Scope()
+        exe.run(startup, scope=scope)
+        t = time.perf_counter()
+        loss, = exe.run(main, feed=feed, fetch_list=[f["loss"]], scope=scope)
+        clean_ms = (time.perf_counter() - t) * 1e3
+        target = "gpt/l0/ln1.scale"
+        bad = scope.find_var(target).clone()
+        bad[3] = float("inf")
+        scope.set_var(target, bad)
+        ops = [op for op in main.global_block.ops
+               if op.type not in ("feed", "fetch")]
+        first = next(i for i, op in enumerate(ops)
+                     if target in op.input_names())
+        try:
+            exe.run(main, feed=feed, fetch_list=[f["loss"]], scope=scope)
+        except FloatingPointError as e:
+            msg = str(e)
+        else:
+            fail("FLAGS_check_nan_inf=1 did not raise on an injected inf")
+    finally:
+        os.environ.pop("FLAGS_check_nan_inf", None)
+    if f"#{first} ({ops[first].type})" not in msg:
+        fail(f"nan/inf sanitizer named the wrong op: {msg} (expected op "
+             f"#{first}, {ops[first].type})")
+    rec = {"phase": "bench", "run": "check_nan_inf", "clean_step_ms":
+           clean_ms, "clean_loss": float(loss[0]), "injected": target,
+           "raised": msg}
+    emit(rec)
+    return rec
+
+
+def phase_bench(seed):
+    """The port's training benchmark entry points at their default shapes
+    with BENCH_STEPS timed steps, donation, the nan/inf sanitizer and the
+    --mixed / --rebalance serving workloads on GPT-2 small. In a child
+    process (--bench-only) so the registry's counters start at 0 (the
+    bench reads them) and the serving engines' state leaves with it."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.tools import bench_bert, bench_gpt, bench_serving
+
+    t_phase = time.perf_counter()
+    names = list(KERNELS)
+    # ---- bench_gpt's main path: counts zeroed just before, read after ----
+    zero_counts(names)
+    gpt = bench_gpt.run(GPTConfig(max_pos=1024, attn_impl="fused"), 512, 16,
+                        BENCH_STEPS, True,
+                        tele_steps=BENCH_TELEMETRY_STEPS)
+    gpt_counts = read_counts(names)
+    # ------------------------------------------------------------------
+    emit({"phase": "bench", "run": "bench_gpt", "row": gpt,
+          "launches": gpt_counts})
+    _bench_row(gpt, "gpt2_small_train_mfu")
+    steps = 1 + BENCH_STEPS + BENCH_TELEMETRY_STEPS
+    want = {n: 12 * steps if n in ("flash_small_fwd", "flash_small_bwd")
+            else 0 for n in names}
+    if gpt_counts != want:
+        fail(f"bench_gpt launched {gpt_counts}, expected {want}")
+    e = gpt["extra"]
+    if e["recompiles_total"] != 1 or e["nan_steps"] != 0 \
+            or e["telemetry_steps"] != BENCH_TELEMETRY_STEPS:
+        fail(f"bench_gpt telemetry: recompiles_total "
+             f"{e['recompiles_total']} (1 expected), nan_steps "
+             f"{e['nan_steps']}, telemetry_steps {e['telemetry_steps']}")
+    _free_card()
+
+    zero_counts(names)
+    bert = bench_bert.run(BertConfig(attn_impl="einsum", max_pos=512), 128,
+                          128, BENCH_STEPS, True)
+    bert_counts = read_counts(names)
+    emit({"phase": "bench", "run": "bench_bert", "row": bert,
+          "launches": bert_counts})
+    _bench_row(bert, "bert_base_train_mfu")
+    if any(bert_counts.values()):
+        fail(f"bench_bert (einsum) launched {bert_counts}")
+    _free_card()
+
+    # donation: bitwise the same state, and what it saves at the peak
+    feed = {"tokens": torch.from_numpy(np.random.RandomState(seed).randint(
+        0, 50257, (16, 512)).astype(np.int64)).cuda()}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = {}
+        for donate in (True, False):
+            state, peak, secs = _donation_run(donate, seed, feed)
+            runs[donate] = ({n: t.cpu() for n, t in state.items()}, peak,
+                            secs)
+            del state
+            _free_card()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (on, peak_on, s_on), (off, peak_off, s_off) = runs[True], runs[False]
+    differ = sorted(n for n in on if n not in off
+                    or not torch.equal(on[n], off[n]))
+    rec = {"phase": "bench", "run": "donation", "steps": DONATE_STEPS,
+           "shape": "GPT-2 small s512 b16 AMP fused",
+           "peak_bytes_donate": peak_on, "peak_bytes_no_donate": peak_off,
+           "peak_saved_bytes": peak_off - peak_on,
+           "seconds_donate": s_on, "seconds_no_donate": s_off,
+           "tensors": len(on), "tensors_differing": len(differ)}
+    emit(rec)
+    if differ or set(on) != set(off):
+        fail(f"donate=True and donate=False part after {DONATE_STEPS} "
+             f"steps in {len(differ)} tensors, first {differ[:4]}")
+    donation = rec
+    del runs, on, off
+    _free_card()
+
+    nan_inf = _nan_inf_check(seed)
+    _free_card()
+
+    serving = []
+    for fn in (bench_serving.run_mixed, bench_serving.run_rebalance):
+        t = time.perf_counter()
+        rows = fn("gpt2")          # asserts its streams identical inside
+        for row in rows:
+            if not row["value"] > 0 or row["extra"].get(
+                    "streams_identical", True) is not True:
+                fail(f"{row['metric']}: {row}")
+            emit({"phase": "bench", "run": row["metric"], "row": row,
+                  "wall_s": time.perf_counter() - t})
+        serving += rows
+        _free_card()
+    if serving[1]["extra"]["prefill_chunks"] < 1 \
+            or serving[2]["extra"]["migrations"] < 1:
+        fail("the --mixed on-row did not chunk or --rebalance did not "
+             "migrate")
+    summary = {"phase": "bench", "gpt": gpt, "bert": bert,
+               "launches": gpt_counts, "donation": donation,
+               "check_nan_inf": nan_inf,
+               "serving": [r["metric"] for r in serving],
+               "wall_s": time.perf_counter() - t_phase}
+    emit(summary)
+    return summary
+
+
+# ---------------------------------------------------------------------------
 # phase 5: GPT-2 small training steps
 # ---------------------------------------------------------------------------
 
@@ -3969,10 +4198,10 @@ def phase_times(serve, train, bert, spike, seed):
 
 
 def in_child(seed, flag):
-    """Phase 4, 4b, 4c, 4d or 4e in a process of its own (this script
-    with --engine-only, --server-only, --spec-only, --quant-only or
-    --adapters-only), its JSON lines passed through, its summary
-    returned. After the engine's run, torch.profiler traces taken
+    """Phase 4, 4b, 4c, 4d, 4e or 4f in a process of its own (this
+    script with --engine-only, --server-only, --spec-only, --quant-only,
+    --adapters-only or --bench-only), its JSON lines passed through, its
+    summary returned. After the engine's run, torch.profiler traces taken
     later in the same process lost one kernel record a trace (PERF.md §6,
     the engine's calls 2-7), which the times phase's device-time checks
     refuse; the child's exit takes that state with it."""
@@ -4005,6 +4234,8 @@ def main():
                       help="run phase 4d alone, likewise")
     only.add_argument("--adapters-only", action="store_true",
                       help="run phase 4e alone, likewise")
+    only.add_argument("--bench-only", action="store_true",
+                      help="run phase 4f alone, likewise")
     args = ap.parse_args()
     preflight()
     import torch
@@ -4013,7 +4244,8 @@ def main():
              phase_server if args.server_only else
              phase_spec if args.spec_only else
              phase_quant if args.quant_only else
-             phase_adapters if args.adapters_only else None)
+             phase_adapters if args.adapters_only else
+             phase_bench if args.bench_only else None)
     if alone is not None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -4046,6 +4278,7 @@ def main():
         spec = in_child(args.seed, "--spec-only")
         quant = in_child(args.seed, "--quant-only")
         adapters = in_child(args.seed, "--adapters-only")
+        bench = in_child(args.seed, "--bench-only")
         train = phase_train(args.seed)
         bert = phase_bert(args.seed)
         resnet = phase_resnet(args.seed)
@@ -4058,7 +4291,7 @@ def main():
                    "wall_s": time.perf_counter() - t0, "build": build,
                    "kernel_cases": kernels, "serve": serve["summary"],
                    "engine": engine, "server": server, "spec": spec,
-                   "quant": quant, "adapters": adapters,
+                   "quant": quant, "adapters": adapters, "bench": bench,
                    "train": train["summaries"],
                    "bert": bert["runs"],
                    "resnet": resnet, "spike": spike["rows"],

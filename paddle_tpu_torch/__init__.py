@@ -37,6 +37,10 @@ from . import contrib
 from . import profiler
 from . import serving
 from . import server
+from . import analysis
+from . import clip
+from . import compiler
+from .compiler import CompiledProgram, BuildStrategy, ExecutionStrategy
 
 __version__ = "0.1.0"
 
@@ -47,4 +51,5 @@ __all__ = ["Program", "Block", "Operator", "Variable", "Parameter",
            "CPUPlace", "CUDAPlace", "append_backward", "gradients",
            "LayerHelper", "ParamAttr", "layers", "optimizer", "initializer",
            "io", "observability", "inference", "contrib", "profiler",
-           "serving", "server"]
+           "serving", "server", "analysis", "clip", "compiler",
+           "CompiledProgram", "BuildStrategy", "ExecutionStrategy"]

@@ -511,6 +511,16 @@ class Program:
         pruned._bump_version()
         return pruned
 
+    # -- static verification -------------------------------------------------
+    def validate(self, fetch_list=None, feed_names=None, skip_codes=None):
+        """Statically verify this program (analysis.verify_program):
+        def-use soundness, shape/dtype consistency, gradient soundness,
+        liveness and recompile-hazard lints. Read-only — never bumps the
+        version or creates vars. Returns a DiagnosticReport."""
+        from ..analysis import verify_program  # lazy; analysis imports core
+        return verify_program(self, fetch_list=fetch_list,
+                              feed_names=feed_names, skip_codes=skip_codes)
+
     # -- serialization -------------------------------------------------------
     def to_dict(self):
         return {"blocks": [b.to_dict() for b in self.blocks],

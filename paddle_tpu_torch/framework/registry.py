@@ -30,7 +30,7 @@ from .core import Block, Operator, GRAD_SUFFIX
 
 __all__ = ["OpDef", "register_op", "get_op_def", "has_op_def",
            "infer_op_shapes", "LowerContext", "lower_op", "DUMMY_BATCH",
-           "torch_dtype", "dtype_name"]
+           "torch_dtype", "dtype_name", "shape_spec", "resolve_op"]
 
 # Dummy concrete size substituted for -1 (batch) dims during meta-device
 # inference; a large prime so a genuine layer dim colliding with it (and
@@ -53,6 +53,15 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def dtype_name(dtype: torch.dtype) -> str:
     return _DTYPE_NAMES[dtype]
+
+
+def shape_spec(shape, dtype: str) -> torch.Tensor:
+    """A meta-device tensor from declared var metadata, -1 (batch) dims
+    substituted with DUMMY_BATCH: the one spec convention shared by
+    build-time inference here and the static verifier's read-only shape
+    walk (analysis/analyzers.py), as `jax.ShapeDtypeStruct` is in JAX."""
+    return torch.empty(tuple(DUMMY_BATCH if d == -1 else d for d in shape),
+                       dtype=torch_dtype(dtype), device="meta")
 
 
 def concrete_to_batch(shape):
@@ -133,12 +142,16 @@ class LowerContext:
     `rng()` returns the run's seeded `torch.Generator` (one per run, drawn
     from in op order, so a run is a pure function of scope, feed and seed).
     During meta-device inference `abstract` is True and `rng()` is None.
+    `inplace` names the input slots an optimizer rule may overwrite: the
+    executor sets it, per op, for a state var that the op writes under its
+    own name and that the executor bound in the scope itself (donation).
     """
 
     def __init__(self, device=None, seed: Optional[int] = None,
                  abstract: bool = False):
         self.device = torch.device(device if device is not None else "cpu")
         self.abstract = abstract
+        self.inplace: frozenset = frozenset()
         self._seed = seed
         self._gen: Optional[torch.Generator] = None
 
@@ -163,12 +176,22 @@ class LowerContext:
 # Op lowering given an environment
 # ---------------------------------------------------------------------------
 
-def lower_op(ctx: LowerContext, op: Operator, env: Dict[str, Any]) -> None:
-    """Run one op: read inputs from env, write outputs into env."""
+def resolve_op(op: Operator) -> OpDef:
+    """The OpDef whose rules run `op`: its own, or for a `<type>_grad`
+    op the forward type's (its grad_lower or the generic vjp)."""
     if op.type.endswith("_grad"):
-        _lower_grad_op(ctx, op, env)
+        return get_op_def(op.type[: -len("_grad")])
+    return get_op_def(op.type)
+
+
+def lower_op(ctx: LowerContext, op: Operator, env: Dict[str, Any],
+             opdef: Optional[OpDef] = None) -> None:
+    """Run one op: read inputs from env, write outputs into env. `opdef`
+    is `resolve_op(op)` when the caller resolved it beforehand."""
+    if op.type.endswith("_grad"):
+        _lower_grad_op(ctx, op, env, opdef)
         return
-    opdef = get_op_def(op.type)
+    opdef = opdef or get_op_def(op.type)
     ins = {slot: [env[n] for n in names]
            for slot, names in op.inputs.items() if names}
     outs = opdef.lower(ctx, ins, op.attrs)
@@ -188,11 +211,12 @@ def _bind_outputs(op: Operator, outs: Dict[str, List[Any]], env):
             env[n] = v
 
 
-def _lower_grad_op(ctx: LowerContext, op: Operator, env: Dict[str, Any]):
+def _lower_grad_op(ctx: LowerContext, op: Operator, env: Dict[str, Any],
+                   opdef: Optional[OpDef] = None):
     """Run a `<type>_grad` op: the forward op's custom `grad_lower`, or
     the generic path, `torch.func.vjp` over the forward rule."""
     fwd_type = op.type[: -len("_grad")]
-    opdef = get_op_def(fwd_type)
+    opdef = opdef or get_op_def(fwd_type)
 
     if opdef.grad_lower is not None:
         ins = {slot: [env[n] for n in names if n]
@@ -281,11 +305,6 @@ def _lower_grad_op(ctx: LowerContext, op: Operator, env: Dict[str, Any]):
 # Shape inference on the meta device
 # ---------------------------------------------------------------------------
 
-def _meta(shape, dtype: str) -> torch.Tensor:
-    return torch.empty(tuple(DUMMY_BATCH if d == -1 else d for d in shape),
-                       dtype=torch_dtype(dtype), device="meta")
-
-
 def infer_op_shapes(op: Operator, block: Block) -> None:
     """Set output var shapes/dtypes by running the lowering rule on
     meta-device tensors. -1 (batch) dims are substituted with DUMMY_BATCH
@@ -309,7 +328,7 @@ def infer_op_shapes(op: Operator, block: Block) -> None:
                 raise RuntimeError(f"input var {n!r} of op {op.type} has no "
                                    "shape; declare it first")
             saw_dummy = saw_dummy or (-1 in v.shape)
-            lst.append(_meta(v.shape, v.dtype))
+            lst.append(shape_spec(v.shape, v.dtype))
         ins[slot] = lst
 
     ctx = LowerContext(device="meta", abstract=True)

@@ -106,11 +106,14 @@ def gpt_lm_program(cfg: GPTConfig, seq_len: int, is_test=False,
     "adam" or "sgd") are appended; amp=True wraps the optimizer in the
     bf16 AMP rewrite (contrib.mixed_precision.decorate), as the JAX
     package does. Fetches carry "loss" and "logits"."""
-    if recompute or optimizer not in ("adam", "sgd"):
+    if recompute:
         raise NotImplementedError(
-            "gpt_lm_program: recompute=True and optimizers other than "
-            f"adam/sgd (got {optimizer!r}) are not ported to "
-            "paddle_tpu_torch yet")
+            "gpt_lm_program: recompute=True is not ported to "
+            "paddle_tpu_torch yet (ROADMAP A.9)")
+    if optimizer not in ("adam", "sgd"):
+        raise NotImplementedError(
+            f"gpt_lm_program: optimizer {optimizer!r} is not ported to "
+            "paddle_tpu_torch yet (ROADMAP A.5; adam and sgd are)")
     main, startup = pt.Program(), pt.Program()
     with pt.program_guard(main, startup):
         tokens = pt.layers.data("tokens", [seq_len], dtype="int64")

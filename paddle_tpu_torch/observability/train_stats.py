@@ -2,10 +2,9 @@
 
 A copy of `paddle_tpu/observability/train_stats.py` (pure Python): the
 StepLogger, its ring and the recompile log, which the debug server's
-/trainz reads. The port's Executor does not feed it yet, and
-`attach_step_telemetry` raises NotImplementedError: the executor's
-`_log_step_telemetry`, the global-norm clip and the isfinite /
-logical_and / where ops it appends are ROADMAP A.3 and A.5.
+/trainz reads, and `attach_step_telemetry`, the graph-side tap that
+`Optimizer.minimize` attaches while a logger is installed. The port's
+Executor feeds them (`_log_step_telemetry`, the recompile records).
 recompilation attribution.
 
 The serving path got its observability in PRs 2-3 (tracer, registry,
@@ -363,7 +362,74 @@ def attach_step_telemetry(program, loss, params_grads, optimizer,
     fetches them alongside the user's fetch_list whenever a StepLogger
     is installed. Idempotent per program (second attach is a no-op).
     """
-    raise NotImplementedError(
-        "attach_step_telemetry is not ported to paddle_tpu_torch yet "
-        "(ROADMAP A.3: the executor's step telemetry; A.5: the "
-        "global-norm clip)")
+    if policy not in POLICIES:
+        raise ValueError(
+            f"sentinel policy must be one of {POLICIES}, got {policy!r}")
+    if getattr(program, "_train_telemetry", None) is not None:
+        return program._train_telemetry
+    if not params_grads:
+        return None
+    from ..framework.core import unique_name
+
+    blk = program.global_block
+    opt_attr = {"op_role": "optimize"}
+
+    def _append(op_type, ins, outs, attrs=None):
+        a = dict(opt_attr)
+        if attrs:
+            a.update(attrs)
+        blk.append_op(op_type, ins, outs, a, infer_shape=False)
+
+    # -- global grad-norm tap ------------------------------------------------
+    gnorm_name = getattr(program, "_global_norm_var", None)
+    if gnorm_name is None or gnorm_name not in blk.vars:
+        from ..clip import append_global_norm_ops
+        gnorm_name = append_global_norm_ops(
+            blk, params_grads, attrs=opt_attr,
+            name="telemetry_grad").name
+
+    # -- finiteness flag -----------------------------------------------------
+    loss_fin = blk.create_var(name=unique_name("telemetry_loss_finite"),
+                              shape=(1,), dtype="bool")
+    _append("isfinite", {"X": [loss.name]}, {"Out": [loss_fin.name]})
+    gn_fin = blk.create_var(name=unique_name("telemetry_gnorm_finite"),
+                            shape=(1,), dtype="bool")
+    _append("isfinite", {"X": [gnorm_name]}, {"Out": [gn_fin.name]})
+    flag = blk.create_var(name=unique_name("telemetry_step_finite"),
+                          shape=(1,), dtype="bool")
+    _append("logical_and", {"X": [loss_fin.name], "Y": [gn_fin.name]},
+            {"Out": [flag.name]})
+
+    # -- skip/halt gating ----------------------------------------------------
+    if policy in ("skip_step", "halt"):
+        gate_names = [p.name for p, _ in params_grads]
+        for by_param in getattr(optimizer, "_accumulators", {}).values():
+            gate_names.extend(v.name for v in by_param.values())
+        # snapshots go BEFORE the first update op (clip/reg ops don't
+        # write any of these, so the head of the optimize region is a
+        # correct pre-step read point)
+        idx = next((i for i, op in enumerate(blk.ops)
+                    if op.attrs.get("op_role") == "optimize"), len(blk.ops))
+        pres = {}
+        for name in gate_names:
+            v = blk.vars[name]
+            pre = blk.create_var(name=unique_name(name + "@PRE_STEP"),
+                                 shape=v.shape, dtype=v.dtype,
+                                 stop_gradient=True)
+            blk.insert_op(idx, "assign", {"X": [name]},
+                          {"Out": [pre.name]}, dict(opt_attr),
+                          infer_shape=False)
+            idx += 1
+            pres[name] = pre.name
+        for name in gate_names:
+            _append("where",
+                    {"Condition": [flag.name], "X": [name],
+                     "Y": [pres[name]]},
+                    {"Out": [name]})
+
+    lr = getattr(optimizer, "_learning_rate", None)
+    lr_name = getattr(lr, "name", None)
+    tele = {"loss": loss.name, "grad_norm": gnorm_name, "flag": flag.name,
+            "lr": lr_name, "policy": policy}
+    program._train_telemetry = tele
+    return tele

@@ -1,13 +1,17 @@
 """Math ops of the GPT and BERT slices: elementwise_add, matmul, mul, einsum,
-mean, sum, scale.
+mean, sum, scale; and the ops the gradient clips and the training
+telemetry tap append: elementwise_mul/div/max, clip, clip_by_norm,
+squared_l2_norm, isfinite, logical_and.
 
 Port of the matching rules in `paddle_tpu/ops/math_ops.py` (_broadcast_y:21,
-matmul:64, mul:79, einsum:104, mean:148, sum:153, scale:178). Large
-products go to `torch.matmul` / `torch.einsum`, as the JAX package leaves
-them to XLA. The grads of elementwise_add, matmul, mul, einsum and mean take
-the generic vjp path, as in JAX;
-in eager mode that replays the forward product once more per grad op
-(PERF.md §5 measures it).
+the elementwise family :33-54, matmul:64, mul:79, einsum:104, mean:148,
+sum:153, scale:178, clip:205, clip_by_norm:217, squared_l2_norm:236,
+logical_and:291, isfinite:301). Large products go to `torch.matmul` /
+`torch.einsum`, as the JAX package leaves them to XLA. Every grad here
+takes the generic vjp path, as in JAX (isfinite and logical_and have
+none); in eager mode that replays the forward product once more per grad
+op (PERF.md §5 measures it). SelectedRows inputs of the clip ops come with
+the sparse grads (ROADMAP A.5).
 """
 
 import math
@@ -31,10 +35,17 @@ def _broadcast_y(x, y, axis):
     return torch.reshape(y, new_shape)
 
 
-@register_op("elementwise_add")
-def _elementwise_add(ctx, ins, attrs):
-    x, y = ins["X"][0], ins["Y"][0]
-    return {"Out": [x + _broadcast_y(x, y, attrs.get("axis", -1))]}
+def _register_elementwise(name, fn):
+    @register_op(name)
+    def _lower(ctx, ins, attrs, _fn=fn):
+        x, y = ins["X"][0], ins["Y"][0]
+        return {"Out": [_fn(x, _broadcast_y(x, y, attrs.get("axis", -1)))]}
+
+
+_register_elementwise("elementwise_add", torch.add)
+_register_elementwise("elementwise_mul", torch.mul)
+_register_elementwise("elementwise_div", torch.div)
+_register_elementwise("elementwise_max", torch.maximum)
 
 
 @register_op("matmul")
@@ -107,3 +118,36 @@ def _scale(ctx, ins, attrs):
     if attrs.get("bias_after_scale", True):
         return {"Out": [x * s + b]}
     return {"Out": [(x + b) * s]}
+
+
+@register_op("clip")
+def _clip(ctx, ins, attrs):
+    return {"Out": [torch.clamp(ins["X"][0], attrs["min"], attrs["max"])]}
+
+
+@register_op("clip_by_norm")
+def _clip_by_norm(ctx, ins, attrs):
+    x = ins["X"][0]
+    max_norm = attrs["max_norm"]
+    norm = torch.sqrt(torch.sum(x * x))
+    scale = torch.where(norm > max_norm,
+                        max_norm / torch.clamp_min(norm, 1e-12),
+                        torch.ones_like(norm))
+    return {"Out": [x * scale.to(x.dtype)]}
+
+
+@register_op("squared_l2_norm")
+def _squared_l2_norm(ctx, ins, attrs):
+    x = ins["X"][0]
+    return {"Out": [torch.sum(x.float() ** 2).reshape((1,))]}
+
+
+@register_op("logical_and", not_differentiable=True, grad_free=True)
+def _logical_and(ctx, ins, attrs):
+    return {"Out": [torch.logical_and(ins["X"][0], ins["Y"][0])]}
+
+
+@register_op("isfinite", not_differentiable=True, grad_free=True)
+def _isfinite(ctx, ins, attrs):
+    """reference: operators/isfinite_op.cc: one flag, all values finite."""
+    return {"Out": [torch.isfinite(ins["X"][0]).all().reshape((1,))]}

@@ -1,12 +1,14 @@
 """Tensor ops of the GPT, BERT and ResNet slices: reshape2, slice,
 lookup_table (with its dense grad), fill, constants, cast, random init,
-top_k.
+top_k; and where and assign, which the training telemetry's skip/halt
+gates append.
 
 Port of the matching rules in `paddle_tpu/ops/tensor_ops.py` (reshape2:42,
-slice:141, lookup_table:256-299, fill_constant:347, fill_any_like:370,
-assign_value:382, cast:388, uniform_random:435, gaussian_random:446,
-top_k:483). The grads of reshape2, slice and cast take the generic vjp
-path (cast's is a cast back to the input's dtype). Rules create tensors on
+slice:141, lookup_table:256-299, where:329, fill_constant:347,
+fill_any_like:370, assign:377, assign_value:382, cast:388,
+uniform_random:435, gaussian_random:446, top_k:483). The grads of
+reshape2, slice, where, assign and cast take the generic vjp path (cast's
+is a cast back to the input's dtype). Rules create tensors on
 `ctx.device`; random ops draw from the run's `torch.Generator` (or a fixed
 `seed` attr), so they give other numbers than JAX's keys from the same seed.
 """
@@ -69,8 +71,8 @@ def _lookup_table_grad(ctx, ins, attrs):
     if attrs.get("is_sparse", False):
         raise NotImplementedError(
             "lookup_table with is_sparse=True (SelectedRows gradients) is "
-            "not ported to paddle_tpu_torch yet; build it with "
-            "is_sparse=False")
+            "not ported to paddle_tpu_torch yet (ROADMAP A.5); build it "
+            "with is_sparse=False")
     w, ids, og = ins["W"][0], ins["Ids"][0], ins["Out@GRAD"][0]
     if ids.ndim > 1 and ids.shape[-1] == 1:
         ids = torch.squeeze(ids, -1)
@@ -115,6 +117,20 @@ def _fill_any_like(ctx, ins, attrs):
     dtype = attrs.get("dtype")
     return {"Out": [torch.full_like(
         x, attrs["value"], dtype=torch_dtype(dtype) if dtype else x.dtype)]}
+
+
+@register_op("where", no_grad_inputs={"Condition"})
+def _where(ctx, ins, attrs):
+    c, x, y = ins["Condition"][0], ins["X"][0], ins["Y"][0]
+    return {"Out": [torch.where(c, x, y)]}
+
+
+@register_op("assign")
+def _assign(ctx, ins, attrs):
+    """A copy, not the input itself: the executor may update a donated
+    parameter in place later in the same run, and a snapshot taken with
+    assign (the telemetry gates' @PRE_STEP) must keep the old values."""
+    return {"Out": [ins["X"][0].clone()]}
 
 
 @register_op("assign_value", not_differentiable=True, grad_free=True)

@@ -7,10 +7,15 @@ accumulators are persistable vars initialized in the startup program; the
 update ops of `ops/optimizer_ops.py` run in the same Executor.run as the
 backward pass.
 
-Not ported yet: the dygraph branch of `minimize`, the train_stats
-telemetry tap (which leaves the program unchanged when no logger is
-installed), regularization and gradient clipping (passing either raises),
-and the other optimizers (LarsMomentum, AdamW, Lamb, ...).
+`grad_clip=` takes the clips of `clip.py`, applied to the raw gradients
+before the update ops. While a `train_stats.StepLogger` is installed,
+`minimize` attaches the training telemetry tap (the global grad norm, the
+finiteness flag and, for skip_step/halt, the gates); with none installed
+the program is exactly what it was without the tap.
+
+Not ported yet: the dygraph branch of `minimize` (ROADMAP A.12),
+regularization and per-parameter regularizers (A.5, passing either raises)
+and the other optimizers (LarsMomentum, AdamW, Lamb, ...: A.5).
 """
 
 from __future__ import annotations
@@ -30,11 +35,12 @@ __all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
 class Optimizer:
     def __init__(self, learning_rate, regularization=None, grad_clip=None,
                  name: Optional[str] = None):
-        if regularization is not None or grad_clip is not None:
+        if regularization is not None:
             raise NotImplementedError(
-                "regularization and grad_clip are not ported to "
-                "paddle_tpu_torch yet")
+                "regularization is not ported to paddle_tpu_torch yet "
+                "(ROADMAP A.5)")
         self._learning_rate = learning_rate
+        self.grad_clip = grad_clip
         self._name = name or type(self).__name__.lower()
         self._accumulators: Dict[str, Dict[str, Variable]] = {}
 
@@ -91,6 +97,17 @@ class Optimizer:
         opt_ops = self.apply_gradients(
             params_grads, loss.block.program,
             startup_program or default_startup_program())
+        # Training telemetry tap (observability/train_stats.py): while a
+        # StepLogger is installed, attach the global grad-norm var (the
+        # one GradientClipByGlobalNorm already computed, or a fresh
+        # reduction) and the in-graph numerics-sentinel flag. Without a
+        # logger the program stays byte-identical — zero extra ops.
+        from .observability import train_stats
+        logger = train_stats.get_step_logger()
+        if logger is not None:
+            train_stats.attach_step_telemetry(
+                loss.block.program, loss, params_grads, self,
+                policy=logger.policy)
         return opt_ops, params_grads
 
     def backward(self, loss, parameter_list=None, no_grad_set=None,
@@ -106,7 +123,11 @@ class Optimizer:
         if any(p.regularizer is not None for p, _ in params_grads):
             raise NotImplementedError(
                 "per-parameter regularizers are not ported to "
-                "paddle_tpu_torch yet")
+                "paddle_tpu_torch yet (ROADMAP A.5)")
+        # clip raw gradients first (reference optimizer.py:526-529 order;
+        # weight decay, which follows there, is A.5)
+        if self.grad_clip is not None:
+            params_grads = self.grad_clip(params_grads)
         lr = self._global_lr(program, startup)
         ops = []
         for p, g in params_grads:

@@ -69,6 +69,14 @@ def to_device(data, device="cuda"):
             for k, v in data.items()}
 
 
+def card_line():
+    """The card's name and power limit, as `nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader` gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+
+
 def main():
     import torch
     import paddle_tpu_torch as ptt
@@ -105,9 +113,7 @@ def main():
     assert np.isfinite(lv), f"non-finite loss {lv}"
 
     mfu = FLOPS_PER_IMAGE * batch / dt / peak
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
+    card = card_line()
     print(json.dumps({
         "metric": "resnet50_train_mfu",
         "value": round(mfu, 4),

@@ -13,6 +13,8 @@ names and registry-sourced columns) over `paddle_tpu_torch.serving` and
     python3 -m paddle_tpu_torch.tools.bench_serving tiny --speculate 0 4
     python3 -m paddle_tpu_torch.tools.bench_serving tiny --quantize
     python3 -m paddle_tpu_torch.tools.bench_serving tiny --adapters 3
+    python3 -m paddle_tpu_torch.tools.bench_serving tiny --mixed
+    python3 -m paddle_tpu_torch.tools.bench_serving tiny --rebalance
     python3 -m paddle_tpu_torch.tools.bench_serving tiny --device cpu
 
 Each library row carries the dispatch amortization columns read back
@@ -38,11 +40,18 @@ serves the mix through 1 and then N co-batched LoRA adapters (the
 registry's `adapters_resident` / `adapter_pool_bytes` /
 `adapter_uploads` / `adapter_evictions`), streams asserted identical on
 a second fresh engine and, for N, on a dedicated engine an adapter.
+`--mixed` runs K short-decode streams co-batched with one long prompt on
+fresh engines, `prefill_chunk` off then on: two rows with the short
+streams' client-measured `p99_tpot_ms` (per-token gaps), `long_ttft_ms`
+and the registry's `prefill_chunks`, streams asserted identical across
+the rows. `--rebalance` admits the mix skewed onto one of two router
+replicas, the rebalancer off then on: one row with the registry's
+`migrations` / `migration_ms` and the hot replica's p99 TPOT and TTFT
+both ways, streams asserted identical.
 `--debug-port N` serves the live diagnostics plane meanwhile.
 
 The workload of the engine knob the port lacks raises as the engine
-does: `--mesh` (ROADMAP A.8). `--mixed` and `--rebalance` are not
-ported to this tool yet (ROADMAP A.2) and raise too.
+does: `--mesh` (ROADMAP A.8).
 """
 
 import argparse
@@ -65,7 +74,7 @@ MODELS = {
 }
 
 # the workloads whose engine knobs the port lacks, and their ROADMAP items
-_NOT_PORTED = {"--mesh": "A.8", "--mixed": "A.2", "--rebalance": "A.2"}
+_NOT_PORTED = {"--mesh": "A.8"}
 
 
 def build_params(gpt_kwargs, device="cuda"):
@@ -450,6 +459,302 @@ def run_oversubscribe(name, requests=None, concurrency=None,
     }
     eng.close()
     return [row]
+
+
+# rebalance workload geometry per model: (prefill buckets, prompt
+# length, max_new, replicas, per-replica slots). The mix is admitted
+# skewed onto replica 0 (its peers briefly held out of admission), so
+# the run measures what the pressure-driven rebalancer buys: live
+# migrations onto the idle peers vs the hot replica grinding alone.
+REBALANCE = {
+    "tiny": ((8, 16), 12, 48, 2, 2),
+    "gpt2": ((32, 64), 48, 64, 2, 4),
+}
+
+
+def run_rebalance(name, requests=None, replicas=None, device="cuda"):
+    """The --rebalance workload: a skewed admission burst onto one
+    replica of N, run twice on fresh engines — rebalancer OFF (the
+    baseline: the hot replica serves its whole backlog) then ON (the
+    router live-migrates running sequences to the idle peers). One row
+    with registry-sourced migration columns (`migrations`,
+    `migration_ms`) and the HOT replica's p99 TPOT on vs off — the
+    tail-latency number rebalancing exists to shrink. Token streams
+    are bit-identical in both runs (each request re-derives the same
+    seeded stream; migration identity is pinned in tests)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.server import RebalanceConfig, Router
+
+    gpt_kwargs, _, _, _ = MODELS[name]
+    buckets, prompt_len, max_new, n_replicas, slots = REBALANCE[name]
+    replicas = replicas or n_replicas
+    requests = requests or int(
+        os.environ.get("BENCH_SERVING_REQUESTS", "16"))
+    cfg, params = build_params(gpt_kwargs, device)
+    max_len = prompt_len + max_new
+    results = {}
+    for enabled in (False, True):
+        engines = []
+        for _ in range(replicas):
+            eng = pt.serving.ServingEngine(
+                params, cfg,
+                pt.serving.ServingConfig(num_slots=slots,
+                                         max_queue=requests,
+                                         prefill_buckets=buckets,
+                                         max_len=max_len,
+                                         decode_chunk=8))
+            # warm every executable on the library path, then drop the
+            # warmup's registry rows (the standard bench discipline)
+            wrng = np.random.RandomState(12345)
+            eng.generate([wrng.randint(0, cfg.vocab_size,
+                                       (max(1, b - 2),)).astype(np.int32)
+                          for b in buckets], max_new_tokens=2)
+            # warm the migration executables too (swap_out / release /
+            # swap_in compile lazily on first use, and a cold compile
+            # would dominate the migration_ms column): one ticket per
+            # engine, extracted and re-adopted locally
+            wreq = eng.submit(wrng.randint(0, cfg.vocab_size, (4,))
+                              .astype(np.int32), max_new)
+            while not wreq.tokens:
+                eng.step()
+            eng.migrate_in(eng.migrate_out(wreq))
+            eng.run_until_drained()
+            old = eng.metrics
+            old.unregister()
+            eng.metrics = pt.serving.EngineMetrics(
+                max_tokens_per_dispatch=old.max_tokens_per_dispatch,
+                speculate_k=old.speculate_k)
+            eng.kv.prefix_hits = eng.kv.prefix_misses = 0
+            engines.append(eng)
+        router = Router(
+            engines,
+            rebalance=RebalanceConfig(interval_s=0.002,
+                                      pressure_gap=0.2, hysteresis=2,
+                                      max_concurrent=2)
+            if enabled else None)
+        router.start()
+        rng = np.random.RandomState(0)
+        prompts = [rng.randint(0, cfg.vocab_size, (prompt_len,))
+                   .astype(np.int32) for _ in range(requests)]
+        # skew: hold every peer out of admission for the burst, so the
+        # whole mix lands on replica 0 and the imbalance is maximal
+        for r in router.replicas[1:]:
+            r.state = "draining"
+        t0 = time.perf_counter()
+        handles = [router.submit(p, max_new, seed=i)
+                   for i, p in enumerate(prompts)]
+        for r in router.replicas[1:]:
+            r.state = "ok"
+        streams = [h.result(timeout=600)[0] for h in handles]
+        dt = time.perf_counter() - t0
+        tokens = sum(len(s) for s in streams)
+        hot_label = engines[0].metrics.engine_label
+        hot = _registry_series(hot_label, "serving_tpot_seconds")
+        hot_ttft = _registry_series(hot_label, "serving_ttft_seconds")
+        results[enabled] = {
+            "dt": dt, "tokens": tokens, "streams": streams,
+            "p99_tpot_ms": round(hot["p99"] * 1e3, 3)
+            if hot and hot.get("p99") is not None else None,
+            "p99_ttft_ms": round(hot_ttft["p99"] * 1e3, 3)
+            if hot_ttft and hot_ttft.get("p99") is not None else None,
+            "migrations": _registry_router_counter(
+                router.metrics.label, "server_migrations_total"),
+            "migration_failures": _registry_router_counter(
+                router.metrics.label, "server_migration_failures_total"),
+            "migration_ms": _registry_hist_ms(
+                router.metrics.label, "serving_migration_seconds",
+                label_key="router"),
+        }
+        router.close()               # drains + refcounted engine close()
+    off, on = results[False], results[True]
+    assert off["streams"] == on["streams"], \
+        "rebalanced streams diverged from the baseline run"
+    return [{
+        "metric": f"{name}_serving_rebalance_r{replicas}",
+        "value": round(on["tokens"] / on["dt"], 2),
+        "unit": "tokens/s",
+        "vs_baseline": None,
+        "extra": {
+            "requests": requests,
+            "replicas": replicas,
+            "num_slots": slots,
+            "max_new": max_new,
+            # registry-sourced migration columns (rebalancer-on run)
+            "migrations": on["migrations"],
+            "migration_failures": on["migration_failures"],
+            "migration_ms": on["migration_ms"],
+            # the tail-latency comparison the workload exists for: the
+            # HOT replica's p99 TTFT (queue relief — migrations free
+            # slots for its backlog) and p99 TPOT with peers helping
+            # vs grinding alone
+            "p99_ttft_ms_on": on["p99_ttft_ms"],
+            "p99_ttft_ms_off": off["p99_ttft_ms"],
+            "p99_tpot_ms_on": on["p99_tpot_ms"],
+            "p99_tpot_ms_off": off["p99_tpot_ms"],
+            "tokens_per_s_off": round(off["tokens"] / off["dt"], 2),
+            "migrations_off": off["migrations"],   # pinned 0: the
+            # rebalancer-off run must not register a single migration
+        },
+    }]
+
+
+# mixed long-prompt/short-decode workload geometry per model:
+# (max_pos override, prefill buckets, short prompt len, short max_new,
+# short stream count, long prompt len, long max_new, prefill_chunk,
+# decode_chunk). The shorts decode steadily while ONE long prompt is
+# admitted mid-flight: monolithic prefill stalls every co-batched
+# stream for its whole dispatch (the TPOT p99 spike), chunked prefill
+# splits it into budget-bounded dispatches interleaved with decode.
+# decode_chunk is small (tight streaming cadence) so the stall shows
+# up in per-token gaps, not hidden inside a fused block.
+# note the bucket grid: the long prompt (448) pads to the 512 bucket
+# on the monolithic path — the realistic power-of-two grid every
+# engine default uses — while the chunked path's shapes come from the
+# small chunk bucket exactly; escaping big-bucket padding is part of
+# the real win chunking buys, so the rows keep it.
+MIXED = {
+    "tiny": (544, (8, 112, 512), 8, 64, 4, 448, 16, 112, 1),
+    "gpt2": (1088, (32, 224, 1024), 32, 64, 4, 896, 16, 224, 1),
+}
+
+
+def run_mixed(name, requests=None, short_max_new=None, device="cuda"):
+    """The --mixed workload (chunked prefill): K short-decode streams
+    co-batched with one long prompt, run twice on fresh engines —
+    prefill_chunk=None (the long prompt's monolithic prefill stalls
+    every short stream: the p99 TPOT spike) then prefill_chunk=N (the
+    prefill runs as budget-bounded chunks interleaved with decode).
+    Two rows, off then on; each carries client-measured `p99_tpot_ms`
+    (p99 over the SHORT streams' per-token inter-arrival gaps — the
+    stall metric, not the per-request mean), `long_ttft_ms`, and the
+    registry-sourced `prefill_chunks` counter. The ON row adds the
+    improvement ratios against the off row. Token streams are asserted
+    bit-identical across both rows before anything prints — chunking
+    changes WHEN tokens arrive, never WHICH.
+
+    With device="cpu" the gap numbers are host times of the CPU run,
+    not the card's; what carries is the RATIO (one monolithic prefill's
+    worth of stall vs one chunk's worth), a property of the dispatch
+    structure."""
+    import paddle_tpu_torch as pt
+
+    gpt_kwargs, _, _, _ = MODELS[name]
+    (max_pos, buckets, short_len, s_max_new, shorts, long_len,
+     long_max_new, chunk, decode_chunk) = MIXED[name]
+    shorts = requests or shorts
+    s_max_new = short_max_new or s_max_new
+    cfg, params = build_params(dict(gpt_kwargs, max_pos=max_pos), device)
+    max_len = max(buckets) + long_max_new   # warmup fills every bucket
+    rng = np.random.RandomState(0)
+    short_prompts = [rng.randint(0, cfg.vocab_size, (short_len,))
+                     .astype(np.int32) for _ in range(shorts)]
+    long_prompt = rng.randint(0, cfg.vocab_size, (long_len,)) \
+        .astype(np.int32)
+    results = {}
+    for prefill_chunk in (None, chunk):
+        eng = pt.serving.ServingEngine(
+            params, cfg,
+            pt.serving.ServingConfig(num_slots=shorts + 1,
+                                     max_queue=shorts + 1,
+                                     prefill_buckets=buckets,
+                                     max_len=max_len,
+                                     decode_chunk=decode_chunk,
+                                     prefill_chunk=prefill_chunk))
+        # warm every executable THIS engine will use (the monolithic
+        # engine compiles prefill:L{b} per bucket; the chunked engine
+        # compiles prefill_chunk:L{bucket_for(<=chunk)} instead — the
+        # long bucket never compiles there), then drop the warmup rows
+        wrng = np.random.RandomState(12345)
+        eng.generate([wrng.randint(0, cfg.vocab_size, (max(1, b - 2),))
+                      .astype(np.int32) for b in buckets],
+                     max_new_tokens=2)
+        old = eng.metrics
+        old.unregister()
+        eng.metrics = pt.serving.EngineMetrics(
+            max_tokens_per_dispatch=old.max_tokens_per_dispatch,
+            speculate_k=old.speculate_k)
+        eng.kv.prefix_hits = eng.kv.prefix_misses = 0
+        stamps = {}
+
+        def on_token(req, tok):
+            stamps[req.request_id].append(time.perf_counter())
+
+        t0 = time.perf_counter()
+        sreqs = []
+        for i, p in enumerate(short_prompts):
+            r = eng.submit(p, max_new_tokens=s_max_new,
+                           temperature=0.8 if i % 2 else 0.0, seed=i,
+                           on_token=on_token)
+            stamps[r.request_id] = []
+            sreqs.append(r)
+        # let every short stream reach steady decode before the long
+        # prompt lands — the stall must hit mid-stream, not at admit
+        while any(len(r.tokens) < 2 for r in sreqs):
+            eng.step()
+        lreq = eng.submit(long_prompt, max_new_tokens=long_max_new)
+        eng.run_until_drained()
+        dt = time.perf_counter() - t0
+        s = eng.stats()
+        label = s["engine_label"]
+        gaps = sorted(b - a for r in sreqs
+                      for a, b in zip(stamps[r.request_id],
+                                      stamps[r.request_id][1:]))
+        p99 = gaps[min(len(gaps) - 1, int(len(gaps) * 0.99))] \
+            if gaps else None
+        tokens = sum(len(r.tokens) for r in sreqs) + len(lreq.tokens)
+        results[prefill_chunk] = {
+            "dt": dt, "tokens": tokens,
+            "streams": [tuple(r.tokens) for r in sreqs + [lreq]],
+            "p99_tpot_ms": round(p99 * 1e3, 3) if p99 else None,
+            "long_ttft_ms": round(lreq.metrics.ttft * 1e3, 2),
+            "prefill_chunks": _registry_counter(
+                label, "serving_prefill_chunks_total"),
+            "prefill_chunk_ms": _registry_hist_ms(
+                label, "serving_prefill_chunk_seconds"),
+            "compiled_executables": s["compiled_executables"],
+            "mean_tpot_ms": round(s["mean_tpot"] * 1e3, 3)
+            if s["mean_tpot"] is not None else None,
+        }
+        eng.close()
+    off, on = results[None], results[chunk]
+    assert off["streams"] == on["streams"], \
+        "chunked-prefill streams diverged from the monolithic run"
+    rows = []
+    for mode, r in (("off", off), ("on", on)):
+        extra = {
+            "short_streams": shorts,
+            "short_len": short_len,
+            "short_max_new": s_max_new,
+            "long_len": long_len,
+            "long_max_new": long_max_new,
+            "decode_chunk": decode_chunk,
+            "prefill_chunk": chunk if mode == "on" else None,
+            "p99_tpot_ms": r["p99_tpot_ms"],
+            "long_ttft_ms": r["long_ttft_ms"],
+            "prefill_chunks": r["prefill_chunks"],
+            "prefill_chunk_ms": r["prefill_chunk_ms"],
+            "mean_tpot_ms": r["mean_tpot_ms"],
+            "compiled_executables": r["compiled_executables"],
+            "streams_identical": True,    # asserted above, both rows
+        }
+        if mode == "on":
+            # the two acceptance numbers, printed not claimed: the
+            # co-batched tail win and the bounded long-prompt cost
+            extra["p99_tpot_improvement"] = round(
+                off["p99_tpot_ms"] / on["p99_tpot_ms"], 3) \
+                if off["p99_tpot_ms"] and on["p99_tpot_ms"] else None
+            extra["long_ttft_ratio"] = round(
+                on["long_ttft_ms"] / off["long_ttft_ms"], 3) \
+                if off["long_ttft_ms"] else None
+        rows.append({
+            "metric": f"{name}_serving_mixed_chunk"
+                      f"{0 if mode == 'off' else chunk}",
+            "value": round(r["tokens"] / r["dt"], 2),
+            "unit": "tokens/s",
+            "vs_baseline": None,
+            "extra": extra,
+        })
+    return rows
 
 
 # speculative workload geometry per model: (prefill buckets, motif
@@ -1189,11 +1494,24 @@ def main(argv=None):
                          "resident, one row a population with the "
                          "registry's pool columns; streams asserted "
                          "deterministic and isolated first")
+    ap.add_argument("--mixed", action="store_true",
+                    help="run the chunked-prefill workload instead: K "
+                         "short-decode streams co-batched with one "
+                         "long prompt, prefill_chunk off vs on on "
+                         "fresh engines — two rows with p99_tpot_ms "
+                         "(per-token gap p99 of the short streams), "
+                         "long_ttft_ms and registry-sourced "
+                         "prefill_chunks; streams asserted "
+                         "bit-identical across rows")
+    ap.add_argument("--rebalance", action="store_true",
+                    help="run the cross-replica migration workload "
+                         "instead: a skewed admission burst onto one "
+                         "replica of N, rebalancer off vs on — one row "
+                         "with registry-sourced migrations / "
+                         "migration_ms and the hot replica's p99 TPOT "
+                         "both ways (streams bit-identical on and off)")
     ap.add_argument("--mesh", type=int, nargs="+", default=None,
                     help="not ported (ROADMAP A.8)")
-    for flag in ("--mixed", "--rebalance"):
-        ap.add_argument(flag, action="store_true",
-                        help=f"not ported (ROADMAP {_NOT_PORTED[flag]})")
     ap.add_argument("--json", metavar="OUT", default=None,
                     help="also write every result row as JSONL to OUT")
     args = ap.parse_args(argv)
@@ -1218,6 +1536,8 @@ def main(argv=None):
                                  ("--oversubscribe", args.oversubscribe),
                                  ("--speculate",
                                   args.speculate is not None),
+                                 ("--mixed", args.mixed),
+                                 ("--rebalance", args.rebalance),
                                  ("--quantize", args.quantize),
                                  ("--adapters", args.adapters is not None))
                  if on]
@@ -1246,6 +1566,10 @@ def main(argv=None):
                 rows = run_speculate(name,
                                      speculate_ks=tuple(args.speculate),
                                      device=args.device)
+            elif args.mixed:
+                rows = run_mixed(name, device=args.device)
+            elif args.rebalance:
+                rows = run_rebalance(name, device=args.device)
             elif args.quantize:
                 rows = run_quantize(name, device=args.device)
             elif args.adapters is not None:

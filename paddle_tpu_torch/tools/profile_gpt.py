@@ -23,7 +23,8 @@ batch 4 at s=512):
     yardstick only.
 
 With --train it measures instead the GPT-2 small train step (Adam,
-dropout 0.1) at the two shapes of chip_smoke.py's train phase (with
+dropout 0.1) at the two shapes of chip_smoke.py's train phase and at
+bench_gpt's default (s512 b16, bf16 AMP) (with
 --model bert: the BERT-base MLM pretrain step with the bf16 AMP rewrite,
 bert_pretrain_program(amp=True), at s=512 b=16 on the fused attention path
 with each row's last 10-40 % padded, and at bench.py's s=128 b=128 on the
@@ -334,14 +335,14 @@ class _OpRanges:
         self._saved = {"lower_op": lower_op, "_lower_grad_op": lower_grad,
                        "defs": {t: d.lower for t, d in reg._REGISTRY.items()}}
 
-        def op_range(ctx, op, env):
+        def op_range(ctx, op, env, opdef=None):
             with torch.profiler.record_function("op:" + op.type):
-                return lower_op(ctx, op, env)
+                return lower_op(ctx, op, env, opdef)
 
-        def grad_op(ctx, op, env):
+        def grad_op(ctx, op, env, opdef=None):
             self._in_grad = True
             try:
-                return lower_grad(ctx, op, env)
+                return lower_grad(ctx, op, env, opdef)
             finally:
                 self._in_grad = False
 
@@ -421,10 +422,15 @@ def _train_cells(model, rng):
     if model == "gpt":
         from paddle_tpu_torch.models.gpt import GPTConfig, gpt_lm_program
         cfg = GPTConfig()
-        return [(f"gpt2 s{seq} b{batch}", seq, batch,
-                 lambda seq=seq: gpt_lm_program(cfg, seq),
+        # chip_smoke's two train shapes, then bench_gpt's default step
+        # (s512 b16, bf16 AMP, lr 1e-4)
+        return [(f"gpt2 s{seq} b{batch}" + (" amp" if amp else ""), seq,
+                 batch, lambda seq=seq, amp=amp: gpt_lm_program(
+                     cfg, seq, learning_rate=1e-4, amp=amp),
                  {"tokens": rng.randint(0, cfg.vocab_size, (batch, seq))
-                  .astype("int64")}) for seq, batch in ((1024, 2), (512, 4))]
+                  .astype("int64")})
+                for seq, batch, amp in ((1024, 2, False), (512, 4, False),
+                                        (512, 16, True))]
     from paddle_tpu_torch.models.bert import BertConfig, bert_pretrain_program
     cells = []
     for seq, batch, impl, pad in ((512, 16, "fused", True),

@@ -9,7 +9,10 @@ agree to 1e-5 (f32; the reference's op_test allows 5e-3). Random ops draw
 other numbers in the two packages (torch.Generator vs JAX keys), so for
 them the distributions are compared, and dropout's grad is checked with a
 fed Mask. The ops the AMP rewrite puts on BERT's path (cast, einsum,
-softmax) also run in bf16 (`test_op_in_dtype_matches_jax`).
+softmax) also run in bf16 (`test_op_in_dtype_matches_jax`). The ops the
+gradient clips and the training telemetry tap append (elementwise_mul/
+div/max, clip, clip_by_norm, squared_l2_norm, sqrt, isfinite,
+logical_and, where, assign) run at the shapes those passes give them.
 """
 
 import numpy as np
@@ -72,6 +75,10 @@ _labels = _R.randint(0, 7, (4, 3, 1)).astype(np.int64)
 _labels[0, 0, 0] = -100     # one ignored position
 _soft = np.abs(_f(4, 7))
 _soft /= _soft.sum(-1, keepdims=True)
+_pos = np.abs(_f(3, 4)) + 0.5
+_inf = _f(3, 4)
+_inf[1, 2] = np.inf
+_mask = _R.rand(3, 4) > 0.5
 
 # (case id, op type, inputs, output slots, attrs)
 _CASES = [
@@ -149,6 +156,30 @@ _CASES = [
     ("sgd", "sgd", {"Param": _f(4, 5), "Grad": _f(4, 5),
                     "LearningRate": np.array([0.1], np.float32)},
      ["ParamOut"], {}),
+    ("mul_axis1", "elementwise_mul", {"X": _f(2, 3, 4), "Y": _f(3)},
+     ["Out"], {"axis": 1}),
+    ("mul_by_scale", "elementwise_mul", {"X": _f(4, 3), "Y": _f(1)},
+     ["Out"], {"axis": -1}),
+    ("div", "elementwise_div", {"X": _f(3, 4), "Y": _pos}, ["Out"],
+     {"axis": -1}),
+    ("max_trailing", "elementwise_max", {"X": _f(3, 4), "Y": _f(4)},
+     ["Out"], {"axis": -1}),
+    ("clip", "clip", {"X": _f(3, 4)}, ["Out"], {"min": -0.5, "max": 0.7}),
+    ("clip_by_norm", "clip_by_norm", {"X": _f(3, 4)}, ["Out"],
+     {"max_norm": 1.0}),
+    ("clip_by_norm_under", "clip_by_norm", {"X": _f(3, 4)}, ["Out"],
+     {"max_norm": 100.0}),
+    ("squared_l2_norm", "squared_l2_norm", {"X": _f(3, 4)}, ["Out"], {}),
+    ("sqrt", "sqrt", {"X": _pos}, ["Out"], {}),
+    ("isfinite_true", "isfinite", {"X": _f(3, 4)}, ["Out"], {}),
+    ("isfinite_inf", "isfinite", {"X": _inf}, ["Out"], {}),
+    ("logical_and", "logical_and", {"X": _mask, "Y": _R.rand(3, 4) > 0.3},
+     ["Out"], {}),
+    ("where_flag", "where", {"Condition": np.array([False]),
+                             "X": _f(4, 3), "Y": _f(4, 3)}, ["Out"], {}),
+    ("where_mask", "where", {"Condition": _mask, "X": _f(3, 4),
+                             "Y": _f(3, 4)}, ["Out"], {}),
+    ("assign", "assign", {"X": _f(3, 4)}, ["Out"], {}),
     ("adam", "adam",
      {"Param": _f(4, 5), "Grad": _f(4, 5),
       "LearningRate": np.array([0.01], np.float32),
@@ -249,6 +280,24 @@ _GRAD_CASES = [
     ("sum", "sum", {"X": [_f(3, 4), _f(3, 4)]}, ["Out"], {}, "Out", ["X"]),
     ("scale", "scale", {"X": _f(3, 4)}, ["Out"],
      {"scale": 2.5, "bias": 0.5, "bias_after_scale": True}, "Out", ["X"]),
+    ("mul_axis1", "elementwise_mul", {"X": _f(2, 3, 4), "Y": _f(3)},
+     ["Out"], {"axis": 1}, "Out", ["X", "Y"]),
+    ("mul_by_scale", "elementwise_mul", {"X": _f(4, 3), "Y": _f(1)},
+     ["Out"], {"axis": -1}, "Out", ["X", "Y"]),
+    ("div", "elementwise_div", {"X": _f(3, 4), "Y": _pos}, ["Out"],
+     {"axis": -1}, "Out", ["X", "Y"]),
+    ("max_trailing", "elementwise_max", {"X": _f(3, 4), "Y": _f(4)},
+     ["Out"], {"axis": -1}, "Out", ["X", "Y"]),
+    ("clip", "clip", {"X": _f(3, 4)}, ["Out"], {"min": -0.5, "max": 0.7},
+     "Out", ["X"]),
+    ("clip_by_norm", "clip_by_norm", {"X": _f(3, 4)}, ["Out"],
+     {"max_norm": 1.0}, "Out", ["X"]),
+    ("squared_l2_norm", "squared_l2_norm", {"X": _f(3, 4)}, ["Out"], {},
+     "Out", ["X"]),
+    ("sqrt", "sqrt", {"X": _pos}, ["Out"], {}, "Out", ["X"]),
+    ("where_mask", "where", {"Condition": _mask, "X": _f(3, 4),
+                             "Y": _f(3, 4)}, ["Out"], {}, "Out", ["X", "Y"]),
+    ("assign", "assign", {"X": _f(3, 4)}, ["Out"], {}, "Out", ["X"]),
     ("fused_attention_ref", "fused_attention",
      {"Q": _f(1, 16, 2, 8), "K": _f(1, 16, 2, 8), "V": _f(1, 16, 2, 8)},
      ["Out", "Lse"], {"causal": True, "sm_scale": 0.0, "cp_axis": "",

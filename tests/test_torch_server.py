@@ -1203,8 +1203,7 @@ def test_server_modules_import_neither_jax_nor_paddle_tpu():
                     f"{rel} imports {n}"
 
 
-@pytest.mark.parametrize("flag,item", [("--mesh 2", "A.8"),
-                                       ("--mixed", "A.2")])
+@pytest.mark.parametrize("flag,item", [("--mesh 2", "A.8")])
 def test_bench_serving_unported_workloads_raise(flag, item):
     from paddle_tpu_torch.tools import bench_serving
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
