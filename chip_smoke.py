@@ -231,6 +231,48 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 bench_serving's --mixed and --rebalance workloads on gpt2
                 (each asserts its streams identical). In a child process
                 (--bench-only);
+ 4g. nmt     -- the Transformer NMT seq2seq (models/transformer.py) at
+                Transformer base's widths (Vaswani et al. 2017, Table 3
+                "base": 6 + 6 layers, d_model 512, 8 heads, d_ff 2048),
+                37000 tokens a side (the paper's shared WMT14 En-De BPE
+                vocabulary), random weights from --seed, Adam lr 1e-4,
+                TF32 off. Held run at batch 2, 32 tokens a side with
+                padded rows: step 1's loss within LOSS_RTOL relative and
+                every gradient within GRAD_RTOL * max|g| + GRAD_ATOL of
+                the port on the CPU from the same weights and feed. Timed
+                run at batch 32, 128 tokens a side (4096 a side): 10 Adam
+                steps on one fixed batch, the loss finite and falling;
+                median step ms after the first, tokens/s, peak memory, the
+                device idle share (one step's busy time in a trace of the
+                device alone, over the median step and over the traced
+                step's own wall time). Decode at batch
+                8, source 64, max_len 32 through as_torch_function on the
+                card from the timed run's weights: greedy equal to beam
+                size 1 token for token; beam 4 by the host loop
+                (beam_search_decode) and on the device
+                (beam_search_decode_on_device, under the sync debug mode:
+                no synchronizing operation but the results' two copies)
+                each equal, sequences and scores exactly, to a numpy
+                replay of the selection from the log-probs its own steps
+                saw (the on-device loop's logits collected on the card,
+                copied once after the loop); the two loops select the
+                same candidates, or a row parts where the two candidates
+                that swapped lie within BEAM_TIE in both loops' totals
+                (counted and printed), the two loops' step logits agree
+                within NMT_LOGIT_RTOL of max|logit| up to each row's
+                parting, and the other rows' scores agree within
+                NMT_SCORE_RTOL;
+                ms per decoded token of each, kernels a step on the
+                device. No hand kernel launches (counts zeroed just before
+                each run and read just after). In a child process
+                (--nmt-only);
+ 4h. lenet   -- LeNet-5 (models/lenet.py) with Adam lr 1e-3 on a
+                synthetic MNIST-shaped batch (64, 1x28x28, 10 classes), 10
+                steps on the card, TF32 off: step 1's loss within
+                LOSS_RTOL relative and each gradient within LENET_GRAD_L2
+                relative L2 of the port on the CPU from the same weights
+                and feed; median step ms and img/s; no hand kernel
+                launches. In a child process (--lenet-only);
   5. train   -- GPT-2 small (dropout 0.1) train programs with Adam through
                 Executor.run on CUDAPlace(0): 3 steps at s=1024 b=2
                 (flash_fwd, flash_bwd_dkv, flash_bwd_dq) and 3 at s=512
@@ -2896,6 +2938,521 @@ def phase_bench(seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 4g: the Transformer NMT seq2seq (train step and decoders)
+# ---------------------------------------------------------------------------
+
+# Transformer base (Vaswani et al. 2017, Table 3 "base": N = 6 encoder and
+# 6 decoder layers, d_model 512, 8 heads, d_ff 2048) with 37000 tokens on
+# each side, the paper's shared WMT14 En-De BPE vocabulary
+NMT_CFG = dict(src_vocab=37000, tgt_vocab=37000, hidden=512, heads=8,
+               ffn_dim=2048, n_layers=6)
+NMT_LR = 1e-4
+NMT_HELD = (2, 32)        # batch, source = target length: card vs CPU
+NMT_TIMED = (32, 128)     # batch, source = target length: 4096 tokens a side
+NMT_STEPS = 10            # Adam steps of the timed run, one fixed batch
+NMT_DECODE = (8, 64, 32, 4)   # batch, source length, max_len, beam
+NMT_BOS, NMT_EOS = 1, 0
+# the two beam searches (f64 log-softmax on the host, f32 on the card) may
+# part only where the two candidates that swapped lie within BEAM_TIE of
+# each other; the scores of the rows that do not part within NMT_SCORE_RTOL
+BEAM_TIE = 1e-3
+NMT_SCORE_RTOL = 1e-5
+# the two loops' step logits over the same prefixes, relative to max|logit|
+NMT_LOGIT_RTOL = 1e-6
+
+
+def _nmt_program(src_len, tgt_len, train=True):
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models.transformer import transformer_nmt
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.unique_name_guard(), ptt.program_guard(main, startup):
+        spec = transformer_nmt(src_len=src_len, tgt_len=tgt_len, **NMT_CFG)
+        if train:
+            ptt.optimizer.Adam(NMT_LR).minimize(spec["loss"])
+    return main, startup, spec
+
+
+def _nmt_feed(rng, batch, src_len, tgt_len):
+    """Random tokens; lengths from half to all of each side, the first row
+    full."""
+    import numpy as np
+    v = NMT_CFG["src_vocab"]
+    feed = {"src": rng.randint(2, v, (batch, src_len)),
+            "src_lens": rng.randint(src_len // 2, src_len + 1, (batch, 1)),
+            "tgt_in": rng.randint(2, v, (batch, tgt_len)),
+            "tgt_out": rng.randint(2, v, (batch, tgt_len)),
+            "tgt_lens": rng.randint(tgt_len // 2, tgt_len + 1, (batch, 1))}
+    feed["src_lens"][0, 0], feed["tgt_lens"][0, 0] = src_len, tgt_len
+    return {k: a.astype(np.int64) for k, a in feed.items()}
+
+
+def _nmt_held(exe, cpu, seed, rng):
+    """Batch 2, 32 tokens a side: step 1's loss and gradients on the card
+    against the port on the CPU from the same weights and feed."""
+    import torch
+    import paddle_tpu_torch as ptt
+    b, s = NMT_HELD
+    main, startup, spec = _nmt_program(s, s)
+    startup.random_seed = main.random_seed = seed
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope)
+    init = {n: scope.find_var(n).detach().cpu().clone()
+            for n in scope.var_names()
+            if isinstance(scope.find_var(n), torch.Tensor)}
+    grads = [p.name + "@GRAD" for p in main.global_block.all_parameters()
+             if p.trainable]
+    feed = _nmt_feed(rng, b, s, s)
+    out = exe.run(main, feed=feed, fetch_list=[spec["loss"]] + grads,
+                  scope=scope, return_numpy=False)
+    t = time.perf_counter()
+    cout = cpu.run(main, feed=feed, fetch_list=[spec["loss"]] + grads,
+                   scope=_scope_from(init, "cpu"), return_numpy=False)
+    cpu_s = time.perf_counter() - t
+    loss, closs = float(out[0].item()), float(cout[0].item())
+    loss_rel = abs(loss - closs) / abs(closs)
+    worst = _grad_worst({n: g.cpu() for n, g in zip(grads, out[1:])},
+                        dict(zip(grads, cout[1:])), GRAD_RTOL)
+    rec = {"phase": "nmt", "run": "held", "batch": b, "src_len": s,
+           "tgt_len": s, "params": sum(v.numel() for n, v in init.items()
+                                       if n + "@GRAD" in grads),
+           "loss": loss, "cpu_loss": closs, "loss_rel_diff": loss_rel,
+           "loss_rtol": LOSS_RTOL, "cpu_s": cpu_s,
+           "grad_worst": {"var": worst[1], "diff": worst[2],
+                          "tol": worst[3], "share_of_tol": worst[0]},
+           "grads": len(grads)}
+    emit(rec)
+    if not loss == loss or loss_rel > LOSS_RTOL:
+        fail(f"nmt held: loss {loss} vs the CPU's {closs}")
+    if worst[0] > 1.0:
+        fail(f"nmt held: step-1 gradient {worst[1]} differs from the CPU's "
+             f"by {worst[2]} > {worst[3]}")
+    return rec
+
+
+def _idle_share(fn):
+    """(wall ms, device busy ms, idle share, device events) of one call of
+    `fn`: busy is the union of its kernels' intervals in a torch.profiler
+    trace of the device alone (a trace of the CPU too stretches the host
+    side of the call). The wall time is the profiled call's; the caller
+    also divides busy by an unprofiled step time."""
+    import torch
+    from torch.autograd import DeviceType
+    from paddle_tpu_torch.tools.profile_gpt import _union_us
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    kernels = [(e.time_range.start, e.time_range.end) for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        fail("the profiler recorded no device events")
+    busy = _union_us(kernels)
+    return wall_us / 1e3, busy / 1e3, 1.0 - busy / wall_us, len(kernels)
+
+
+def _nmt_timed(exe, seed, rng):
+    """Batch 32, 128 tokens a side: NMT_STEPS Adam steps on one fixed batch
+    (on the card once). Returns (record, trained scope)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.tools.bench_resnet50 import to_device
+    b, s = NMT_TIMED
+    main, startup, spec = _nmt_program(s, s)
+    startup.random_seed = main.random_seed = seed
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope)
+    feed = to_device(_nmt_feed(rng, b, s, s))
+
+    def step():
+        out, = exe.run(main, feed=feed, fetch_list=[spec["loss"]],
+                       scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        return out
+
+    names = list(KERNELS)
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts zeroed just before, read just after ----
+    zero_counts(names)
+    losses, ms = [], []
+    for _ in range(NMT_STEPS):
+        t = time.perf_counter()
+        out = step()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(out.item()))
+    counts = read_counts(names)
+    # ------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    wall, busy, idle, n_kernels = _idle_share(step)
+    med = float(np.median(ms[1:]))
+    rec = {"phase": "nmt", "run": "timed", "batch": b, "src_len": s,
+           "tgt_len": s, "optimizer": "adam", "lr": NMT_LR,
+           "steps": NMT_STEPS, "losses": losses, "step_ms": ms,
+           "median_step_ms": med,
+           "tgt_tokens_per_s": b * s / (med / 1e3),
+           "src_tgt_tokens_per_s": 2 * b * s / (med / 1e3),
+           "max_memory_allocated": peak, "ops": len(main.global_block.ops),
+           "profiled_step": {"wall_ms": wall, "device_busy_ms": busy,
+                             "device_idle_share": idle,
+                             "device_events": n_kernels},
+           # the traced busy time over the unprofiled median step
+           "device_idle_share": 1.0 - busy / med,
+           "launches": counts}
+    emit(rec)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"nmt timed: losses {losses} (finite and falling expected)")
+    if any(counts.values()):
+        fail(f"nmt timed: hand kernels launched {counts} (none expected)")
+    return rec, scope
+
+
+def _beam_replay(logp, b, k, eos, max_len):
+    """The beam search replayed in numpy from the log-probs that a loop's
+    steps saw (T x [b*k, V], in their own dtype: f64 for the host loop,
+    f32 for the on-device one): only beam 0 live at t = 0, a finished beam
+    extends only with eos at zero cost, the totals' candidates ranked by a
+    stable descending sort of the flattened (b, k*V) row (a tie to the
+    lower index), the scores kept in f32; then the backtrace by parent
+    pointers and the final stable best-first order. Returns (sequences
+    [b, k, max_len] eos-padded, scores [b, k], per step (totals [b, k*V],
+    selected flat indices [b, k]))."""
+    import numpy as np
+    scores = np.full((b, k), -1e9, np.float32)
+    scores[:, 0] = 0.0
+    finished = np.zeros((b, k), bool)
+    steps, ids, parents = [], [], []
+    for lp in logp:
+        v = lp.shape[-1]
+        lp = lp.reshape(b, k, v)
+        only_eos = np.where(np.arange(v) == eos, 0.0, -1e9).astype(lp.dtype)
+        lp = np.where(finished[:, :, None], only_eos, lp)
+        flat = (scores[:, :, None] + lp).reshape(b, k * v)
+        sel = np.argsort(-flat, axis=-1, kind="stable")[:, :k]
+        scores = np.take_along_axis(flat, sel, axis=-1).astype(np.float32)
+        ids.append(sel % v)
+        parents.append(sel // v)
+        finished = np.take_along_axis(finished, sel // v, axis=1) | (
+            sel % v == eos)
+        steps.append((flat, sel))
+    seqs = np.full((len(ids), b, k), eos, np.int64)
+    beam = np.tile(np.arange(k), (b, 1))
+    for t in range(len(ids) - 1, -1, -1):
+        seqs[t] = np.take_along_axis(ids[t], beam, axis=1)
+        beam = np.take_along_axis(parents[t], beam, axis=1)
+    seqs = np.concatenate(
+        [seqs.transpose(1, 2, 0),
+         np.full((b, k, max_len - len(ids)), eos, np.int64)], axis=-1)
+    order = np.argsort(-scores, axis=-1, kind="stable")
+    return (np.take_along_axis(seqs, order[:, :, None], axis=1),
+            np.take_along_axis(scores, order, axis=-1), steps)
+
+
+def _host_log_softmax(logits):
+    """The host loop's f64 log-softmax of a step's logits."""
+    import numpy as np
+    x = logits.astype(np.float64)
+    z = x - x.max(-1, keepdims=True)
+    return z - np.log(np.exp(z).sum(-1, keepdims=True))
+
+
+def _beam_parting(host_steps, dev_steps, b):
+    """For each batch row, the first step at which the two loops select
+    different candidates, and there the two candidates that swapped (the
+    first rank where the selections differ) with their gap in each loop's
+    own totals."""
+    parted = []
+    for row in range(b):
+        for t, ((hf, hs), (df, ds)) in enumerate(zip(host_steps, dev_steps)):
+            j = [i for i in range(hs.shape[1]) if hs[row, i] != ds[row, i]]
+            if j:
+                a, c = int(hs[row, j[0]]), int(ds[row, j[0]])
+                parted.append({"row": row, "step": t, "rank": j[0],
+                               "host_pick": a, "device_pick": c,
+                               "host_gap": float(hf[row, a] - hf[row, c]),
+                               "device_gap": float(df[row, c] - df[row, a])})
+                break
+    return parted
+
+
+def _nmt_decode(rng, scope):
+    """Batch 8, source 64, max_len 32 through as_torch_function on the card,
+    from the timed run's weights: greedy, beam 1 and beam 4 host loops and
+    the on-device beam 4."""
+    import warnings
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.layers import decode
+    b, s, L, k = NMT_DECODE
+    main, _, spec = _nmt_program(s, L, train=False)
+    fn = ptt.as_torch_function(main, [spec["logits"]])
+    params = {p.name: scope.find_var(p.name)
+              for p in main.global_block.all_parameters()}
+    feed = _nmt_feed(rng, b, s, L)
+    src = torch.from_numpy(feed["src"]).cuda()
+    lens = torch.from_numpy(feed["src_lens"]).cuda()
+
+    # each source row repeated for its beams, once, outside the loops
+    reps = {r: (src.repeat_interleave(r, 0), lens.repeat_interleave(r, 0),
+                torch.full((b * r, 1), L, device=src.device))
+            for r in (1, k)}
+
+    def inputs(tin, rep):
+        s_rep, l_rep, t_lens = reps[rep]
+        return {"src": s_rep, "src_lens": l_rep, "tgt_in": tin,
+                "tgt_out": tin, "tgt_lens": t_lens}
+
+    def host_step(rep, calls, record=None):
+        def step(prefix):
+            calls.append(1)
+            t = prefix.shape[1]
+            tin = torch.full((prefix.shape[0], L), NMT_EOS,
+                             device=src.device)
+            tin[:, :t] = torch.from_numpy(prefix).to(src.device)
+            out = fn(params, inputs(tin, rep))[0][:, t - 1]
+            if record is None:
+                return out
+            record.append(out.cpu().numpy())
+            return record[-1]
+        return step
+
+    dev_logits = []
+
+    def dev_step(tokens, t, record=None):
+        out = fn(params, inputs(tokens[:, :L], k))[0][:, t]
+        if record is not None:
+            record.append(out)      # kept on the card: no copy, no sync
+        return out
+
+    def timed(run):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    names = list(KERNELS)
+    zero_counts(names)
+    calls = {"greedy": [], "beam1": [], "host": []}
+    greedy, g_ms = timed(lambda: decode.greedy_decode(
+        host_step(1, calls["greedy"]), b, NMT_BOS, NMT_EOS, L))
+    (beam1, _), b1_ms = timed(lambda: decode.beam_search_decode(
+        host_step(1, calls["beam1"]), b, 1, NMT_BOS, NMT_EOS, L))
+    record = []
+    (hs, hsc), h_ms = timed(lambda: decode.beam_search_decode(
+        host_step(k, calls["host"], record), b, k, NMT_BOS, NMT_EOS, L))
+    # the on-device loop under the sync debug mode: every synchronizing
+    # operation warns, and the results' two copies to the host at the end
+    # are the only ones expected (they also end the timed span)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t = time.perf_counter()
+            ds, dsc = decode.beam_search_decode_on_device(
+                lambda tok, i: dev_step(tok, i, dev_logits), b, k, NMT_BOS,
+                NMT_EOS, L, device=src.device)
+            d_ms = (time.perf_counter() - t) * 1e3
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    counts = read_counts(names)
+    sync_sites = {}
+    for w in caught:
+        # (not the mode's own notice that it is a prototype, which also
+        # says "synchronizing")
+        if "called a synchronizing CUDA operation" in str(w.message):
+            site = f"{os.path.basename(w.filename)}:{w.lineno}"
+            sync_sites[site] = sync_sites.get(site, 0) + 1
+    syncs = sum(sync_sites.values())
+    events = _device_events(lambda: decode.beam_search_decode_on_device(
+        dev_step, b, k, NMT_BOS, NMT_EOS, L, device=src.device))
+    # each loop replayed from the log-probs its own steps saw: the on-device
+    # loop's from its logits (collected on the card, their log-softmax
+    # taken there by the loop's own op, one copy after the loop), the host
+    # loop's from the logits it received
+    dev_x = torch.stack(dev_logits).cpu().numpy()
+    dev_lp = torch.stack([torch.log_softmax(x.float(), dim=-1)
+                          for x in dev_logits]).cpu().numpy()
+    del dev_logits
+    rs, rsc, dev_steps = _beam_replay(dev_lp, b, k, NMT_EOS, L)
+    hrs, hrsc, host_steps = _beam_replay(
+        [_host_log_softmax(x) for x in record], b, k, NMT_EOS, L)
+    replay = {"device_sequences_equal": bool((rs == ds).all()),
+              "device_scores_equal": bool((rsc == dsc).all()),
+              "host_sequences_equal": bool((hrs == hs).all()),
+              "host_scores_equal": bool((hrsc == hsc).all())}
+    # the two loops against each other: a row may part only where the two
+    # candidates that swapped lie within BEAM_TIE in both loops' totals
+    parted = _beam_parting(host_steps, dev_steps, b)
+    kept = [r for r in range(b) if r not in {p["row"] for p in parted}]
+    unparted_equal = bool((hs[kept] == ds[kept]).all())
+    # up to and at its parting step a row's beams hold the same prefixes in
+    # both loops, so their step functions saw the same tokens: the logits
+    # of those steps must agree
+    last = {p["row"]: p["step"] for p in parted}
+    logit_diff = max(
+        float(np.abs(record[t].reshape(b, k, -1)[row]
+                     - dev_x[t].reshape(b, k, -1)[row]).max())
+        for row in range(b)
+        for t in range(min(last.get(row, L - 1) + 1, len(record))))
+    logit_tol = NMT_LOGIT_RTOL * float(np.abs(dev_x).max())
+    score_rel = float(np.max(np.abs(dsc[kept] - hsc[kept])
+                             / np.abs(hsc[kept]))) if kept else None
+    rec = {"phase": "nmt", "run": "decode", "batch": b, "src_len": s,
+           "max_len": L, "beam": k,
+           "ms_per_token": {"greedy": g_ms / len(calls["greedy"]),
+                            "beam1_host": b1_ms / len(calls["beam1"]),
+                            "beam4_host": h_ms / len(calls["host"]),
+                            "beam4_on_device": d_ms / L},
+           "steps": {"greedy": len(calls["greedy"]),
+                     "beam4_host": len(calls["host"]), "beam4_on_device": L},
+           "wall_ms": {"greedy": g_ms, "beam4_host": h_ms,
+                       "beam4_on_device": d_ms},
+           "on_device_kernels_per_step": len(events) / L,
+           "on_device_syncs": syncs, "sync_sites": sync_sites,
+           "greedy_equals_beam1": bool((beam1[:, 0] == greedy).all()),
+           "replay_exact": replay, "parted_rows": parted,
+           "unparted_rows_equal": unparted_equal,
+           "logits_max_abs_diff_to_parting": logit_diff,
+           "logits_tol": logit_tol, "score_rows_compared": len(kept),
+           "score_max_rel_diff": score_rel,
+           "score_rtol": NMT_SCORE_RTOL, "tie": BEAM_TIE,
+           "launches": counts}
+    emit(rec)
+    if not rec["greedy_equals_beam1"]:
+        fail("nmt decode: greedy differs from beam size 1")
+    if not all(replay.values()):
+        fail(f"nmt decode: a beam search differs from its replay from the "
+             f"log-probs its steps saw: {replay}")
+    if not unparted_equal or any(
+            not max(p["host_gap"], p["device_gap"]) < BEAM_TIE
+            for p in parted):
+        fail(f"nmt decode: the on-device beam search parts from the host "
+             f"loop away from a near tie: {parted}")
+    if not logit_diff <= logit_tol:
+        fail(f"nmt decode: the two loops' step logits differ by "
+             f"{logit_diff} > {logit_tol} before their rows part")
+    if score_rel is not None and score_rel > NMT_SCORE_RTOL:
+        fail(f"nmt decode: scores differ by {score_rel} relative")
+    # the loop reads nothing back: the only synchronizing copies are the
+    # two results' after it
+    if syncs > 2:
+        fail(f"nmt decode: {syncs} synchronizing operations in the "
+             f"on-device beam search (2 expected, the results' copies)")
+    if any(counts.values()):
+        fail(f"nmt decode: hand kernels launched {counts} (none expected)")
+    return rec
+
+
+def phase_nmt(seed):
+    """Transformer base NMT (NMT_CFG) on the card: the held step against
+    the CPU, the timed Adam steps and the decoders. In a child process
+    (--nmt-only)."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(seed)
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    held = _nmt_held(exe, ptt.Executor(ptt.CPUPlace()), seed, rng)
+    _free_card()
+    timed, scope = _nmt_timed(exe, seed, rng)
+    dec = _nmt_decode(rng, scope)
+    summary = {"phase": "nmt", "model": "transformer-base", **NMT_CFG,
+               "held": held, "timed": timed, "decode": dec,
+               "wall_s": time.perf_counter() - t_phase}
+    emit(summary)
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 4h: LeNet-5 on an MNIST-shaped feed
+# ---------------------------------------------------------------------------
+
+LENET_BATCH = 64
+LENET_STEPS = 10
+LENET_LR = 1e-3
+LENET_GRAD_L2 = 1e-3     # each step-1 gradient, card vs CPU, relative L2
+
+
+def phase_lenet(seed):
+    """LeNet-5 (models/lenet.py) with Adam on a synthetic MNIST-shaped
+    batch (b64, 1x28x28, 10 classes): LENET_STEPS steps on the card, step 1
+    held against the port on the CPU from the same weights and feed. In a
+    child process (--lenet-only)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models.lenet import lenet
+    from paddle_tpu_torch.tools.bench_resnet50 import to_device
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(seed)
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.unique_name_guard(), ptt.program_guard(main, startup):
+        img = ptt.layers.data("img", [1, 28, 28])
+        label = ptt.layers.data("label", [1], dtype="int64")
+        loss = ptt.layers.mean(ptt.layers.softmax_with_cross_entropy(
+            lenet(img, 10), label))
+        ptt.optimizer.Adam(LENET_LR).minimize(loss)
+    startup.random_seed = main.random_seed = seed
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope)
+    init = {n: scope.find_var(n).detach().cpu().clone()
+            for n in scope.var_names()
+            if isinstance(scope.find_var(n), torch.Tensor)}
+    grads = [p.name + "@GRAD" for p in main.global_block.all_parameters()]
+    feed = {"img": rng.rand(LENET_BATCH, 1, 28, 28).astype(np.float32),
+            "label": rng.randint(0, 10, (LENET_BATCH, 1)).astype(np.int64)}
+    cout = ptt.Executor(ptt.CPUPlace()).run(
+        main, feed=feed, fetch_list=[loss] + grads,
+        scope=_scope_from(init, "cpu"), return_numpy=False)
+    dfeed = to_device(feed)
+    names = list(KERNELS)
+    # ---- the main path: counts zeroed just before, read just after ----
+    zero_counts(names)
+    losses, ms, g1 = [], [], None
+    for i in range(LENET_STEPS):
+        t = time.perf_counter()
+        out = exe.run(main, feed=dfeed,
+                      fetch_list=[loss] + (grads if i == 0 else []),
+                      scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(out[0].item()))
+        if i == 0:
+            g1 = dict(zip(grads, out[1:]))
+    counts = read_counts(names)
+    # ------------------------------------------------------------------
+    closs = float(cout[0].item())
+    loss_rel = abs(losses[0] - closs) / abs(closs)
+    gl2 = {n: _rel_l2(g1[n].cpu(), c) for n, c in zip(grads, cout[1:])}
+    worst = max((v, n) for n, v in gl2.items())
+    med = float(np.median(ms[1:]))
+    summary = {"phase": "lenet", "batch": LENET_BATCH, "optimizer": "adam",
+               "lr": LENET_LR, "steps": LENET_STEPS, "losses": losses,
+               "cpu_loss": closs, "loss_rel_diff": loss_rel,
+               "loss_rtol": LOSS_RTOL,
+               "grad_worst_rel_l2": {"var": worst[1], "rel_l2": worst[0],
+                                     "tol": LENET_GRAD_L2},
+               "step_ms": ms, "median_step_ms": med,
+               "img_per_s": LENET_BATCH / (med / 1e3),
+               "launches": counts, "wall_s": time.perf_counter() - t_phase}
+    emit(summary)
+    if not all(np.isfinite(losses)) or loss_rel > LOSS_RTOL:
+        fail(f"lenet: losses {losses}, step 1 against the CPU's {closs}")
+    if worst[0] > LENET_GRAD_L2:
+        fail(f"lenet: step-1 gradient {worst[1]} lies {worst[0]} relative "
+             f"L2 from the CPU's")
+    if any(counts.values()):
+        fail(f"lenet: hand kernels launched {counts} (none expected)")
+    return summary
+
+
+# ---------------------------------------------------------------------------
 # phase 5: GPT-2 small training steps
 # ---------------------------------------------------------------------------
 
@@ -4198,10 +4755,10 @@ def phase_times(serve, train, bert, spike, seed):
 
 
 def in_child(seed, flag):
-    """Phase 4, 4b, 4c, 4d, 4e or 4f in a process of its own (this
+    """Phase 4, 4b, 4c, 4d, 4e, 4f, 4g or 4h in a process of its own (this
     script with --engine-only, --server-only, --spec-only, --quant-only,
-    --adapters-only or --bench-only), its JSON lines passed through, its
-    summary returned. After the engine's run, torch.profiler traces taken
+    --adapters-only, --bench-only, --nmt-only or --lenet-only), its JSON
+    lines passed through, its summary returned. After the engine's run, torch.profiler traces taken
     later in the same process lost one kernel record a trace (PERF.md §6,
     the engine's calls 2-7), which the times phase's device-time checks
     refuse; the child's exit takes that state with it."""
@@ -4236,6 +4793,10 @@ def main():
                       help="run phase 4e alone, likewise")
     only.add_argument("--bench-only", action="store_true",
                       help="run phase 4f alone, likewise")
+    only.add_argument("--nmt-only", action="store_true",
+                      help="run phase 4g alone, likewise")
+    only.add_argument("--lenet-only", action="store_true",
+                      help="run phase 4h alone, likewise")
     args = ap.parse_args()
     preflight()
     import torch
@@ -4245,7 +4806,9 @@ def main():
              phase_spec if args.spec_only else
              phase_quant if args.quant_only else
              phase_adapters if args.adapters_only else
-             phase_bench if args.bench_only else None)
+             phase_bench if args.bench_only else
+             phase_nmt if args.nmt_only else
+             phase_lenet if args.lenet_only else None)
     if alone is not None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -4279,6 +4842,8 @@ def main():
         quant = in_child(args.seed, "--quant-only")
         adapters = in_child(args.seed, "--adapters-only")
         bench = in_child(args.seed, "--bench-only")
+        nmt = in_child(args.seed, "--nmt-only")
+        lenet = in_child(args.seed, "--lenet-only")
         train = phase_train(args.seed)
         bert = phase_bert(args.seed)
         resnet = phase_resnet(args.seed)
@@ -4292,6 +4857,7 @@ def main():
                    "kernel_cases": kernels, "serve": serve["summary"],
                    "engine": engine, "server": server, "spec": spec,
                    "quant": quant, "adapters": adapters, "bench": bench,
+                   "nmt": nmt, "lenet": lenet,
                    "train": train["summaries"],
                    "bert": bert["runs"],
                    "resnet": resnet, "spike": spike["rows"],

@@ -13,7 +13,10 @@ continuous-batching GPT serving engine (`serving`,
 `inference.create_engine`) over the paged KV decode path of
 `models.gpt_decode`, with host-swap preemption and live migration, and
 the HTTP server tier over it (`server.serve`: router, replicas, the
-debug and alert planes of `observability`).
+debug and alert planes of `observability`), the NMT Transformer's train
+step and its greedy and beam-search decoders (`models.transformer`,
+`layers.decode`, `as_torch_function`), and LeNet, VGG-16 and the book
+models (`models.{lenet,vgg,book}`, `nets`).
 
 Places are real: `Executor()` runs on `CUDAPlace(0)` and raises when no GPU
 is present; `Executor(CPUPlace())` runs on the CPU.
@@ -26,8 +29,9 @@ from .framework import (Program, Block, Operator, Variable, Parameter,
                         unique_name_guard, name_scope,
                         Executor, Scope, global_scope, scope_guard,
                         CPUPlace, CUDAPlace, append_backward, gradients,
-                        LayerHelper, ParamAttr)
+                        LayerHelper, ParamAttr, as_torch_function)
 from . import layers
+from . import nets
 from . import optimizer
 from . import initializer
 from . import io
@@ -49,7 +53,7 @@ __all__ = ["Program", "Block", "Operator", "Variable", "Parameter",
            "default_startup_program", "unique_name", "unique_name_guard",
            "name_scope", "Executor", "Scope", "global_scope", "scope_guard",
            "CPUPlace", "CUDAPlace", "append_backward", "gradients",
-           "LayerHelper", "ParamAttr", "layers", "optimizer", "initializer",
-           "io", "observability", "inference", "contrib", "profiler",
+           "as_torch_function", "LayerHelper", "ParamAttr", "layers",
+           "nets", "optimizer", "initializer", "io", "observability", "inference", "contrib", "profiler",
            "serving", "server", "analysis", "clip", "compiler",
            "CompiledProgram", "BuildStrategy", "ExecutionStrategy"]

@@ -61,7 +61,8 @@ from ..observability.tracer import trace_span, tracing_enabled
 from ..observability import train_stats as _train_stats
 
 __all__ = ["Scope", "Executor", "global_scope", "scope_guard",
-           "CPUPlace", "CUDAPlace", "classify_persistables"]
+           "CPUPlace", "CUDAPlace", "classify_persistables",
+           "as_torch_function"]
 
 
 # ---------------------------------------------------------------------------
@@ -784,3 +785,89 @@ class Executor:
         self._cache.clear()
         self._compile_stats.clear()
         self._classify_cache.clear()
+
+
+# ---------------------------------------------------------------------------
+# a program block as a plain function
+# ---------------------------------------------------------------------------
+
+def as_torch_function(program: Program, fetch_list, is_test: bool = True,
+                      seed: int = 0, device=None):
+    """Export a program block as a function of torch tensors,
+    fn(scope_vals: dict[str, Tensor], feed_vals: dict[str, Tensor]) ->
+    list[Tensor]: the counterpart of the JAX package's `as_jax_function`
+    (paddle_tpu/framework/executor.py:871), which the decoders' step
+    functions call.
+
+    is_test=True exports the clone(for_test=True) view (dropout and
+    batch_norm in inference mode, backward and optimizer ops pruned). Each
+    call lowers the ops through `lower_op` with a fresh `LowerContext`
+    whose `torch.Generator` is seeded with `seed`, so a call is a pure
+    function of its inputs. It runs on the device of the tensors passed in
+    (numpy values become tensors there) and never moves a tensor. When no
+    input is a tensor it runs on `device`, by default the CUDA card (no
+    card raises: it never runs on the CPU unless asked); a `device` that
+    differs from the tensors' raises. XLA
+    drops the ops that no fetch reads when the JAX function is jitted; the
+    eager function does not run them at all (an op that draws random
+    numbers is kept, so the draws of the others stay in place).
+    """
+    fetch_names = [f.name if isinstance(f, Variable) else f
+                   for f in fetch_list]
+    if is_test:
+        program = program.clone(for_test=True)
+    host = [op.type for op in program.global_block.ops
+            if op.type in _JAX_HOST_OPS]
+    if host:
+        raise ValueError(
+            f"as_torch_function: program contains host-boundary op(s) "
+            f"{host} (file IO / RPC / readers) that cannot lower into a "
+            f"plain torch function; run it through Executor.run instead")
+    needed = set(fetch_names)
+    ops = []
+    for op in reversed(program.global_block.ops):
+        if op.type in ("feed", "fetch"):
+            continue
+        opdef = resolve_op(op)
+        if needed & set(op.output_names()) or (
+                opdef.stateful and not op.type.endswith("_grad")):
+            ops.append((op, opdef))
+            needed.update(op.input_names())
+    ops.reverse()
+    want = None if device is None else torch.device(device)
+    if want is not None and want.type == "cuda" and want.index is None:
+        want = torch.device("cuda", torch.cuda.current_device())
+
+    def fn(scope_vals, feed_vals):
+        tensors = [v for v in list(scope_vals.values())
+                   + list(feed_vals.values()) if isinstance(v, torch.Tensor)]
+        devices = {t.device for t in tensors}
+        if len(devices) > 1:
+            raise ValueError(
+                f"as_torch_function: inputs lie on several devices "
+                f"{sorted(map(str, devices))}; pass them on one")
+        if devices:
+            device = devices.pop()
+            if want is not None and device != want:
+                raise ValueError(
+                    f"as_torch_function: inputs lie on {device}, the "
+                    f"function was made for {want}; it moves no tensor")
+        elif want is not None:
+            device = want
+        elif torch.cuda.is_available():
+            device = torch.device("cuda", torch.cuda.current_device())
+        else:
+            raise RuntimeError(
+                "as_torch_function runs on the CUDA card when no input is a "
+                "tensor and none is available; pass device='cpu' to run on "
+                "the CPU")
+        env = {k: v if isinstance(v, torch.Tensor)
+               else torch.as_tensor(np.asarray(v), device=device)
+               for d in (scope_vals, feed_vals) for k, v in d.items()}
+        ctx = LowerContext(device=device, seed=seed)
+        with torch.no_grad():
+            for op, opdef in ops:
+                lower_op(ctx, op, env, opdef)
+        return [env[n] for n in fetch_names]
+
+    return fn

@@ -1,5 +1,5 @@
-"""Math layers of the GPT and BERT slices: elementwise_add (and `+` on
-Variables), matmul, einsum, scale, mean.
+"""Math layers: elementwise_add and elementwise_sub (and `+`, `-` on
+Variables), matmul, einsum, scale, mean, reduce_sum, reduce_mean, tril.
 
 Copied from `paddle_tpu/layers/math.py`: the same op types, slots and
 attrs.
@@ -8,7 +8,8 @@ attrs.
 from ..framework.core import Variable
 from ..framework.layer_helper import LayerHelper
 
-__all__ = ["elementwise_add", "matmul", "einsum", "scale", "mean"]
+__all__ = ["elementwise_add", "elementwise_sub", "matmul", "einsum", "scale",
+           "mean", "reduce_sum", "reduce_mean", "tril"]
 
 
 def _to_variable(x, ref: Variable):
@@ -44,6 +45,10 @@ def elementwise_add(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_add", x, y, axis, act, name)
 
 
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_sub", x, y, axis, act, name)
+
+
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
     helper = LayerHelper("matmul", name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
@@ -75,4 +80,32 @@ def mean(x, name=None):
     helper = LayerHelper("mean", name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op("mean", {"X": [x.name]}, {"Out": [out.name]})
+    return out
+
+
+def _reduce(op_type, x, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if dim is None:
+        attrs = {"reduce_all": True, "keep_dim": keep_dim}
+    else:
+        dim = dim if isinstance(dim, (list, tuple)) else [dim]
+        attrs = {"dim": list(dim), "keep_dim": keep_dim}
+    helper.append_op(op_type, {"X": [x.name]}, {"Out": [out.name]}, attrs)
+    return out
+
+
+def reduce_sum(x, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_sum", x, dim, keep_dim, name)
+
+
+def reduce_mean(x, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_mean", x, dim, keep_dim, name)
+
+
+def tril(x, diagonal=0, name=None):
+    helper = LayerHelper("tril", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("tril_triu", {"X": [x.name]}, {"Out": [out.name]},
+                     {"diagonal": diagonal, "lower": True})
     return out

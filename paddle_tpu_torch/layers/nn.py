@@ -1,6 +1,8 @@
-"""NN layers of the GPT, BERT and ResNet slices: fc, embedding, conv2d,
-pool2d, batch_norm, layer_norm, dropout, relu, gelu, softmax,
-softmax_with_cross_entropy, topk, accuracy, fused_attention.
+"""NN layers of the GPT, BERT, ResNet, NMT Transformer and book slices: fc
+(one input or a list), embedding, conv2d, pool2d, batch_norm, layer_norm,
+dropout, relu, sigmoid, tanh, gelu, sqrt, softmax,
+softmax_with_cross_entropy, square_error_cost, topk, accuracy,
+fused_attention, add_position_encoding.
 
 Copied from `paddle_tpu/layers/nn.py`: the same op types, slots, attrs and
 parameter initializers, and the same order of var creation, so programs
@@ -14,31 +16,43 @@ from ..framework.layer_helper import LayerHelper
 from ..initializer import Constant, Normal, Xavier
 
 __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
-           "dropout", "relu", "gelu", "softmax", "softmax_with_cross_entropy",
-           "topk", "accuracy", "fused_attention"]
+           "dropout", "relu", "sigmoid", "tanh", "gelu", "sqrt", "softmax",
+           "softmax_with_cross_entropy", "square_error_cost", "topk",
+           "accuracy", "fused_attention", "add_position_encoding"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
        act=None, name=None):
-    """Fully-connected (reference: layers/nn.py:224), one input."""
+    """Fully-connected (reference: layers/nn.py:224). input may be a list:
+    one weight and one mul an input, the products summed."""
     helper = LayerHelper("fc", name=name)
-    if isinstance(input, (list, tuple)):
-        raise NotImplementedError("fc over a list of inputs (the sum op) is "
-                                  "not ported to paddle_tpu_torch yet")
-    in_features = 1
-    for d in input.shape[num_flatten_dims:]:
-        in_features *= int(d)
-    w = helper.create_parameter(param_attr, [in_features, size], input.dtype)
-    out = helper.create_variable_for_type_inference(input.dtype)
-    helper.append_op("mul", {"X": [input.name], "Y": [w.name]},
-                     {"Out": [out.name]},
-                     {"x_num_col_dims": num_flatten_dims,
-                      "y_num_col_dims": 1})
+    inputs = input if isinstance(input, (list, tuple)) else [input]
+    mul_outs = []
+    for inp in inputs:
+        in_features = 1
+        for d in inp.shape[num_flatten_dims:]:
+            in_features *= int(d)
+        w = helper.create_parameter(param_attr, [in_features, size],
+                                    inp.dtype)
+        out = helper.create_variable_for_type_inference(inp.dtype)
+        helper.append_op("mul", {"X": [inp.name], "Y": [w.name]},
+                         {"Out": [out.name]},
+                         {"x_num_col_dims": num_flatten_dims,
+                          "y_num_col_dims": 1})
+        mul_outs.append(out)
+    if len(mul_outs) == 1:
+        pre_bias = mul_outs[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(
+            mul_outs[0].dtype)
+        helper.append_op("sum", {"X": [o.name for o in mul_outs]},
+                         {"Out": [pre_bias.name]})
     if bias_attr is not False:
-        b = helper.create_parameter(bias_attr, [size], out.dtype,
+        b = helper.create_parameter(bias_attr, [size], pre_bias.dtype,
                                     is_bias=True)
-        out = helper.append_bias_op(out, b, dim_start=num_flatten_dims)
-    return helper.append_activation(out, act)
+        pre_bias = helper.append_bias_op(pre_bias, b,
+                                         dim_start=num_flatten_dims)
+    return helper.append_activation(pre_bias, act)
 
 
 def embedding(input, size, is_sparse=False, padding_idx=None,
@@ -222,6 +236,18 @@ def relu(x, name=None):
     return _unary("relu", x, name=name)
 
 
+def sigmoid(x, name=None):
+    return _unary("sigmoid", x, name=name)
+
+
+def tanh(x, name=None):
+    return _unary("tanh", x, name=name)
+
+
+def sqrt(x, name=None):
+    return _unary("sqrt", x, name=name)
+
+
 def gelu(x, approximate=False, name=None):
     return _unary("gelu", x, {"approximate": approximate}, name)
 
@@ -273,3 +299,21 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, softmax_out
     return loss
+
+
+def square_error_cost(input, label, name=None):
+    helper = LayerHelper("square_error_cost", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("square_error_cost",
+                     {"X": [input.name], "Label": [label.name]},
+                     {"Out": [out.name]})
+    return out
+
+
+def add_position_encoding(input, alpha=1.0, beta=1.0, name=None):
+    """reference: layers/nn.py add_position_encoding (sinusoidal PE)."""
+    helper = LayerHelper("add_position_encoding", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("add_position_encoding", {"X": [input.name]},
+                     {"Out": [out.name]}, {"alpha": alpha, "beta": beta})
+    return out

@@ -1,4 +1,5 @@
-"""Tensor layers of the inference slice: data, reshape, slice, arange.
+"""Tensor layers: data, fill_constant, concat, split, reshape, squeeze,
+unsqueeze, transpose, slice, arange.
 
 Copied from `paddle_tpu/layers/tensor.py`: the same op types, slots and
 attrs, so a program built by either DSL serializes alike.
@@ -9,7 +10,10 @@ import numpy as np
 from ..framework.core import convert_np_dtype, default_main_program
 from ..framework.layer_helper import LayerHelper
 
-__all__ = ["data", "reshape", "slice", "arange"]
+__all__ = ["data", "fill_constant", "concat", "split", "reshape", "squeeze",
+           "unsqueeze", "transpose", "slice", "arange"]
+
+_builtin_range = range
 
 
 def data(name, shape, dtype="float32", append_batch_size=True,
@@ -24,6 +28,40 @@ def data(name, shape, dtype="float32", append_batch_size=True,
                           stop_gradient=stop_gradient, is_data=True)
 
 
+def fill_constant(shape, dtype, value, name=None):
+    helper = LayerHelper("fill_constant", name=name)
+    out = helper.create_variable_for_type_inference(dtype,
+                                                    stop_gradient=True)
+    helper.append_op("fill_constant", {}, {"Out": [out.name]},
+                     {"shape": list(shape), "dtype": convert_np_dtype(dtype),
+                      "value": float(value)})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op("concat", {"X": [v.name for v in input]},
+                     {"Out": [out.name]}, {"axis": axis})
+    return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", name=name)
+    dim = dim % len(input.shape)
+    if isinstance(num_or_sections, int):
+        n = num_or_sections
+        attrs = {"num": n, "axis": dim}
+    else:
+        n = len(num_or_sections)
+        attrs = {"sections": list(num_or_sections), "axis": dim}
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in _builtin_range(n)]
+    helper.append_op("split", {"X": [input.name]},
+                     {"Out": [o.name for o in outs]}, attrs)
+    return outs
+
+
 def reshape(x, shape, inplace=False, name=None):
     helper = LayerHelper("reshape2", name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
@@ -31,6 +69,37 @@ def reshape(x, shape, inplace=False, name=None):
     helper.append_op("reshape2", {"X": [x.name]},
                      {"Out": [out.name], "XShape": [xshape.name]},
                      {"shape": list(shape)})
+    return out
+
+
+def squeeze(x, axes=None, name=None):
+    helper = LayerHelper("squeeze2", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op("squeeze2", {"X": [x.name]},
+                     {"Out": [out.name], "XShape": [xshape.name]},
+                     {"axes": axes or []})
+    return out
+
+
+def unsqueeze(x, axes, name=None):
+    helper = LayerHelper("unsqueeze2", name=name)
+    axes = axes if isinstance(axes, (list, tuple)) else [axes]
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op("unsqueeze2", {"X": [x.name]},
+                     {"Out": [out.name], "XShape": [xshape.name]},
+                     {"axes": list(axes)})
+    return out
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose2", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op("transpose2", {"X": [x.name]},
+                     {"Out": [out.name], "XShape": [xshape.name]},
+                     {"axis": list(perm)})
     return out
 
 

@@ -105,9 +105,8 @@ def image_classification_program(arch: str = "resnet_cifar10",
     elif arch == "resnet50":
         logits = resnet(img, 50, class_num)
     elif arch == "vgg16":
-        raise NotImplementedError(
-            "arch='vgg16' needs models/vgg.py, which is not ported to "
-            "paddle_tpu_torch yet")
+        from .vgg import vgg16
+        logits = vgg16(img, class_num)
     else:
         raise ValueError(arch)
     loss = layers.mean(layers.softmax_with_cross_entropy(logits, label))

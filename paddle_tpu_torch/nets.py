@@ -1,0 +1,112 @@
+"""Composite network helpers (reference: python/paddle/fluid/nets.py —
+simple_img_conv_pool, img_conv_group, sequence_conv_pool, glu,
+scaled_dot_product_attention).
+
+Copied from `paddle_tpu/nets.py`. sequence_conv_pool needs sequence_pool
+(ROADMAP A.6) and switch_moe_ffn the one_hot, cumsum, arg_max and
+less_equal ops of A.4 (reduce_max is registered); both raise until those
+land."""
+
+from __future__ import annotations
+
+from . import layers
+
+__all__ = ["simple_img_conv_pool", "img_conv_group", "glu",
+           "scaled_dot_product_attention", "sequence_conv_pool",
+           "switch_moe_ffn"]
+
+
+def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
+                         pool_stride, pool_padding=0, pool_type="max",
+                         global_pooling=False, conv_stride=1,
+                         conv_padding=0, conv_dilation=1, conv_groups=1,
+                         param_attr=None, bias_attr=None, act=None):
+    conv = layers.conv2d(input, num_filters, filter_size,
+                         stride=conv_stride, padding=conv_padding,
+                         dilation=conv_dilation, groups=conv_groups,
+                         param_attr=param_attr, bias_attr=bias_attr,
+                         act=act)
+    return layers.pool2d(conv, pool_size, pool_type, pool_stride,
+                         pool_padding, global_pooling=global_pooling)
+
+
+def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
+                   conv_filter_size=3, conv_act=None,
+                   conv_with_batchnorm=False, conv_batchnorm_drop_rate=0.0,
+                   pool_stride=1, pool_type="max"):
+    tmp = input
+    if isinstance(conv_with_batchnorm, bool):
+        conv_with_batchnorm = [conv_with_batchnorm] * len(conv_num_filter)
+    if not isinstance(conv_batchnorm_drop_rate, (list, tuple)):
+        conv_batchnorm_drop_rate = \
+            [conv_batchnorm_drop_rate] * len(conv_num_filter)
+    for i, nf in enumerate(conv_num_filter):
+        with_bn = conv_with_batchnorm[i]
+        tmp = layers.conv2d(tmp, nf, conv_filter_size,
+                            padding=conv_padding,
+                            act=None if with_bn else conv_act,
+                            bias_attr=False if with_bn else None)
+        if with_bn:
+            tmp = layers.batch_norm(tmp, act=conv_act)
+            if conv_batchnorm_drop_rate[i] > 0:
+                tmp = layers.dropout(tmp, conv_batchnorm_drop_rate[i])
+    return layers.pool2d(tmp, pool_size, pool_type, pool_stride)
+
+
+def glu(input, dim=-1):
+    """Gated linear unit: split in half along dim, a * sigmoid(b)."""
+    a, b = layers.split(input, 2, dim=dim)
+    return a * layers.sigmoid(b)
+
+
+def scaled_dot_product_attention(queries, keys, values, num_heads=1,
+                                 dropout_rate=0.0):
+    """reference nets.py scaled_dot_product_attention — multi-head
+    attention over [b, s, d] tensors as batched matmuls (use
+    layers.fused_attention directly for the flash/ring kernel path)."""
+    d_model = queries.shape[-1]
+    if d_model % num_heads != 0:
+        raise ValueError("num_heads must divide d_model")
+    dk = d_model // num_heads
+
+    def split_heads(x):
+        # [b, s, d] -> [b, h, s, dk]
+        y = layers.reshape(x, [0, x.shape[1], num_heads, dk])
+        return layers.transpose(y, [0, 2, 1, 3])
+
+    q = split_heads(layers.fc(queries, d_model, num_flatten_dims=2,
+                              bias_attr=False))
+    k = split_heads(layers.fc(keys, d_model, num_flatten_dims=2,
+                              bias_attr=False))
+    v = split_heads(layers.fc(values, d_model, num_flatten_dims=2,
+                              bias_attr=False))
+    scores = layers.matmul(q, layers.transpose(k, [0, 1, 3, 2]))
+    weights = layers.softmax(layers.scale(scores, scale=dk ** -0.5))
+    if dropout_rate > 0:
+        weights = layers.dropout(weights, dropout_rate)
+    ctx = layers.matmul(weights, v)                   # [b, h, s, dk]
+    ctx = layers.transpose(ctx, [0, 2, 1, 3])
+    ctx = layers.reshape(ctx, [0, ctx.shape[1], d_model])
+    return layers.fc(ctx, d_model, num_flatten_dims=2, bias_attr=False)
+
+
+def sequence_conv_pool(input, num_filters, filter_size, lengths=None,
+                       act="sigmoid", pool_type="max"):
+    """1-D windowed conv over [b, s, d] + sequence pool (reference
+    nets.py sequence_conv_pool for text CNNs)."""
+    raise NotImplementedError(
+        "sequence_conv_pool needs layers.sequence_pool, which is not "
+        "ported to paddle_tpu_torch yet (ROADMAP A.6: control flow, LoD "
+        "and RNN)")
+
+
+def switch_moe_ffn(x, num_experts, d_model, d_ffn, capacity_factor=1.25,
+                   name_prefix=None):
+    """Switch-style top-1 mixture-of-experts FFN (`paddle_tpu/nets.py`
+    switch_moe_ffn): router, capacity masking, dispatch and combine
+    einsums, load-balancing aux loss."""
+    raise NotImplementedError(
+        "switch_moe_ffn needs the one_hot, cumsum, arg_max and less_equal "
+        "ops and the argmax, one_hot, cumsum, less_equal, reduce_max, cast, "
+        "clip and create_parameter layers, which are not ported to "
+        "paddle_tpu_torch yet (ROADMAP A.4)")

@@ -1,12 +1,14 @@
 """Activation ops of the GPT, BERT and ResNet slices: relu, gelu, softmax;
-and sqrt, which the global-norm clip appends.
+sqrt, which the global-norm clip appends; and sigmoid and tanh, which the
+book models and `nets.glu` append.
 
-Port of the `relu` (:20), `gelu` (:26), `sqrt` (:46) and `softmax` (:91)
-entries of `paddle_tpu/ops/activation_ops.py`. gelu's `approximate=True` is the tanh
+Port of the `relu` (:20), `sigmoid` (:22), `tanh` (:24), `gelu` (:26),
+`sqrt` (:46) and `softmax` (:91) entries of
+`paddle_tpu/ops/activation_ops.py`. gelu's `approximate=True` is the tanh
 form (GPT-2's gelu_new, the form the models' FFN uses, `models/_common.py`),
 `approximate=False` the exact erf form. softmax computes in f32 and returns
 the input's dtype, so under AMP bf16 only halves the memory traffic. All
-four grads take the generic vjp path (relu's is 0 at 0, as jax.nn.relu's).
+six grads take the generic vjp path (relu's is 0 at 0, as jax.nn.relu's).
 """
 
 import torch
@@ -17,6 +19,16 @@ from ..framework.registry import register_op
 @register_op("relu")
 def _relu(ctx, ins, attrs):
     return {"Out": [torch.relu(ins["X"][0])]}
+
+
+@register_op("sigmoid")
+def _sigmoid(ctx, ins, attrs):
+    return {"Out": [torch.sigmoid(ins["X"][0])]}
+
+
+@register_op("tanh")
+def _tanh(ctx, ins, attrs):
+    return {"Out": [torch.tanh(ins["X"][0])]}
 
 
 @register_op("gelu")

@@ -1,12 +1,14 @@
 """Math ops of the GPT and BERT slices: elementwise_add, matmul, mul, einsum,
-mean, sum, scale; and the ops the gradient clips and the training
-telemetry tap append: elementwise_mul/div/max, clip, clip_by_norm,
-squared_l2_norm, isfinite, logical_and.
+mean, sum, scale; the ops the gradient clips and the training telemetry
+tap append: elementwise_mul/div/max, clip, clip_by_norm, squared_l2_norm,
+isfinite, logical_and; and the ops of the NMT Transformer and the book
+models: elementwise_sub, the reduce family, tril_triu.
 
 Port of the matching rules in `paddle_tpu/ops/math_ops.py` (_broadcast_y:21,
-the elementwise family :33-54, matmul:64, mul:79, einsum:104, mean:148,
-sum:153, scale:178, clip:205, clip_by_norm:217, squared_l2_norm:236,
-logical_and:291, isfinite:301). Large products go to `torch.matmul` /
+the elementwise family :33-54, matmul:64, mul:79, einsum:104, the reduce
+family :122-145, mean:148, sum:153, scale:178, clip:205, clip_by_norm:217,
+squared_l2_norm:236, logical_and:291, isfinite:301, tril_triu:308).
+Large products go to `torch.matmul` /
 `torch.einsum`, as the JAX package leaves them to XLA. Every grad here
 takes the generic vjp path, as in JAX (isfinite and logical_and have
 none); in eager mode that replays the forward product once more per grad
@@ -43,6 +45,7 @@ def _register_elementwise(name, fn):
 
 
 _register_elementwise("elementwise_add", torch.add)
+_register_elementwise("elementwise_sub", torch.sub)
 _register_elementwise("elementwise_mul", torch.mul)
 _register_elementwise("elementwise_div", torch.div)
 _register_elementwise("elementwise_max", torch.maximum)
@@ -80,6 +83,44 @@ def _einsum(ctx, ins, attrs):
     """General contraction over the `Operands` list slot (BERT's b,s,n,d
     attention einsums)."""
     return {"Out": [torch.einsum(attrs["equation"], *ins["Operands"])]}
+
+
+def _register_reduce(name, fn, not_diff=False):
+    """reference: operators/reduce_ops/. `dim` (an int or a list, negative
+    counts from the end) unless `reduce_all`; a 0-d result becomes (1,)."""
+    @register_op(name, not_differentiable=not_diff, grad_free=not_diff)
+    def _lower(ctx, ins, attrs, _fn=fn):
+        x = ins["X"][0]
+        if attrs.get("reduce_all", False):
+            dim = tuple(range(x.ndim))
+        else:
+            dim = attrs.get("dim", [0])
+            dim = tuple(d % max(x.ndim, 1) for d in
+                        (dim if isinstance(dim, (list, tuple)) else [dim]))
+        # no dim reduces nothing in jnp; torch's sum would reduce all
+        out = _fn(x, dim, attrs.get("keep_dim", False)) if dim else x
+        if out.ndim == 0:
+            out = out.reshape((1,))
+        return {"Out": [out]}
+
+
+def _reduce_over(op):
+    """torch's reductions that take one dim at a time (amax and amin take
+    a tuple; prod, all and any one int): reduce the dims from the last."""
+    def fn(x, dims, keep):
+        for d in sorted(dims, reverse=True):
+            x = op(x, d, keepdim=keep)
+        return x
+    return fn
+
+
+_register_reduce("reduce_sum", lambda x, d, k: torch.sum(x, d, keepdim=k))
+_register_reduce("reduce_mean", lambda x, d, k: torch.mean(x, d, keepdim=k))
+_register_reduce("reduce_max", lambda x, d, k: torch.amax(x, d, keepdim=k))
+_register_reduce("reduce_min", lambda x, d, k: torch.amin(x, d, keepdim=k))
+_register_reduce("reduce_prod", _reduce_over(torch.prod))
+_register_reduce("reduce_all", _reduce_over(torch.all), not_diff=True)
+_register_reduce("reduce_any", _reduce_over(torch.any), not_diff=True)
 
 
 @register_op("mean")
@@ -151,3 +192,13 @@ def _logical_and(ctx, ins, attrs):
 def _isfinite(ctx, ins, attrs):
     """reference: operators/isfinite_op.cc: one flag, all values finite."""
     return {"Out": [torch.isfinite(ins["X"][0]).all().reshape((1,))]}
+
+
+@register_op("tril_triu")
+def _tril_triu(ctx, ins, attrs):
+    """reference: operators/tril_triu_op.cc."""
+    x = ins["X"][0]
+    k = attrs.get("diagonal", 0)
+    if attrs.get("lower", True):
+        return {"Out": [torch.tril(x, k)]}
+    return {"Out": [torch.triu(x, k)]}

@@ -1,10 +1,12 @@
 """NN ops of the GPT, BERT and ResNet slices: conv2d, depthwise_conv2d,
 pool2d, batch_norm, layer_norm, dropout, softmax_with_cross_entropy and
-accuracy, with their gradients.
+accuracy, with their gradients; and square_error_cost, the book models'
+regression loss.
 
 Port of the matching rules in `paddle_tpu/ops/nn_ops.py` (conv2d:23-66,
 pool2d:121, batch_norm:234, layer_norm:280, dropout:362-424,
-softmax_with_cross_entropy:437-499, accuracy:595): dropout's grad replays
+softmax_with_cross_entropy:437-499, square_error_cost:571,
+accuracy:595): dropout's grad replays
 its saved Mask, the cross-entropy grad works from the saved Softmax, and
 the grads of conv2d, pool2d, batch_norm and layer_norm take the generic vjp
 path (each replays its forward; the convs run on cuDNN through
@@ -328,6 +330,11 @@ def _softmax_xent(ctx, ins, attrs):
                            torch.zeros((), dtype=nll.dtype,
                                        device=nll.device), nll)
     return {"Softmax": [softmax], "Loss": [loss]}
+
+
+@register_op("square_error_cost", no_grad_inputs={"Label"})
+def _square_error_cost(ctx, ins, attrs):
+    return {"Out": [torch.square(ins["X"][0] - ins["Label"][0])]}
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,16 @@
 """Tensor ops of the GPT, BERT and ResNet slices: reshape2, slice,
 lookup_table (with its dense grad), fill, constants, cast, random init,
-top_k; and where and assign, which the training telemetry's skip/halt
-gates append.
+top_k; where and assign, which the training telemetry's skip/halt gates
+append; and transpose2, squeeze2, unsqueeze2, concat and split, which the
+NMT Transformer, the book models and `nets` append.
 
 Port of the matching rules in `paddle_tpu/ops/tensor_ops.py` (reshape2:42,
+transpose2:55, squeeze2:67, unsqueeze2:79, concat:110, split:115,
 slice:141, lookup_table:256-299, where:329, fill_constant:347,
 fill_any_like:370, assign:377, assign_value:382, cast:388,
 uniform_random:435, gaussian_random:446, top_k:483). The grads of
-reshape2, slice, where, assign and cast take the generic vjp path (cast's
+reshape2, transpose2, squeeze2, unsqueeze2, concat, split, slice,
+where, assign and cast take the generic vjp path (cast's
 is a cast back to the input's dtype). Rules create tensors on
 `ctx.device`; random ops draw from the run's `torch.Generator` (or a fixed
 `seed` attr), so they give other numbers than JAX's keys from the same seed.
@@ -33,15 +36,71 @@ def _resolve_shape(shape, x):
     return tuple(shape)
 
 
+def _xshape(x):
+    """The XShape side output of the *2 ops: zero-size, non-differentiable,
+    kept for IR compatibility with the reference."""
+    return torch.zeros((0,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+
+
 @register_op("reshape2", non_diff_outputs={"XShape"})
 def _reshape2(ctx, ins, attrs):
-    """XShape records the input shape for the grad op (zero-size, kept for
-    IR compatibility with the reference)."""
+    """XShape records the input shape for the grad op (`_xshape`)."""
     x = ins["X"][0]
     out = torch.reshape(x, _resolve_shape(attrs["shape"], x))
-    return {"Out": [out],
-            "XShape": [torch.zeros((0,) + tuple(x.shape), dtype=x.dtype,
-                                   device=x.device)]}
+    return {"Out": [out], "XShape": [_xshape(x)]}
+
+
+@register_op("transpose2", non_diff_outputs={"XShape"})
+def _transpose2(ctx, ins, attrs):
+    x = ins["X"][0]
+    return {"Out": [torch.permute(x, tuple(attrs["axis"]))],
+            "XShape": [_xshape(x)]}
+
+
+@register_op("squeeze2", non_diff_outputs={"XShape"})
+def _squeeze2(ctx, ins, attrs):
+    """Only the listed axes of size 1 go (others are kept, as in JAX); no
+    axes: every size-1 axis."""
+    x = ins["X"][0]
+    axes = attrs.get("axes", [])
+    if axes:
+        axes = tuple(a % x.ndim for a in axes if x.shape[a % x.ndim] == 1)
+        out = torch.squeeze(x, axes) if axes else x
+    else:
+        out = torch.squeeze(x)
+    return {"Out": [out], "XShape": [_xshape(x)]}
+
+
+@register_op("unsqueeze2", non_diff_outputs={"XShape"})
+def _unsqueeze2(ctx, ins, attrs):
+    x = ins["X"][0]
+    out = x
+    for a in sorted(attrs["axes"]):
+        out = torch.unsqueeze(out, a)
+    return {"Out": [out], "XShape": [_xshape(x)]}
+
+
+@register_op("concat")
+def _concat(ctx, ins, attrs):
+    return {"Out": [torch.cat(ins["X"], dim=attrs.get("axis", 0))]}
+
+
+@register_op("split")
+def _split(ctx, ins, attrs):
+    """`sections` (sizes) or `num` equal parts along `axis`."""
+    x = ins["X"][0]
+    axis = attrs.get("axis", 0)
+    sections = attrs.get("sections", [])
+    if sections:
+        outs = torch.split(x, list(sections), dim=axis)
+    else:
+        num = attrs["num"]
+        if x.shape[axis] % num:
+            raise ValueError(
+                f"split: axis {axis} of size {x.shape[axis]} does not "
+                f"divide into {num} equal parts")
+        outs = torch.split(x, x.shape[axis] // num, dim=axis)
+    return {"Out": list(outs)}
 
 
 @register_op("slice")

@@ -273,14 +273,19 @@ def test_batch_norm_bf16_matches_jax(layout, shape, is_test):
 
 
 def test_unported_branches_raise():
+    """Adaptive pooling still raises; arch="vgg16" builds since
+    models/vgg.py was ported (tests/test_torch_book.py holds its forward
+    to JAX's), and an unknown arch raises ValueError as in JAX."""
     x = _f(1, 2, 4, 4)
     attrs = dict(_pool("avg", (2, 3)), adaptive=True)
     with pytest.raises(Exception, match="not ported"):
         _both("pool2d", {"X": x}, ["Out"], attrs)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        with ptt.unique_name_guard(), ptt.program_guard(ptt.Program(),
-                                                        ptt.Program()):
-            tresnet.image_classification_program("vgg16")
+    with ptt.unique_name_guard(), ptt.program_guard(ptt.Program(),
+                                                    ptt.Program()):
+        f = tresnet.image_classification_program("vgg16")
+        assert f["logits"].shape == (-1, 10)
+        with pytest.raises(ValueError):
+            tresnet.image_classification_program("alexnet")
 
 
 # ---------------------------------------------------------------------------
