@@ -273,6 +273,36 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 relative L2 of the port on the CPU from the same weights
                 and feed; median step ms and img/s; no hand kernel
                 launches. In a child process (--lenet-only);
+ 4i. optim   -- the optimizer slice. BERT-base (12 x 768, 12 heads)
+                bert_pretrain_program at s128 b32, bf16 AMP, fused
+                attention (FLAGS_attention_impl=flash), optimizer="lamb",
+                dropout 0, 6 steps on one fixed batch: losses finite and
+                falling, flash_small_fwd and flash_small_bwd 12 launches
+                each a step (counts zeroed just before, read just after);
+                median step ms of steps 2-6, tokens/s, peak memory, and
+                beside them the same program with Adam on the same batch
+                (step ms and peak, no hold but finite losses). Then
+                the lamb op of every parameter from that run's step-1
+                inputs, on the card and on the CPU: ParamOut within
+                LAMB_P_RTOL * max|p| + LAMB_P_ATOL, the moments within
+                LAMB_M_RTOL relative. Switch-Base-8's expert layer
+                (switch_moe_ffn: d_model 768, d_ff 3072, 8 experts,
+                capacity factor 1.25) on b8 x s512, MSE + 0.01 aux, Adam,
+                5 steps on a fixed batch: losses finite and falling; the
+                first forward's expert assignment and kept mask equal the
+                CPU port's (a token may part only at a top-2 router tie
+                within MOE_TIE, counted), the output within MOE_OUT_RTOL
+                where they agree; step ms, tokens dropped by capacity.
+                word2vec with is_sparse=True (book defaults, a 2073-word
+                vocabulary, batch 100), 3 steps each under SGD, Momentum
+                and Adam: sparse SGD against dense SGD on the card within
+                W2V_DENSE_RTOL, sparse Momentum and lazy Adam against the
+                CPU port within W2V_CPU_TOL, each rerun for the same bits.
+                The eight LR schedules and polynomial_decay(cycle=True)
+                over 12 steps with torch's sync debug mode at "error" (no
+                step reads the schedule to the host), against the CPU
+                within SCHED_RTOL. No hand kernel launches outside the
+                BERT run. In a child process (--optim-only);
   5. train   -- GPT-2 small (dropout 0.1) train programs with Adam through
                 Executor.run on CUDAPlace(0): 3 steps at s=1024 b=2
                 (flash_fwd, flash_bwd_dkv, flash_bwd_dq) and 3 at s=512
@@ -365,6 +395,7 @@ or when the paddle_tpu_torch package is not beside it.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -3453,6 +3484,481 @@ def phase_lenet(seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 4i: the optimizer slice (LAMB, the Switch MoE FFN, sparse
+# embeddings, the LR schedules)
+# ---------------------------------------------------------------------------
+
+# BERT-base LAMB: bench.py's sequence length at batch 32, bf16 AMP, fused
+# attention (FLAGS_attention_impl=flash: the dispatch's sk >= 256 threshold
+# would send s=128 to the plain path), one fixed batch
+OPTIM_SEQ, OPTIM_BATCH, OPTIM_STEPS, OPTIM_LR = 128, 32, 6, 1e-3
+# the lamb op on the card against the same op on the CPU from the same
+# inputs: ParamOut within LAMB_P_RTOL * max |p| + LAMB_P_ATOL (the two
+# norms are sums taken in another order), each moment within LAMB_M_RTOL
+# of its CPU value, element by element (products and sums, no reduction)
+LAMB_P_RTOL, LAMB_P_ATOL, LAMB_M_RTOL = 1e-6, 1e-7, 1e-6
+# Switch-Base-8's expert layer (Fedus et al., Switch Transformers, 2021:
+# Switch-Base, d_model 768, d_ff 3072, 8 experts, capacity factor 1.25) on
+# b8 x s512; loss mean((out - target)^2) + 0.01 aux, Adam, a fixed batch
+MOE_E, MOE_D, MOE_F, MOE_CF = 8, 768, 3072, 1.25
+MOE_B, MOE_S, MOE_STEPS, MOE_LR = 8, 512, 5, 1e-3
+# a token whose top-2 router probabilities lie within MOE_TIE may pick
+# another expert on the card than on the CPU; where no token of a batch
+# row did, its kept mask is equal and its output within MOE_OUT_RTOL *
+# max |out| of the CPU's
+MOE_TIE, MOE_OUT_RTOL = 1e-5, 1e-4
+# word2vec at models/book.py's defaults (emb 32, hidden 256, window 4) over
+# the imikolov dictionary of the reference's book test (test_word2vec.py,
+# 2073 words), batch 100 as there
+W2V_VOCAB, W2V_BATCH, W2V_STEPS = 2073, 100, 3
+W2V_DENSE_RTOL = 1e-6   # sparse SGD vs dense SGD: max |d| <= this * max |p|
+W2V_CPU_TOL = 1e-5      # sparse Momentum / Adam, card vs CPU: atol and rtol
+SCHED_STEPS, SCHED_RTOL = 12, 1e-6
+# name -> builder over `layers`: the eight schedules, polynomial with cycle
+OPTIM_SCHEDULES = {
+    "noam_decay": lambda L: L.noam_decay(768, warmup_steps=4),
+    "exponential_decay": lambda L: L.exponential_decay(0.1, 3, 0.5,
+                                                       staircase=True),
+    "natural_exp_decay": lambda L: L.natural_exp_decay(0.1, 3, 0.5),
+    "inverse_time_decay": lambda L: L.inverse_time_decay(0.1, 3, 0.5),
+    "polynomial_decay": lambda L: L.polynomial_decay(0.1, 8, 0.01, 2.0),
+    "polynomial_decay_cycle": lambda L: L.polynomial_decay(
+        0.1, 5, 0.01, 1.0, cycle=True),
+    "piecewise_decay": lambda L: L.piecewise_decay([3, 7],
+                                                   [0.1, 0.01, 0.001]),
+    "cosine_decay": lambda L: L.cosine_decay(0.1, 2, 8),
+    "linear_lr_warmup": lambda L: L.linear_lr_warmup(
+        L.exponential_decay(0.1, 3, 0.5), 5, 0.0, 0.1),
+}
+
+
+CARD = "cuda"
+
+
+def _card_exe():
+    import paddle_tpu_torch as ptt
+    return ptt.Executor(ptt.CUDAPlace(0))
+
+
+def _host_copy(scope):
+    """The scope's tensors, copied to the host (a CPU run's start)."""
+    import torch
+    return {n: scope.find_var(n).detach().cpu().clone()
+            for n in scope.var_names()
+            if isinstance(scope.find_var(n), torch.Tensor)}
+
+
+def _optim_bert(seed, optimizer):
+    """The BERT-base AMP program of phase 4i with `optimizer`, its
+    startup run on the card: (config, main, fetch, executor, scope)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models.bert import BertConfig, bert_pretrain_program
+    cfg = BertConfig(attn_impl="fused", dropout=0.0)
+    with ptt.unique_name_guard():
+        main, startup, fetch = bert_pretrain_program(
+            cfg, OPTIM_SEQ, learning_rate=OPTIM_LR, amp=True,
+            optimizer=optimizer)
+    startup.random_seed = main.random_seed = seed
+    exe = _card_exe()
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope)
+    return cfg, main, fetch, exe, scope
+
+
+@contextlib.contextmanager
+def _flash_forced():
+    """FLAGS_attention_impl=flash for a block, restored after."""
+    prev = os.environ.get("FLAGS_attention_impl")
+    os.environ["FLAGS_attention_impl"] = "flash"
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("FLAGS_attention_impl")
+        else:
+            os.environ["FLAGS_attention_impl"] = prev
+
+
+def _optim_lamb(seed, names):
+    """BERT-base LAMB steps on one fixed batch, then Adam's on the same
+    program and batch for the step time beside it; also returns each lamb
+    op's step-1 inputs (state before the step, its gradient) for the op
+    check."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.tools.bench_resnet50 import to_device
+    t0 = time.perf_counter()
+    cfg, main, fetch, exe, scope = _optim_bert(seed, "lamb")
+    ops = [op for op in main.global_block.ops if op.type == "lamb"]
+    slots = ("Param", "Moment1", "Moment2", "Beta1Pow", "Beta2Pow",
+             "LearningRate")
+    before = [{s: scope.find_var(op.input(s)[0]).clone() for s in slots}
+              for op in ops]
+    grads = [op.input("Grad")[0] for op in ops]
+    feed = to_device(_bert_feed(np.random.RandomState(seed), cfg,
+                                OPTIM_BATCH, OPTIM_SEQ, pad=True), CARD)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _flash_forced():
+        # ---- the main path: counts zeroed just before, read just after --
+        zero_counts(names)
+        losses, step_ms, g1 = _bert_steps(exe, main, fetch, scope,
+                                          [feed] * OPTIM_STEPS, grads)
+        counts = read_counts(names)
+        # -----------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    rates = _bert_rates(cfg, OPTIM_BATCH, OPTIM_SEQ, step_ms[1:], True)
+    inputs = [(op.input("Param")[0], dict(op.attrs), {**b, "Grad": g1[g]})
+              for op, b, g in zip(ops, before, grads)]
+    del scope, g1, before
+    torch.cuda.empty_cache()
+    _, amain, afetch, aexe, ascope = _optim_bert(seed, "adam")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _flash_forced():
+        alosses, adam_ms, _ = _bert_steps(aexe, amain, afetch, ascope,
+                                          [feed] * OPTIM_STEPS, [])
+    adam_peak = torch.cuda.max_memory_allocated()
+    del ascope
+    rec = {"phase": "optim", "part": "bert_lamb", "model": "bert-base",
+           "seq": OPTIM_SEQ, "batch": OPTIM_BATCH, "amp": True,
+           "attn_impl": "fused (FLAGS_attention_impl=flash)",
+           "optimizer": "lamb", "lr": OPTIM_LR, "dropout": 0.0,
+           "steps": OPTIM_STEPS, "lamb_ops": len(ops), "setup_s": setup_s,
+           "losses": losses, "step_ms": step_ms, **rates,
+           "max_memory_allocated": peak, "launches": counts,
+           "adam_losses": alosses, "adam_step_ms": adam_ms,
+           "adam_median_step_ms": float(np.median(adam_ms[1:])),
+           "adam_max_memory_allocated": adam_peak}
+    emit(rec)
+    want = {n: OPTIM_STEPS * cfg.layers
+            if n in ("flash_small_fwd", "flash_small_bwd") else 0
+            for n in names}
+    if counts != want:
+        fail(f"optim bert lamb launched {counts}, expected {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"optim bert lamb: losses {losses} (finite and falling "
+             "expected)")
+    if not all(np.isfinite(alosses)):
+        fail(f"optim bert adam: losses {alosses}")
+    return rec, inputs
+
+
+def _optim_lamb_op(inputs):
+    """The port's lamb rule on the card and on the CPU, from each
+    parameter's step-1 inputs, out of place."""
+    from paddle_tpu_torch.framework.registry import LowerContext, get_op_def
+    rule = get_op_def("lamb").lower
+    t0 = time.perf_counter()
+    worst_p, worst_m, bad_m = (-1.0, ""), (-1.0, ""), 0
+    for name, attrs, ins in inputs:
+        outs = {}
+        for dev in (CARD, "cpu"):
+            outs[dev] = rule(LowerContext(device=dev),
+                             {s: [t.to(dev).clone()] for s, t in ins.items()},
+                             attrs)
+        p_ref = outs["cpu"]["ParamOut"][0]
+        p_tol = LAMB_P_RTOL * ins["Param"].abs().max().item() + LAMB_P_ATOL
+        d = (outs[CARD]["ParamOut"][0].cpu() - p_ref).abs().max().item()
+        worst_p = max(worst_p, (d / p_tol, name))
+        for slot in ("Moment1Out", "Moment2Out"):
+            a = outs[CARD][slot][0].cpu()
+            b = outs["cpu"][slot][0]
+            diff = (a - b).abs()
+            bad_m += int((diff > LAMB_M_RTOL * b.abs()).sum())
+            rel = (diff / b.abs().clamp_min(1e-30)).max().item()
+            worst_m = max(worst_m, (rel, f"{name} {slot}"))
+    rec = {"phase": "optim", "part": "lamb_op", "params": len(inputs),
+           "param_worst_ratio_to_tol": worst_p[0], "param_worst": worst_p[1],
+           "param_tol": f"{LAMB_P_RTOL} * max|p| + {LAMB_P_ATOL}",
+           "moment_worst_rel": worst_m[0], "moment_worst": worst_m[1],
+           "moment_rtol": LAMB_M_RTOL, "moment_elements_over": bad_m,
+           "wall_s": time.perf_counter() - t0}
+    emit(rec)
+    if worst_p[0] > 1.0 or bad_m:
+        fail(f"optim lamb op, card vs CPU: ParamOut at {worst_p[0]} of its "
+             f"tolerance ({worst_p[1]}), {bad_m} moment elements over "
+             f"{LAMB_M_RTOL} relative")
+    return rec
+
+
+def _moe_vars(main):
+    """(router probs, expert index, kept mask) var names of the program's
+    one switch_moe_ffn."""
+    ops = main.global_block.ops
+    out_of = {n: op for op in ops for n in op.output_names()}
+    probs = next(op.output("Out")[0] for op in ops if op.type == "softmax")
+    top = next(op.output("Out")[0] for op in ops if op.type == "arg_max")
+    cast = next(op.output("Out")[0] for op in ops if op.type == "cast"
+                and out_of[op.input("X")[0]].type == "less_equal")
+    keep = next(op.output("Out")[0] for op in ops
+                if op.type == "elementwise_mul" and op.input("X")[0] == cast)
+    return probs, top, keep
+
+
+def _optim_moe(seed, names):
+    """Switch-Base-8's expert layer: the first forward on the card against
+    the CPU port's from the same weights and input, then Adam steps."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.tools.bench_resnet50 import to_device
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.unique_name_guard(), ptt.program_guard(main, startup):
+        x = ptt.layers.data("x", [MOE_S, MOE_D])
+        y = ptt.layers.data("y", [MOE_S, MOE_D])
+        out, aux = ptt.nets.switch_moe_ffn(x, MOE_E, MOE_D, MOE_F,
+                                           capacity_factor=MOE_CF)
+        loss = ptt.layers.mean(ptt.layers.square_error_cost(out, y)) \
+            + ptt.layers.scale(aux, scale=0.01)
+        ptt.optimizer.Adam(MOE_LR).minimize(loss)
+    startup.random_seed = main.random_seed = seed
+    probs, top, keep = _moe_vars(main)
+    test = main.clone(for_test=True)
+    exe = _card_exe()
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(seed + 1)
+    xv = rng.randn(MOE_B, MOE_S, MOE_D).astype(np.float32)
+    feed = {"x": xv, "y": np.tanh(xv)}
+    dfeed = to_device(feed, CARD)
+    fwd = [probs, top, keep, out.name]
+    card = [t.cpu() for t in exe.run(test, feed=dfeed, fetch_list=fwd,
+                                     scope=scope, return_numpy=False)]
+    host = ptt.Executor(ptt.CPUPlace()).run(
+        test, feed=feed, fetch_list=fwd,
+        scope=_scope_from(_host_copy(scope), "cpu"), return_numpy=False)
+    p2 = torch.topk(host[0], 2, dim=-1).values
+    near = (p2[..., 0] - p2[..., 1]) < MOE_TIE
+    flips = card[1] != host[1]
+    parted = flips.any(dim=1)          # batch rows with a flipped token
+    same = ~parted
+    keep_equal = bool(torch.equal(card[2][same], host[2][same]))
+    out_ref = host[3][same]
+    out_diff = (card[3][same] - out_ref).abs().max().item() if same.any() \
+        else 0.0
+    out_tol = MOE_OUT_RTOL * out_ref.abs().max().item() if same.any() \
+        else 0.0
+    dropped = MOE_B * MOE_S - int(card[2].sum().item())
+    # ---- the main path: counts zeroed just before, read just after ----
+    zero_counts(names)
+    losses, step_ms = [], []
+    for _ in range(MOE_STEPS):
+        t = time.perf_counter()
+        lv, = exe.run(main, feed=dfeed, fetch_list=[loss], scope=scope,
+                      return_numpy=False)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(lv.item()))
+    counts = read_counts(names)
+    # -------------------------------------------------------------------
+    med = float(np.median(step_ms[1:]))
+    rec = {"phase": "optim", "part": "switch_moe",
+           "config": "Switch-Base-8 expert layer", "d_model": MOE_D,
+           "d_ff": MOE_F, "experts": MOE_E, "capacity_factor": MOE_CF,
+           "batch": MOE_B, "seq": MOE_S, "capacity": int(np.ceil(
+               MOE_S * MOE_CF / MOE_E)), "optimizer": "adam", "lr": MOE_LR,
+           "tokens_dropped_by_capacity": dropped,
+           "tokens_near_tie": int(near.sum()),
+           "tokens_other_expert": int(flips.sum()),
+           "rows_parted": int(parted.sum()), "kept_mask_equal": keep_equal,
+           "out_max_abs_diff": out_diff, "out_tol": out_tol,
+           "losses": losses, "step_ms": step_ms, "median_step_ms": med,
+           "tokens_per_s": MOE_B * MOE_S / (med / 1e3), "launches": counts}
+    emit(rec)
+    if bool((flips & ~near).any()):
+        fail(f"optim moe: {int((flips & ~near).sum())} tokens took another "
+             f"expert on the card with their top-2 probabilities >= "
+             f"{MOE_TIE} apart")
+    if not keep_equal or out_diff > out_tol:
+        fail(f"optim moe: kept mask equal {keep_equal}, out {out_diff} > "
+             f"{out_tol} from the CPU's where the assignment is equal")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"optim moe: losses {losses} (finite and falling expected)")
+    if any(counts.values()):
+        fail(f"optim moe: hand kernels launched {counts} (none expected)")
+    return rec
+
+
+def _w2v_run(main, startup, spec, init, feeds, device):
+    """W2V_STEPS steps from `init` (name -> host tensor) on `device`;
+    (losses, step ms, the persistables on the host)."""
+    import torch
+    import paddle_tpu_torch as ptt
+    exe = _card_exe() if device == CARD else ptt.Executor(ptt.CPUPlace())
+    scope = _scope_from(init, device)
+    losses, ms = [], []
+    for f in feeds:
+        t = time.perf_counter()
+        lv, = exe.run(main, feed=f, fetch_list=[spec["loss"]], scope=scope,
+                      return_numpy=False)
+        if device == CARD:
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(lv.item()))
+    return losses, ms, _host_copy(scope)
+
+
+def _optim_word2vec(seed, names):
+    """word2vec with is_sparse=True under SGD, Momentum and Adam on the
+    card: sparse SGD against dense SGD on the card, sparse Momentum and
+    Adam against the CPU port, each sparse run rerun for the same bits."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models.book import word2vec
+    from paddle_tpu_torch.tools.bench_resnet50 import to_device
+    make = {"sgd": lambda o: o.SGD(0.1),
+            "momentum": lambda o: o.Momentum(0.1, 0.9),
+            "adam": lambda o: o.Adam(0.01)}
+    rng = np.random.RandomState(seed + 2)
+    feeds = []
+    for _ in range(W2V_STEPS):
+        f = {f"context_{i}": rng.randint(0, W2V_VOCAB, (W2V_BATCH, 1))
+             for i in range(4)}
+        f["target"] = rng.randint(0, W2V_VOCAB, (W2V_BATCH, 1))
+        feeds.append({k: v.astype(np.int64) for k, v in f.items()})
+    dfeeds = [to_device(f, CARD) for f in feeds]
+    recs = {}
+    for opt, mk in make.items():
+        progs = {}
+        for sparse in ((True, False) if opt == "sgd" else (True,)):
+            main, startup = ptt.Program(), ptt.Program()
+            with ptt.unique_name_guard(), ptt.program_guard(main, startup):
+                spec = word2vec(W2V_VOCAB, is_sparse=sparse)
+                mk(ptt.optimizer).minimize(spec["loss"])
+            startup.random_seed = seed
+            progs[sparse] = (main, startup, spec)
+        scope = ptt.Scope()
+        _card_exe().run(progs[True][1], scope=scope)
+        init = _host_copy(scope)
+        table = "shared_w2v_emb"
+        # ---- the main path: counts zeroed just before, read just after --
+        zero_counts(names)
+        losses, ms, state = _w2v_run(*progs[True], init, dfeeds, CARD)
+        counts = read_counts(names)
+        # -----------------------------------------------------------------
+        _, _, again = _w2v_run(*progs[True], init, dfeeds, CARD)
+        rerun_same = all(bool((state[n] == again[n]).all()) for n in state)
+        rec = {"phase": "optim", "part": "word2vec", "optimizer": opt,
+               "vocab": W2V_VOCAB, "batch": W2V_BATCH, "steps": W2V_STEPS,
+               "losses": losses, "step_ms": ms, "rerun_bitwise": rerun_same,
+               "launches": counts}
+        if opt == "sgd":
+            dl, dms, dense = _w2v_run(*progs[False], init, dfeeds, CARD)
+            ref = dense[table]
+            diff = (state[table] - ref).abs().max().item()
+            tol = W2V_DENSE_RTOL * ref.abs().max().item()
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, dl))
+            others = max((state[n] - dense[n]).abs().max().item()
+                         for n in state if n != table)
+            rec.update({"against": "dense SGD on the card",
+                        "dense_losses": dl, "dense_step_ms": dms,
+                        "table_max_abs_diff": diff, "table_tol": tol,
+                        "loss_rel_diff": loss_rel,
+                        "others_max_abs_diff": others})
+            ok = diff <= tol and loss_rel <= W2V_DENSE_RTOL \
+                and others <= tol
+        else:
+            cl, _, cpu = _w2v_run(*progs[True], init, feeds, "cpu")
+            worst = max((((state[n] - cpu[n]).abs() - W2V_CPU_TOL
+                          * cpu[n].abs()).max().item(), n) for n in state)
+            rec.update({"against": "the CPU port's sparse run",
+                        "cpu_losses": cl, "worst_excess_over_rtol":
+                        worst[0], "worst": worst[1], "tol": W2V_CPU_TOL})
+            ok = worst[0] <= W2V_CPU_TOL and max(
+                abs(a - b) / abs(b) for a, b in zip(losses, cl)) \
+                <= W2V_CPU_TOL
+        emit(rec)
+        recs[opt] = rec
+        if not ok or not rerun_same or not all(np.isfinite(losses)):
+            fail(f"optim word2vec {opt}: {rec}")
+        if any(counts.values()):
+            fail(f"optim word2vec {opt}: hand kernels launched {counts}")
+    return recs
+
+
+def _sched_program(name):
+    import paddle_tpu_torch as ptt
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.unique_name_guard(), ptt.program_guard(main, startup):
+        x = ptt.layers.data("x", [2])
+        y = ptt.layers.data("y", [1])
+        pred = ptt.layers.fc(x, 1, bias_attr=False)
+        loss = ptt.layers.mean(ptt.layers.square_error_cost(pred, y))
+        lr = OPTIM_SCHEDULES[name](ptt.layers)
+        ptt.optimizer.SGD(lr).minimize(loss)
+    return main, startup, lr
+
+
+def _optim_schedules():
+    """Each schedule over SCHED_STEPS steps on the card, with torch's
+    sync debug mode set to error (a step that read its value to the host
+    would raise), against the CPU port from the same start."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.tools.bench_resnet50 import to_device
+    feed = {"x": np.ones((2, 2), np.float32),
+            "y": np.ones((2, 1), np.float32)}
+    dfeed = to_device(feed, CARD)
+    out = {}
+    for name in OPTIM_SCHEDULES:
+        main, startup, lr = _sched_program(name)
+        exe = _card_exe()
+        scope = ptt.Scope()
+        exe.run(startup, scope=scope)
+        init = _host_copy(scope)
+        vals = []
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(SCHED_STEPS):
+                vals.append(exe.run(main, feed=dfeed, fetch_list=[lr],
+                                    scope=scope, return_numpy=False)[0])
+        except RuntimeError as e:
+            fail(f"optim schedule {name}: a step synchronised with the "
+                 f"host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        card = torch.cat(vals).cpu().numpy()
+        cexe, cscope = ptt.Executor(ptt.CPUPlace()), _scope_from(init, "cpu")
+        cpu = np.concatenate([cexe.run(main, feed=feed, fetch_list=[lr],
+                                       scope=cscope)[0]
+                              for _ in range(SCHED_STEPS)])
+        rel = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+        out[name] = {"values": card.tolist(), "max_rel_diff": rel}
+        if not rel <= SCHED_RTOL or len(set(card.tolist())) < 2:
+            fail(f"optim schedule {name}: card {card} vs CPU {cpu}")
+    rec = {"phase": "optim", "part": "lr_schedules", "steps": SCHED_STEPS,
+           "rtol": SCHED_RTOL, "host_syncs_in_steps": 0, "schedules": out}
+    emit(rec)
+    return rec
+
+
+def phase_optim(seed):
+    """Phase 4i: BERT-base LAMB, the lamb op card vs CPU, the Switch MoE
+    FFN, sparse word2vec and the LR schedules. In a child process
+    (--optim-only)."""
+    import torch
+    t_phase = time.perf_counter()
+    names = list(KERNELS)
+    lamb, inputs = _optim_lamb(seed, names)
+    lamb_op = _optim_lamb_op(inputs)
+    del inputs
+    torch.cuda.empty_cache()
+    moe = _optim_moe(seed, names)
+    w2v = _optim_word2vec(seed, names)
+    sched = _optim_schedules()
+    summary = {"phase": "optim", "bert_lamb": lamb, "lamb_op": lamb_op,
+               "switch_moe": moe, "word2vec": w2v, "lr_schedules": sched,
+               "launches": lamb["launches"],
+               "wall_s": time.perf_counter() - t_phase}
+    emit(summary)
+    return summary
+
+
+# ---------------------------------------------------------------------------
 # phase 5: GPT-2 small training steps
 # ---------------------------------------------------------------------------
 
@@ -4432,7 +4938,7 @@ def _sdpa_mask(bias, n):
     return bias.view(bn // n, n, sk)[:, :1, None, :]
 
 
-def _flash_rows(serve, train, bert, seed):
+def _flash_rows(serve, train, bert, optim, seed):
     """The five flash kernels at their GPT main-path shapes (fp32, causal),
     then the two single-pass ones at BERT's (bf16, per-key bias) and the
     tiled forward at GPT's in bf16."""
@@ -4481,7 +4987,7 @@ def _flash_rows(serve, train, bert, seed):
             name, bn, s, s, d, causal, torch.finfo(dtype).bits // 8,
             with_bias)
         launches = train["launches"][name] + serve["launches"].get(name, 0) \
-            + bert["launches"][name]
+            + bert["launches"][name] + optim["launches"][name]
         extra = {}
         if name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
             per_sm, tensor_cores, blocks, waves = _waves(name, bn, s, s,
@@ -4511,6 +5017,7 @@ def _flash_rows(serve, train, bert, seed):
               "launches_train": train["launches"][name],
               "launches_train_amp": train["launches_amp"][name],
               "launches_bert": bert["launches"][name],
+              "launches_bert_lamb": optim["launches"][name],
               "tflops_per_s": flops / (ms * 1e-3) / 1e12})
         if not in_line:
             continue   # the kernels line keeps the GPT shapes' fp32 rows
@@ -4744,10 +5251,11 @@ def _gram_rows(spike, seed):
     return rows
 
 
-def phase_times(serve, train, bert, spike, seed):
+def phase_times(serve, train, bert, optim, spike, seed):
     """The kernels line's rows, each with its share of bound (bound_ms /
     ms)."""
-    rows = (_flash_rows(serve, train, bert, seed) + _ln_rows(spike, seed)
+    rows = (_flash_rows(serve, train, bert, optim, seed)
+            + _ln_rows(spike, seed)
             + _conv_bn_rows(spike, seed) + _gram_rows(spike, seed))
     for r in rows:
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
@@ -4755,9 +5263,10 @@ def phase_times(serve, train, bert, spike, seed):
 
 
 def in_child(seed, flag):
-    """Phase 4, 4b, 4c, 4d, 4e, 4f, 4g or 4h in a process of its own (this
-    script with --engine-only, --server-only, --spec-only, --quant-only,
-    --adapters-only, --bench-only, --nmt-only or --lenet-only), its JSON
+    """Phase 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h or 4i in a process of its own
+    (this script with --engine-only, --server-only, --spec-only,
+    --quant-only, --adapters-only, --bench-only, --nmt-only, --lenet-only
+    or --optim-only), its JSON
     lines passed through, its summary returned. After the engine's run, torch.profiler traces taken
     later in the same process lost one kernel record a trace (PERF.md §6,
     the engine's calls 2-7), which the times phase's device-time checks
@@ -4797,6 +5306,8 @@ def main():
                       help="run phase 4g alone, likewise")
     only.add_argument("--lenet-only", action="store_true",
                       help="run phase 4h alone, likewise")
+    only.add_argument("--optim-only", action="store_true",
+                      help="run phase 4i alone, likewise")
     args = ap.parse_args()
     preflight()
     import torch
@@ -4808,7 +5319,8 @@ def main():
              phase_adapters if args.adapters_only else
              phase_bench if args.bench_only else
              phase_nmt if args.nmt_only else
-             phase_lenet if args.lenet_only else None)
+             phase_lenet if args.lenet_only else
+             phase_optim if args.optim_only else None)
     if alone is not None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -4844,11 +5356,12 @@ def main():
         bench = in_child(args.seed, "--bench-only")
         nmt = in_child(args.seed, "--nmt-only")
         lenet = in_child(args.seed, "--lenet-only")
+        optim = in_child(args.seed, "--optim-only")
         train = phase_train(args.seed)
         bert = phase_bert(args.seed)
         resnet = phase_resnet(args.seed)
         spike = phase_spike(args.seed)
-        rows = phase_times(serve, train, bert, spike, args.seed)
+        rows = phase_times(serve, train, bert, optim, spike, args.seed)
     finally:
         shutil.rmtree(WORK_DIR, ignore_errors=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -4857,7 +5370,7 @@ def main():
                    "kernel_cases": kernels, "serve": serve["summary"],
                    "engine": engine, "server": server, "spec": spec,
                    "quant": quant, "adapters": adapters, "bench": bench,
-                   "nmt": nmt, "lenet": lenet,
+                   "nmt": nmt, "lenet": lenet, "optim": optim,
                    "train": train["summaries"],
                    "bert": bert["runs"],
                    "resnet": resnet, "spike": spike["rows"],

@@ -15,8 +15,12 @@ continuous-batching GPT serving engine (`serving`,
 the HTTP server tier over it (`server.serve`: router, replicas, the
 debug and alert planes of `observability`), the NMT Transformer's train
 step and its greedy and beam-search decoders (`models.transformer`,
-`layers.decode`, `as_torch_function`), and LeNet, VGG-16 and the book
-models (`models.{lenet,vgg,book}`, `nets`).
+`layers.decode`, `as_torch_function`), LeNet, VGG-16 and the book
+models (`models.{lenet,vgg,book}`, `nets`), the Switch MoE FFN
+(`nets.switch_moe_ffn`), every optimizer of the JAX package with LR
+schedules, regularizers and SelectedRows sparse embedding gradients
+(`optimizer`, `layers.learning_rate_scheduler`, `regularizer`,
+`framework.selected_rows`).
 
 Places are real: `Executor()` runs on `CUDAPlace(0)` and raises when no GPU
 is present; `Executor(CPUPlace())` runs on the CPU.
@@ -33,6 +37,7 @@ from .framework import (Program, Block, Operator, Variable, Parameter,
 from . import layers
 from . import nets
 from . import optimizer
+from . import regularizer
 from . import initializer
 from . import io
 from . import observability
@@ -54,6 +59,7 @@ __all__ = ["Program", "Block", "Operator", "Variable", "Parameter",
            "name_scope", "Executor", "Scope", "global_scope", "scope_guard",
            "CPUPlace", "CUDAPlace", "append_backward", "gradients",
            "as_torch_function", "LayerHelper", "ParamAttr", "layers",
-           "nets", "optimizer", "initializer", "io", "observability", "inference", "contrib", "profiler",
+           "nets", "optimizer", "regularizer", "initializer", "io",
+           "observability", "inference", "contrib", "profiler",
            "serving", "server", "analysis", "clip", "compiler",
            "CompiledProgram", "BuildStrategy", "ExecutionStrategy"]

@@ -17,9 +17,9 @@ attribution (`executor_recompiles_total{cause}`, `recompile_log`).
 
 Donation (`donate=True`, the default) is in-place update: a mutable
 persistable that this executor bound in the scope on an earlier run is
-written by the optimizer rules (sgd, momentum, adam) in the storage it
-already has, so a step holds no second copy of the parameters and the
-optimizer state. A tensor put into the scope by anyone else (the user,
+written by the optimizer rules (the update ops of ops/optimizer_ops.py)
+in the storage it already has, so a step holds no second copy of the
+parameters and the optimizer state. A tensor put into the scope by anyone else (the user,
 io.load_*, io.set_params_from_numpy, another executor) is never written in
 place: the first run binds a new tensor to the name, and later runs update
 that one. A caller that keeps a reference to a tensor this executor bound
@@ -56,6 +56,7 @@ import torch
 from .core import Program, Variable, default_main_program
 from .registry import (LowerContext, dtype_name, lower_op, resolve_op,
                        torch_dtype)
+from .selected_rows import SelectedRows, to_dense
 from ..observability.metrics import get_registry
 from ..observability.tracer import trace_span, tracing_enabled
 from ..observability import train_stats as _train_stats
@@ -259,6 +260,8 @@ def _sig(v):
 
 
 def _nbytes(v) -> int:
+    if isinstance(v, SelectedRows):
+        return _nbytes(v.rows) + _nbytes(v.values)
     if isinstance(v, torch.Tensor):
         return v.numel() * v.element_size()
     return int(getattr(v, "nbytes", 0) or 0)
@@ -564,7 +567,10 @@ class Executor:
         if missing:
             raise KeyError(f"fetch target(s) {missing} are not produced by "
                            "the program, fed, or held in the scope")
-        fetches = [env[n] for n in all_fetch]
+        # fetched SelectedRows densify at the boundary, as in the JAX
+        # executor (its `_sparse_fetch_names`, the rows + values the PS
+        # runtime keeps raw, come with the PS path, ROADMAP A.9)
+        fetches = [to_dense(env[n]) for n in all_fetch]
         if self._donate and not return_numpy:
             # a fetched persistable is this step's value: a copy, which no
             # later in-place update of the scope's tensor reaches
@@ -627,6 +633,8 @@ class Executor:
                     # operator.cc:949 CheckNanInf), read after the block
                     for n in op.output_names():
                         v = env.get(n)
+                        if isinstance(v, SelectedRows):
+                            v = v.values
                         if isinstance(v, torch.Tensor) and (
                                 v.is_floating_point() or v.is_complex()):
                             flags.append((f"{i}:{op.type}:{n}",

@@ -1,5 +1,6 @@
-"""Math layers: elementwise_add and elementwise_sub (and `+`, `-` on
-Variables), matmul, einsum, scale, mean, reduce_sum, reduce_mean, tril.
+"""Math layers: elementwise_add and elementwise_sub (and `+`, `-`, `*`,
+`/` on Variables), matmul, einsum, scale, mean, reduce_sum, reduce_mean,
+reduce_max, clip, cumsum, less_than, less_equal, tril.
 
 Copied from `paddle_tpu/layers/math.py`: the same op types, slots and
 attrs.
@@ -9,7 +10,8 @@ from ..framework.core import Variable
 from ..framework.layer_helper import LayerHelper
 
 __all__ = ["elementwise_add", "elementwise_sub", "matmul", "einsum", "scale",
-           "mean", "reduce_sum", "reduce_mean", "tril"]
+           "mean", "reduce_sum", "reduce_mean", "reduce_max", "clip",
+           "cumsum", "less_than", "less_equal", "tril"]
 
 
 def _to_variable(x, ref: Variable):
@@ -101,6 +103,45 @@ def reduce_sum(x, dim=None, keep_dim=False, name=None):
 
 def reduce_mean(x, dim=None, keep_dim=False, name=None):
     return _reduce("reduce_mean", x, dim, keep_dim, name)
+
+
+def reduce_max(x, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_max", x, dim, keep_dim, name)
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("clip", {"X": [x.name]}, {"Out": [out.name]},
+                     {"min": float(min), "max": float(max)})
+    return out
+
+
+def cumsum(x, axis=-1, exclusive=False, reverse=False, name=None):
+    helper = LayerHelper("cumsum", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("cumsum", {"X": [x.name]}, {"Out": [out.name]},
+                     {"axis": axis, "exclusive": exclusive,
+                      "reverse": reverse})
+    return out
+
+
+def _compare(op_type, x, y, name=None):
+    helper = LayerHelper(op_type, name=name)
+    y = _to_variable(y, x)
+    out = helper.create_variable_for_type_inference("bool",
+                                                    stop_gradient=True)
+    helper.append_op(op_type, {"X": [x.name], "Y": [y.name]},
+                     {"Out": [out.name]})
+    return out
+
+
+def less_than(x, y, name=None):
+    return _compare("less_than", x, y, name)
+
+
+def less_equal(x, y, name=None):
+    return _compare("less_equal", x, y, name)
 
 
 def tril(x, diagonal=0, name=None):

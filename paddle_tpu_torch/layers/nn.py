@@ -1,7 +1,7 @@
 """NN layers of the GPT, BERT, ResNet, NMT Transformer and book slices: fc
 (one input or a list), embedding, conv2d, pool2d, batch_norm, layer_norm,
 dropout, relu, sigmoid, tanh, gelu, sqrt, softmax,
-softmax_with_cross_entropy, square_error_cost, topk, accuracy,
+softmax_with_cross_entropy, square_error_cost, topk, accuracy, one_hot,
 fused_attention, add_position_encoding.
 
 Copied from `paddle_tpu/layers/nn.py`: the same op types, slots, attrs and
@@ -18,7 +18,8 @@ from ..initializer import Constant, Normal, Xavier
 __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
            "dropout", "relu", "sigmoid", "tanh", "gelu", "sqrt", "softmax",
            "softmax_with_cross_entropy", "square_error_cost", "topk",
-           "accuracy", "fused_attention", "add_position_encoding"]
+           "accuracy", "one_hot", "fused_attention",
+           "add_position_encoding"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -283,6 +284,14 @@ def accuracy(input, label, k=1, name=None):
                      {"Accuracy": [acc.name], "Correct": [correct.name],
                       "Total": [total.name]})
     return acc
+
+
+def one_hot(input, depth, name=None):
+    helper = LayerHelper("one_hot", name=name)
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op("one_hot", {"X": [input.name]}, {"Out": [out.name]},
+                     {"depth": depth})
+    return out
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False,

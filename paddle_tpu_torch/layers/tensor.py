@@ -1,5 +1,6 @@
-"""Tensor layers: data, fill_constant, concat, split, reshape, squeeze,
-unsqueeze, transpose, slice, arange.
+"""Tensor layers: data, fill_constant, cast, concat, split, reshape,
+squeeze, unsqueeze, transpose, slice, arange, argmax, increment,
+create_global_var, create_parameter.
 
 Copied from `paddle_tpu/layers/tensor.py`: the same op types, slots and
 attrs, so a program built by either DSL serializes alike.
@@ -7,11 +8,13 @@ attrs, so a program built by either DSL serializes alike.
 
 import numpy as np
 
-from ..framework.core import convert_np_dtype, default_main_program
+from ..framework.core import (convert_np_dtype, default_main_program,
+                              unique_name)
 from ..framework.layer_helper import LayerHelper
 
-__all__ = ["data", "fill_constant", "concat", "split", "reshape", "squeeze",
-           "unsqueeze", "transpose", "slice", "arange"]
+__all__ = ["data", "fill_constant", "cast", "concat", "split", "reshape",
+           "squeeze", "unsqueeze", "transpose", "slice", "arange", "argmax",
+           "increment", "create_global_var", "create_parameter"]
 
 _builtin_range = range
 
@@ -35,6 +38,15 @@ def fill_constant(shape, dtype, value, name=None):
     helper.append_op("fill_constant", {}, {"Out": [out.name]},
                      {"shape": list(shape), "dtype": convert_np_dtype(dtype),
                       "value": float(value)})
+    return out
+
+
+def cast(x, dtype, name=None):
+    helper = LayerHelper("cast", name=name)
+    dtype = convert_np_dtype(dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("cast", {"X": [x.name]}, {"Out": [out.name]},
+                     {"out_dtype": dtype})
     return out
 
 
@@ -120,3 +132,60 @@ def arange(start, end, step=1, dtype="float32", name=None):
                      {"shape": list(vals.shape), "dtype": dtype,
                       "values": vals.reshape(-1).tolist()})
     return out
+
+
+def argmax(x, axis=-1, dtype="int64", keepdims=False, name=None):
+    helper = LayerHelper("arg_max", name=name)
+    out = helper.create_variable_for_type_inference(dtype, True)
+    helper.append_op("arg_max", {"X": [x.name]}, {"Out": [out.name]},
+                     {"axis": axis, "dtype": dtype, "keepdims": keepdims})
+    return out
+
+
+def increment(x, value=1.0, in_place=True, name=None):
+    helper = LayerHelper("increment", name=name)
+    if in_place:
+        out = x
+    else:
+        out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("increment", {"X": [x.name]}, {"Out": [out.name]},
+                     {"step": float(value)}, infer_shape=False)
+    return out
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    """Creates a persistable var initialized in the startup program."""
+    from ..framework.core import (default_main_program,
+                                  default_startup_program)
+    name = name or unique_name("global_var")
+    blk = default_main_program().global_block
+    var = blk.create_var(name=name, shape=shape, dtype=dtype,
+                         persistable=persistable, stop_gradient=True)
+    sb = default_startup_program().global_block
+    sb.create_var(name=name, shape=shape, dtype=dtype,
+                  persistable=persistable, stop_gradient=True)
+    sb.append_op("fill_constant", {}, {"Out": [name]},
+                 {"shape": list(shape), "dtype": dtype,
+                  "value": float(value)}, infer_shape=False)
+    return var
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    """reference: layers/tensor.py create_parameter — a free-standing
+    trainable parameter."""
+    import copy as _copy
+
+    from ..framework.layer_helper import LayerHelper, ParamAttr
+    helper = LayerHelper("create_parameter", name=None)
+    if attr is None:
+        attr = ParamAttr(name=name)
+    elif name and not attr.name:
+        # never mutate the caller's attr: a shared ParamAttr reused across
+        # calls would silently alias every parameter to the first name
+        attr = _copy.copy(attr)
+        attr.name = name
+    return helper.create_parameter(attr, list(shape), dtype,
+                                   is_bias=is_bias,
+                                   default_initializer=default_initializer)

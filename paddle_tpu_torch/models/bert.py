@@ -9,10 +9,10 @@ mask as a per-key bias, which on CUDA dispatches to the Hopper flash
 kernels (flash_small_fwd/flash_small_bwd at 256 <= s <= 512, flash_fwd and
 the tiled backward pair above). `amp=True` applies the bf16 rewrite of
 `contrib/mixed_precision.py` before the backward, as in JAX.
+`optimizer` is "adam", "lamb" or anything else for SGD, as in JAX.
 
-Not ported yet, each raising NotImplementedError: optimizer="lamb",
-pipeline_microbatches, recompute=True and context parallelism
-(`BertConfig(cp_axis=...)`).
+Not ported yet, each raising NotImplementedError: pipeline_microbatches,
+recompute=True and context parallelism (`BertConfig(cp_axis=...)`).
 """
 
 from __future__ import annotations
@@ -146,9 +146,6 @@ def bert_pretrain_program(cfg: BertConfig, seq_len: int, is_test=False,
     """(main, startup, fetches) for an MLM pretraining step with tied output
     embeddings (logits over the full vocab at every position). amp=True
     applies the bf16 rewrite (f32 master weights); fetches carry "loss"."""
-    if optimizer == "lamb":
-        raise _not_ported("optimizer='lamb'",
-                          "the optimizer slice (ROADMAP.md queue A.5)")
     if pipeline_microbatches:
         raise _not_ported("pipeline_microbatches (PipelineOptimizer)",
                           "the parallelism slice (ROADMAP.md queue A.8)")
@@ -172,6 +169,8 @@ def bert_pretrain_program(cfg: BertConfig, seq_len: int, is_test=False,
 
         if optimizer == "adam":
             opt = pt.optimizer.Adam(learning_rate)
+        elif optimizer == "lamb":
+            opt = pt.optimizer.Lamb(learning_rate)
         else:
             opt = pt.optimizer.SGD(learning_rate)
         if amp:

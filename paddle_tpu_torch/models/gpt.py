@@ -8,9 +8,9 @@ causal=True, which dispatches to the Hopper flash kernels on CUDA
 (flash_fwd at s >= 640, flash_small_fwd at 256 <= s <= 512).
 
 `gpt_lm_program` builds the train step (is_test=False, the JAX default:
-append_backward + SGD or Adam, amp=True for the bf16 AMP rewrite) or the
-inference form (is_test=True). Not ported yet: recompute=True,
-optimizer="lamb" (each raises) and `tp_shardings`.
+append_backward + Adam, Lamb or SGD, amp=True for the bf16 AMP rewrite) or
+the inference form (is_test=True). Not ported yet: recompute=True (it
+raises) and `tp_shardings`.
 """
 
 from __future__ import annotations
@@ -103,17 +103,13 @@ def gpt_lm_program(cfg: GPTConfig, seq_len: int, is_test=False,
     """(main, startup, fetches) for a causal-LM step: next-token CE with
     the tied wte head, loss over positions 0..seq-2 predicting 1..seq-1.
     With is_test=False the backward and the optimizer (`optimizer`:
-    "adam" or "sgd") are appended; amp=True wraps the optimizer in the
-    bf16 AMP rewrite (contrib.mixed_precision.decorate), as the JAX
+    "adam", "lamb", else SGD) are appended; amp=True wraps the optimizer
+    in the bf16 AMP rewrite (contrib.mixed_precision.decorate), as the JAX
     package does. Fetches carry "loss" and "logits"."""
     if recompute:
         raise NotImplementedError(
             "gpt_lm_program: recompute=True is not ported to "
             "paddle_tpu_torch yet (ROADMAP A.9)")
-    if optimizer not in ("adam", "sgd"):
-        raise NotImplementedError(
-            f"gpt_lm_program: optimizer {optimizer!r} is not ported to "
-            "paddle_tpu_torch yet (ROADMAP A.5; adam and sgd are)")
     main, startup = pt.Program(), pt.Program()
     with pt.program_guard(main, startup):
         tokens = pt.layers.data("tokens", [seq_len], dtype="int64")
@@ -128,6 +124,8 @@ def gpt_lm_program(cfg: GPTConfig, seq_len: int, is_test=False,
         mean_loss = pt.layers.mean(loss)
         if optimizer == "adam":
             opt = pt.optimizer.Adam(learning_rate)
+        elif optimizer == "lamb":
+            opt = pt.optimizer.Lamb(learning_rate)
         else:
             opt = pt.optimizer.SGD(learning_rate)
         if amp:

@@ -2,10 +2,9 @@
 simple_img_conv_pool, img_conv_group, sequence_conv_pool, glu,
 scaled_dot_product_attention).
 
-Copied from `paddle_tpu/nets.py`. sequence_conv_pool needs sequence_pool
-(ROADMAP A.6) and switch_moe_ffn the one_hot, cumsum, arg_max and
-less_equal ops of A.4 (reduce_max is registered); both raise until those
-land."""
+Copied from `paddle_tpu/nets.py`, with switch_moe_ffn (the Switch top-1
+mixture-of-experts FFN). sequence_conv_pool needs sequence_pool (ROADMAP
+A.6) and raises until it lands."""
 
 from __future__ import annotations
 
@@ -103,10 +102,75 @@ def sequence_conv_pool(input, num_filters, filter_size, lengths=None,
 def switch_moe_ffn(x, num_experts, d_model, d_ffn, capacity_factor=1.25,
                    name_prefix=None):
     """Switch-style top-1 mixture-of-experts FFN (`paddle_tpu/nets.py`
-    switch_moe_ffn): router, capacity masking, dispatch and combine
-    einsums, load-balancing aux loss."""
-    raise NotImplementedError(
-        "switch_moe_ffn needs the one_hot, cumsum, arg_max and less_equal "
-        "ops and the argmax, one_hot, cumsum, less_equal, reduce_max, cast, "
-        "clip and create_parameter layers, which are not ported to "
-        "paddle_tpu_torch yet (ROADMAP A.4)")
+    switch_moe_ffn, op for op).
+
+    Formulation is the Mesh-TensorFlow/GSPMD dispatch-combine einsum over
+    [e, d, f] expert weights (the expert-parallel sharding of that axis is
+    the parallelism slice, ROADMAP A.8; here every expert runs on one
+    device, as torch.einsum contractions). Returns (output [b, s, d], aux_loss) where aux_loss is
+    the load-balancing loss (mean fraction * mean router prob, scaled by
+    num_experts).
+
+    Capacity: each expert processes at most
+    ceil(tokens/experts * capacity_factor) tokens per batch; overflow
+    tokens pass through the residual (their expert output is zeroed) —
+    the standard Switch behavior, static shapes throughout.
+    """
+    import math as _math
+
+    from .framework.core import unique_name
+    from .framework.layer_helper import ParamAttr
+
+    if name_prefix is None:
+        # stacked layers must not silently alias one weight set
+        name_prefix = unique_name("moe")
+
+    b_s_d = x.shape
+    seq = int(b_s_d[1])
+    e = int(num_experts)
+
+    router = layers.fc(x, e, num_flatten_dims=2, bias_attr=False,
+                       param_attr=ParamAttr(name=f"{name_prefix}/router.w"))
+    probs = layers.softmax(router, axis=-1)              # [b, s, e]
+    gate = layers.reduce_max(probs, dim=-1, keep_dim=True)   # [b, s, 1]
+    # top-1 via argmax one-hot: ties (e.g. all-zero padding tokens with
+    # uniform probs) must pick ONE expert, not flood every queue
+    top_idx = layers.argmax(probs, axis=-1)              # [b, s]
+    assign = layers.one_hot(top_idx, e)                  # [b, s, e]
+
+    # capacity masking: position of each token within its expert's queue
+    cap = int(_math.ceil(seq * capacity_factor / e))
+    pos = layers.cumsum(assign, axis=1)                 # [b, s, e]
+    keep = layers.cast(
+        layers.less_equal(pos, layers.fill_constant([1], "float32",
+                                                    float(cap))),
+        "float32") * assign                              # [b, s, e]
+
+    # dispatch mask (Mesh-TF/GSPMD formulation): tokens GATHER into each
+    # expert's fixed [cap] queue instead of a dense [b, e, s, d] copy —
+    # expert flops become b*cap*e (≈ capacity_factor x the dense FFN)
+    # rather than e x the dense FFN, the difference between MoE being a
+    # win and an 8x tax (BASELINE.md r5 MoE row; static shapes kept).
+    slot = layers.reduce_sum(pos * assign, dim=-1, keep_dim=False)
+    slot_idx = layers.cast(
+        layers.clip(slot - 1.0, 0.0, float(cap - 1)), "int64")
+    slot_oh = layers.one_hot(slot_idx, cap)              # [b, s, cap]
+    mask4 = layers.einsum("bse,bsc->bsec", keep, slot_oh)
+
+    disp = layers.einsum("bsec,bsd->ebcd", mask4, x)     # [e, b, cap, d]
+
+    w1 = layers.create_parameter([e, d_model, d_ffn], "float32",
+                                 attr=ParamAttr(name=f"{name_prefix}/w1"))
+    w2 = layers.create_parameter([e, d_ffn, d_model], "float32",
+                                 attr=ParamAttr(name=f"{name_prefix}/w2"))
+    h = layers.relu(layers.einsum("ebcd,edf->ebcf", disp, w1))
+    y = layers.einsum("ebcf,efd->ebcd", h, w2)           # [e, b, cap, d]
+    # combine weighted by the router prob of the chosen expert
+    comb = layers.einsum("bsec,bse->bsec", mask4, probs)
+    out = layers.einsum("ebcd,bsec->bsd", y, comb)
+
+    # load-balancing aux loss (Switch eq. 4): e * sum_e f_e * P_e
+    frac = layers.reduce_mean(assign, dim=[0, 1])        # [e]
+    mean_prob = layers.reduce_mean(probs, dim=[0, 1])    # [e]
+    aux = layers.scale(layers.reduce_sum(frac * mean_prob), scale=float(e))
+    return out, aux

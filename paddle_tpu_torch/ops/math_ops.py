@@ -1,19 +1,26 @@
 """Math ops of the GPT and BERT slices: elementwise_add, matmul, mul, einsum,
 mean, sum, scale; the ops the gradient clips and the training telemetry
 tap append: elementwise_mul/div/max, clip, clip_by_norm, squared_l2_norm,
-isfinite, logical_and; and the ops of the NMT Transformer and the book
-models: elementwise_sub, the reduce family, tril_triu.
+isfinite; the ops of the NMT Transformer and the book models:
+elementwise_sub, the reduce family, tril_triu; and those the Switch MoE
+FFN, the LR schedules and ModelAverage append: elementwise_min/pow and the
+compare and logical family.
 
 Port of the matching rules in `paddle_tpu/ops/math_ops.py` (_broadcast_y:21,
-the elementwise family :33-54, matmul:64, mul:79, einsum:104, the reduce
+the elementwise family :33-55, matmul:64, mul:79, einsum:104, the reduce
 family :122-145, mean:148, sum:153, scale:178, clip:205, clip_by_norm:217,
-squared_l2_norm:236, logical_and:291, isfinite:301, tril_triu:308).
+squared_l2_norm:236, the compare and logical family :279-297,
+isfinite:301, tril_triu:308).
 Large products go to `torch.matmul` /
 `torch.einsum`, as the JAX package leaves them to XLA. Every grad here
-takes the generic vjp path, as in JAX (isfinite and logical_and have
-none); in eager mode that replays the forward product once more per grad
-op (PERF.md §5 measures it). SelectedRows inputs of the clip ops come with
-the sparse grads (ROADMAP A.5).
+takes the generic vjp path, as in JAX (isfinite and the compare family
+have none); in eager mode that replays the forward product once more per
+grad op (PERF.md §5 measures it).
+
+SelectedRows inputs (sparse embedding grads) take the JAX rules' sparse
+branches: a scalar elementwise_mul and a bias-free scale stay sparse, a
+`sum` of sparse inputs only concatenates them, and clip, clip_by_norm and
+squared_l2_norm act on the merged rows; anything else densifies.
 """
 
 import math
@@ -21,6 +28,7 @@ import math
 import torch
 
 from ..framework.registry import register_op
+from ..framework.selected_rows import SelectedRows, merge_rows, row_mask
 
 
 def _broadcast_y(x, y, axis):
@@ -39,8 +47,16 @@ def _broadcast_y(x, y, axis):
 
 def _register_elementwise(name, fn):
     @register_op(name)
-    def _lower(ctx, ins, attrs, _fn=fn):
+    def _lower(ctx, ins, attrs, _fn=fn, _name=name):
         x, y = ins["X"][0], ins["Y"][0]
+        if isinstance(x, SelectedRows):
+            # a scalar multiply is linear in the rows, so it stays sparse
+            # (grad scaling, the clips); anything else densifies
+            if _name == "elementwise_mul" and y.numel() == 1:
+                return {"Out": [SelectedRows(
+                    x.rows, x.values * y.reshape(()).to(x.values.dtype),
+                    x.height)]}
+            x = x.to_dense()
         return {"Out": [_fn(x, _broadcast_y(x, y, attrs.get("axis", -1)))]}
 
 
@@ -48,7 +64,9 @@ _register_elementwise("elementwise_add", torch.add)
 _register_elementwise("elementwise_sub", torch.sub)
 _register_elementwise("elementwise_mul", torch.mul)
 _register_elementwise("elementwise_div", torch.div)
+_register_elementwise("elementwise_min", torch.minimum)
 _register_elementwise("elementwise_max", torch.maximum)
+_register_elementwise("elementwise_pow", torch.pow)
 
 
 @register_op("matmul")
@@ -131,9 +149,17 @@ def _mean(ctx, ins, attrs):
 @register_op("sum")
 def _sum(ctx, ins, attrs):
     """add_n: sum a list of tensors (grad accumulation, e.g. the tied
-    gpt/wte; reference: operators/sum_op.cc). Dense only: SelectedRows
-    inputs come with the sparse lookup_table grad."""
+    gpt/wte; reference: operators/sum_op.cc). As the reference's
+    SumKernel SelectedRows branch: all-sparse inputs concatenate into one
+    sparse result; a dense/sparse mix densifies."""
     xs = ins["X"]
+    if any(isinstance(x, SelectedRows) for x in xs):
+        if all(isinstance(x, SelectedRows) for x in xs):
+            return {"Out": [SelectedRows(
+                torch.cat([x.rows for x in xs]),
+                torch.cat([x.values for x in xs]), xs[0].height)]}
+        xs = [x.to_dense() if isinstance(x, SelectedRows) else x
+              for x in xs]
     out = xs[0]
     for x in xs[1:]:
         out = out + x
@@ -154,6 +180,13 @@ def _weak_scalar(v, x):
 @register_op("scale")
 def _scale(ctx, ins, attrs):
     x = ins["X"][0]
+    if isinstance(x, SelectedRows):
+        if attrs.get("bias", 0.0) != 0.0:
+            x = x.to_dense()   # a bias is affine, not additive-safe
+        else:
+            return {"Out": [SelectedRows(
+                x.rows, x.values * _weak_scalar(attrs.get("scale", 1.0),
+                                                x.values), x.height)]}
     s = _weak_scalar(attrs.get("scale", 1.0), x)
     b = _weak_scalar(attrs.get("bias", 0.0), x)
     if attrs.get("bias_after_scale", True):
@@ -161,15 +194,40 @@ def _scale(ctx, ins, attrs):
     return {"Out": [(x + b) * s]}
 
 
+def _sparse_merged_and_mask(sr):
+    """(rows, merged values, one-occurrence mask). A NONLINEAR rewrite of a
+    SelectedRows grad applies to the MERGED per-row value, and the mask
+    then zeroes all but one occurrence: f never sees the mask's zero slots
+    (clip(0) is not 0 when min > 0)."""
+    merged = merge_rows(sr)
+    mask = row_mask(sr)[:, None].to(merged.values.dtype)
+    return merged.rows, merged.values, mask
+
+
 @register_op("clip")
 def _clip(ctx, ins, attrs):
-    return {"Out": [torch.clamp(ins["X"][0], attrs["min"], attrs["max"])]}
+    x = ins["X"][0]
+    if isinstance(x, SelectedRows):
+        rows, merged, mask = _sparse_merged_and_mask(x)
+        return {"Out": [SelectedRows(
+            rows, mask * torch.clamp(merged, attrs["min"], attrs["max"]),
+            x.height)]}
+    return {"Out": [torch.clamp(x, attrs["min"], attrs["max"])]}
 
 
 @register_op("clip_by_norm")
 def _clip_by_norm(ctx, ins, attrs):
     x = ins["X"][0]
     max_norm = attrs["max_norm"]
+    if isinstance(x, SelectedRows):
+        rows, merged, mask = _sparse_merged_and_mask(x)
+        vals = merged * mask
+        norm = torch.sqrt(torch.sum(vals.float() ** 2))
+        scale = torch.where(norm > max_norm,
+                            max_norm / torch.clamp_min(norm, 1e-12),
+                            torch.ones_like(norm))
+        return {"Out": [SelectedRows(rows, vals * scale.to(vals.dtype),
+                                     x.height)]}
     norm = torch.sqrt(torch.sum(x * x))
     scale = torch.where(norm > max_norm,
                         max_norm / torch.clamp_min(norm, 1e-12),
@@ -180,12 +238,32 @@ def _clip_by_norm(ctx, ins, attrs):
 @register_op("squared_l2_norm")
 def _squared_l2_norm(ctx, ins, attrs):
     x = ins["X"][0]
+    if isinstance(x, SelectedRows):
+        _, merged, mask = _sparse_merged_and_mask(x)
+        x = merged * mask
     return {"Out": [torch.sum(x.float() ** 2).reshape((1,))]}
 
 
-@register_op("logical_and", not_differentiable=True, grad_free=True)
-def _logical_and(ctx, ins, attrs):
-    return {"Out": [torch.logical_and(ins["X"][0], ins["Y"][0])]}
+def _register_cmp(name, fn):
+    @register_op(name, not_differentiable=True, grad_free=True)
+    def _lower(ctx, ins, attrs, _fn=fn):
+        return {"Out": [_fn(ins["X"][0], ins["Y"][0])]}
+
+
+_register_cmp("equal", torch.eq)
+_register_cmp("not_equal", torch.ne)
+_register_cmp("less_than", torch.lt)
+_register_cmp("less_equal", torch.le)
+_register_cmp("greater_than", torch.gt)
+_register_cmp("greater_equal", torch.ge)
+_register_cmp("logical_and", torch.logical_and)
+_register_cmp("logical_or", torch.logical_or)
+_register_cmp("logical_xor", torch.logical_xor)
+
+
+@register_op("logical_not", not_differentiable=True, grad_free=True)
+def _logical_not(ctx, ins, attrs):
+    return {"Out": [torch.logical_not(ins["X"][0])]}
 
 
 @register_op("isfinite", not_differentiable=True, grad_free=True)

@@ -1,19 +1,22 @@
 """Tensor ops of the GPT, BERT and ResNet slices: reshape2, slice,
-lookup_table (with its dense grad), fill, constants, cast, random init,
-top_k; where and assign, which the training telemetry's skip/halt gates
-append; and transpose2, squeeze2, unsqueeze2, concat and split, which the
-NMT Transformer, the book models and `nets` append.
+lookup_table (with its dense and its SelectedRows grad), fill, constants,
+cast, random init, top_k; where and assign, which the training
+telemetry's skip/halt gates append; transpose2, squeeze2, unsqueeze2,
+concat and split, which the NMT Transformer, the book models and `nets`
+append; and one_hot, arg_max, cumsum and increment, which the Switch MoE
+FFN and the LR schedules append.
 
 Port of the matching rules in `paddle_tpu/ops/tensor_ops.py` (reshape2:42,
 transpose2:55, squeeze2:67, unsqueeze2:79, concat:110, split:115,
-slice:141, lookup_table:256-299, where:329, fill_constant:347,
-fill_any_like:370, assign:377, assign_value:382, cast:388,
-uniform_random:435, gaussian_random:446, top_k:483). The grads of
-reshape2, transpose2, squeeze2, unsqueeze2, concat, split, slice,
-where, assign and cast take the generic vjp path (cast's
-is a cast back to the input's dtype). Rules create tensors on
-`ctx.device`; random ops draw from the run's `torch.Generator` (or a fixed
-`seed` attr), so they give other numbers than JAX's keys from the same seed.
+slice:141, lookup_table:256-299, one_hot:315, where:329, fill_constant:347,
+fill_any_like:370, assign:377, assign_value:382, cast:388, increment:415,
+uniform_random:435, gaussian_random:446, top_k:483, arg_max:490,
+cumsum:517). The grads of reshape2, transpose2, squeeze2, unsqueeze2,
+concat, split, slice, where, assign, cast, cumsum and increment take the
+generic vjp path (cast's is a cast back to the input's dtype); one_hot
+and arg_max have none. Rules create tensors on `ctx.device`; random ops
+draw from the run's `torch.Generator` (or a fixed `seed` attr), so they
+give other numbers than JAX's keys from the same seed.
 """
 
 import math
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from ..framework.registry import register_op, torch_dtype
+from ..framework.selected_rows import SelectedRows
 
 
 def _resolve_shape(shape, x):
@@ -123,26 +127,25 @@ def _lookup_sparse_slots(op):
 
 
 def _lookup_table_grad(ctx, ins, attrs):
-    """Dense scatter-add of the out-grad rows into a zero table (reference:
-    operators/lookup_table_op.h LookupTableGradKernel); padding_idx rows
-    get no gradient. is_sparse=True (a SelectedRows grad) comes with a
-    later slice."""
-    if attrs.get("is_sparse", False):
-        raise NotImplementedError(
-            "lookup_table with is_sparse=True (SelectedRows gradients) is "
-            "not ported to paddle_tpu_torch yet (ROADMAP A.5); build it "
-            "with is_sparse=False")
+    """Dense scatter-add of the out-grad rows into a zero table, or, with
+    is_sparse=True, a SelectedRows of (ids, out-grad rows): the
+    reference's sparse-embedding gradient (operators/lookup_table_op.h
+    LookupTableGradKernel and its SelectedRows branch). padding_idx rows
+    get no gradient."""
     w, ids, og = ins["W"][0], ins["Ids"][0], ins["Out@GRAD"][0]
     if ids.ndim > 1 and ids.shape[-1] == 1:
         ids = torch.squeeze(ids, -1)
     rows = ids.reshape(-1).long()
-    vals = og.reshape(-1, og.shape[-1]).to(w.dtype)
+    vals = og.reshape(-1, og.shape[-1])
     pad = attrs.get("padding_idx", -1)
     if pad is not None and pad >= 0:
         vals = torch.where((rows != pad)[:, None], vals,
                            torch.zeros((), dtype=vals.dtype,
                                        device=vals.device))
-    return {"W@GRAD": [torch.zeros_like(w).index_add_(0, rows, vals)]}
+    if attrs.get("is_sparse", False):
+        return {"W@GRAD": [SelectedRows(rows, vals, w.shape[0])]}
+    return {"W@GRAD": [torch.zeros_like(w).index_add_(0, rows,
+                                                      vals.to(w.dtype))]}
 
 
 @register_op("lookup_table", no_grad_inputs={"Ids"},
@@ -160,6 +163,17 @@ def _lookup_table(ctx, ins, attrs):
         out = torch.where((ids != pad)[..., None], out,
                           torch.zeros((), dtype=out.dtype, device=out.device))
     return {"Out": [out]}
+
+
+@register_op("one_hot", not_differentiable=True, grad_free=True)
+def _one_hot(ctx, ins, attrs):
+    """float32 one-hot over `depth`; an id outside [0, depth) gives a zero
+    row, as jax.nn.one_hot does. A trailing 1 dim of X is dropped."""
+    x = ins["X"][0]
+    if x.ndim > 1 and x.shape[-1] == 1:
+        x = torch.squeeze(x, -1)
+    depth = torch.arange(attrs["depth"], device=x.device)
+    return {"Out": [(x[..., None] == depth).to(torch.float32)]}
 
 
 @register_op("fill_constant", not_differentiable=True, grad_free=True)
@@ -210,6 +224,16 @@ def _cast(ctx, ins, attrs):
     return {"Out": [ins["X"][0].to(torch_dtype(attrs["out_dtype"]))]}
 
 
+@register_op("increment")
+def _increment(ctx, ins, attrs):
+    """reference: increment_op.cc. The step keeps X's dtype: an int64
+    counter stays int64, and a float step is rounded to X's float dtype
+    before the add, as jnp.asarray(step, x.dtype) does."""
+    x = ins["X"][0]
+    return {"Out": [x + torch.tensor(attrs.get("step", 1.0),
+                                     dtype=x.dtype)]}
+
+
 def _generator(ctx, attrs):
     seed = attrs.get("seed", 0)
     return ctx.seeded(seed) if seed else ctx.rng()
@@ -242,3 +266,39 @@ def _top_k(ctx, ins, attrs):
     (JAX without x64 gives int32, a known non-fault)."""
     v, i = torch.topk(ins["X"][0], attrs["k"], dim=-1)
     return {"Out": [v], "Indices": [i]}
+
+
+@register_op("arg_max", not_differentiable=True, grad_free=True)
+def _arg_max(ctx, ins, attrs):
+    """Index of the largest value along `axis`; on ties the first, as
+    jnp.argmax (the Switch MoE router relies on it: a padding token's
+    uniform probabilities pick one expert). Out in `dtype` (int64)."""
+    x = ins["X"][0]
+    axis = attrs.get("axis", -1)
+    out = torch.argmax(x, dim=axis).to(torch_dtype(attrs.get("dtype",
+                                                             "int64")))
+    if attrs.get("keepdims", False):
+        out = torch.unsqueeze(out, axis)
+    return {"Out": [out]}
+
+
+@register_op("cumsum")
+def _cumsum(ctx, ins, attrs):
+    """Running sum along `axis` (`flatten` first when asked); `exclusive`
+    subtracts each element from its inclusive sum and `reverse` runs from
+    the end, both as the JAX rule computes them. Keeps X's dtype (a bool
+    X counts in int64)."""
+    x = ins["X"][0]
+    axis = attrs.get("axis", -1)
+    if attrs.get("flatten", False):
+        x = x.reshape(-1)
+        axis = 0
+    rev = attrs.get("reverse", False)
+    xa = torch.flip(x, (axis,)) if rev else x
+    dtype = torch.int64 if xa.dtype == torch.bool else xa.dtype
+    out = torch.cumsum(xa, dim=axis, dtype=dtype)
+    if attrs.get("exclusive", False):
+        out = out - xa.to(dtype)
+    if rev:
+        out = torch.flip(out, (axis,))
+    return {"Out": [out]}

@@ -14,6 +14,8 @@ layers, 4 heads, ffn 512) with dropout 0, s=128, batch 4, and a padding
     against the port's plain versions of its kernels;
   * the same in bf16 AMP on the fused path, at the tolerances stated in
     `test_amp_adam_steps_match_jax`;
+  * optimizer="lamb" builds JAX's program (fp32 and AMP) and 3 LAMB steps
+    match JAX's;
   * the options no slice has ported raise.
 """
 
@@ -38,13 +40,15 @@ def _cfg(mod, impl, dropout=0.0):
                           attn_impl=impl)
 
 
-def _build(impl, amp, dropout=0.0):
+def _build(impl, amp, dropout=0.0, optimizer="adam"):
     with pt.unique_name_guard():
         jprog = jbert.bert_pretrain_program(_cfg(jbert, impl, dropout), SEQ,
-                                            learning_rate=LR, amp=amp)
+                                            learning_rate=LR, amp=amp,
+                                            optimizer=optimizer)
     with ptt.unique_name_guard():
         tprog = tbert.bert_pretrain_program(_cfg(tbert, impl, dropout), SEQ,
-                                            learning_rate=LR, amp=amp)
+                                            learning_rate=LR, amp=amp,
+                                            optimizer=optimizer)
     return jprog, tprog
 
 
@@ -96,10 +100,12 @@ def _run(exe, main, fetch, scope, params, steps):
     return losses, g1, state
 
 
-def _trajectories(impl, amp, steps=STEPS):
-    """JAX and port runs of `steps` Adam steps from the JAX startup
-    values; returns (jax run, port run, parameter names, JAX init)."""
-    (jmain, jstart, jf), (tmain, _, tf) = _build(impl, amp)
+def _trajectories(impl, amp, steps=STEPS, optimizer="adam"):
+    """JAX and port runs of `steps` steps of `optimizer` from the JAX
+    startup values; returns (jax run, port run, parameter names, JAX
+    init)."""
+    (jmain, jstart, jf), (tmain, _, tf) = _build(impl, amp,
+                                                 optimizer=optimizer)
     jscope = pt.Scope()
     jexe = pt.Executor()
     jexe.run(jstart, scope=jscope)
@@ -175,17 +181,44 @@ def test_amp_adam_steps_match_jax(monkeypatch):
                                    atol=2 * LR * STEPS, rtol=0, err_msg=n)
 
 
-@pytest.mark.parametrize("kw", [{"optimizer": "lamb"},
-                                {"pipeline_microbatches": 2},
+@pytest.mark.parametrize("kw", [{"pipeline_microbatches": 2},
                                 {"recompute": True}])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="not ported"):
         tbert.bert_pretrain_program(_cfg(tbert, "fused"), SEQ, **kw)
 
 
-def test_lamb_optimizer_raises():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ptt.optimizer.Lamb(1e-3)
+@pytest.mark.parametrize("amp", [False, True])
+def test_lamb_program_matches_jax(amp):
+    """optimizer="lamb": the same program as JAX's, a lamb op a parameter
+    (on the f32 master weights under AMP)."""
+    (jmain, jstart, _), (tmain, tstart, _) = _build("fused", amp,
+                                                    optimizer="lamb")
+    assert _program_dict(tmain) == _program_dict(jmain)
+    assert _program_dict(tstart) == _program_dict(jstart)
+    types = [op.type for op in tmain.global_block.ops]
+    assert types.count("lamb") == len(tmain.global_block.all_parameters())
+    assert "adam" not in types
+
+
+def test_lamb_steps_match_jax():
+    """3 LAMB steps in fp32 on the einsum path from the JAX startup values:
+    losses within 1e-5 relative, step-1 gradients within 1e-6 + 1e-4
+    relative, parameters within 1e-5 after 3 steps. The attention key
+    biases (every l*/k.b) have an exact gradient of 0 and start at 0, so
+    their trust ratio is 1 and their rounding-noise direction moves them
+    up to lr a step either way, as under Adam: those are held to
+    2 * lr a step."""
+    jrun, trun, params, _ = _trajectories("einsum", amp=False,
+                                          optimizer="lamb")
+    np.testing.assert_allclose(trun[0], jrun[0], rtol=LOSS_RTOL)
+    for n, g in jrun[1].items():
+        np.testing.assert_allclose(trun[1][n], g, atol=GRAD_ATOL,
+                                   rtol=GRAD_RTOL, err_msg=n)
+    for n in params:
+        atol = 2 * LR * STEPS if n.endswith("/k.b") else 1e-5
+        np.testing.assert_allclose(trun[2][n], jrun[2][n], atol=atol,
+                                   rtol=0, err_msg=n)
 
 
 def test_context_parallelism_raises():

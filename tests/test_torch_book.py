@@ -5,10 +5,11 @@ on the CPU, at a small size.
     (concat, split, sigmoid, tanh, square_error_cost) as one-op programs
     through both executors, op_test style: outputs within 1e-5, input
     gradients within 5e-3 (`tests/op_test.py`'s tolerances);
-  * LeNet-5 (MNIST-shaped, 1x28x28, 10 classes), fit_a_line, word2vec,
-    recommender (narrow vocabularies) and the four `nets` helpers
-    (simple_img_conv_pool, img_conv_group with batch_norm, glu,
-    scaled_dot_product_attention): both DSLs build the same programs, op
+  * LeNet-5 (MNIST-shaped, 1x28x28, 10 classes), fit_a_line, word2vec
+    (dense and is_sparse=True), recommender (narrow vocabularies) and the
+    five `nets` helpers (simple_img_conv_pool, img_conv_group with
+    batch_norm, glu, scaled_dot_product_attention, switch_moe_ffn): both
+    DSLs build the same programs, op
     for op with their slots, attrs and vars, and the same startup; then
     one SGD step from the JAX startup values (carried by name with
     io.set_params_from_numpy): the loss within 1e-5 relative and every
@@ -234,16 +235,27 @@ def test_fit_a_line_step_matches_jax():
     check_step(*build_both(build, _sgd), feed, fetch=("loss", "pred"))
 
 
-def test_word2vec_step_matches_jax():
-    """Four context words through one shared table, concat, sigmoid fc."""
+def _word2vec_step(is_sparse):
     def build(pkg):
         return (jbook if pkg is pt else tbook).word2vec(
-            60, emb_dim=16, hidden=32, window=4)
+            60, emb_dim=16, hidden=32, window=4, is_sparse=is_sparse)
     r = np.random.RandomState(3)
     feed = {f"context_{i}": r.randint(0, 60, (8, 1)).astype(np.int64)
             for i in range(4)}
     feed["target"] = r.randint(0, 60, (8, 1)).astype(np.int64)
     check_step(*build_both(build, _sgd), feed, fetch=("loss", "logits"))
+
+
+def test_word2vec_step_matches_jax():
+    """Four context words through one shared table, concat, sigmoid fc."""
+    _word2vec_step(is_sparse=False)
+
+
+def test_word2vec_sparse_step_matches_jax():
+    """is_sparse=True: the shared table's four grads are SelectedRows,
+    summed by concatenation (fetched dense), and the SGD step is a
+    scatter-add of their rows."""
+    _word2vec_step(is_sparse=True)
 
 
 def test_recommender_step_matches_jax():
@@ -283,6 +295,10 @@ def _nets_build(which):
             if which == "glu":
                 out = L.fc(nets.glu(L.fc(x, 10, num_flatten_dims=2),
                                     dim=-1), 5, num_flatten_dims=2)
+            elif which == "switch_moe_ffn":
+                out, aux = nets.switch_moe_ffn(x, 4, 8, 16)
+                return {"loss": L.mean(out) + L.scale(aux, scale=0.01),
+                        "out": out}
             else:
                 out = nets.scaled_dot_product_attention(x, x, x, 2)
         return {"loss": L.mean(out), "out": out}
@@ -290,7 +306,8 @@ def _nets_build(which):
 
 
 @pytest.mark.parametrize("which", ["simple_img_conv_pool", "img_conv_group",
-                                   "glu", "scaled_dot_product_attention"])
+                                   "glu", "scaled_dot_product_attention",
+                                   "switch_moe_ffn"])
 def test_nets_helper_step_matches_jax(which):
     r = np.random.RandomState(5)
     if which in ("simple_img_conv_pool", "img_conv_group"):
@@ -306,27 +323,11 @@ def test_nets_helper_step_matches_jax(which):
     (lambda: tbook.label_semantic_roles(20, 5, 6), "A.6"),
     (lambda: tbook.rnn_encoder_decoder(20, 20, 5, 5), "A.6"),
     (lambda: tnets.sequence_conv_pool(None, 4, 3), "A.6"),
-    (lambda: tnets.switch_moe_ffn(None, 4, 8, 16), "A.4"),
 ], ids=["seq2seq_attention", "label_semantic_roles", "rnn_encoder_decoder",
-        "sequence_conv_pool", "switch_moe_ffn"])
+        "sequence_conv_pool"])
 def test_unported_book_builders_raise(fn, item):
     main, startup = ptt.Program(), ptt.Program()
     with ptt.program_guard(main, startup):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP {item}"):
             fn()
-
-
-def test_word2vec_sparse_raises_naming_its_item():
-    """is_sparse=True builds (the op carries the flag) and raises on its
-    first run: SelectedRows gradients are ROADMAP A.5."""
-    main, startup = ptt.Program(), ptt.Program()
-    with ptt.unique_name_guard(), ptt.program_guard(main, startup):
-        spec = tbook.word2vec(20, emb_dim=4, hidden=8, is_sparse=True)
-        ptt.optimizer.SGD(0.1).minimize(spec["loss"])
-    exe = ptt.Executor(ptt.CPUPlace())
-    scope = ptt.Scope()
-    exe.run(startup, scope=scope)
-    feed = {n: np.zeros((2, 1), np.int64) for n in spec["feed"]}
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        exe.run(main, feed=feed, fetch_list=[spec["loss"]], scope=scope)

@@ -12,7 +12,8 @@ CPU, at a tiny size (vocab 256, hidden 64, 2 layers, 4 heads, batch 2).
     `_check_state`. attn_impl="flash" runs JAX's Pallas kernels in
     interpret mode against the port's kernels' plain versions;
     attn_impl="xla" the plain reference on both sides;
-  * one SGD step matches too.
+  * one SGD step matches too, and so do 3 LAMB steps
+    (optimizer="lamb") and a regularized, clipped Adam step.
 """
 
 import numpy as np
@@ -21,6 +22,7 @@ import torch
 
 import paddle_tpu as pt
 import paddle_tpu_torch as ptt
+from paddle_tpu.models import gpt as jgpt
 from paddle_tpu.models.gpt import GPTConfig, gpt_lm_program
 from paddle_tpu_torch.models import gpt as tgpt
 from test_torch_gpt_inference import _program_dict
@@ -186,22 +188,74 @@ def test_scope_tensors_are_ordinary_and_updated_by_rebinding(tmp_path):
     w2.add_(1.0)   # in place, outside the executor
 
 
-@pytest.mark.parametrize("kw", [{"recompute": True}, {"optimizer": "lamb"}])
+@pytest.mark.parametrize("kw", [{"recompute": True}])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="not ported"):
         tgpt.gpt_lm_program(_cfg(tgpt.GPTConfig, "fused"), 256, **kw)
 
 
-@pytest.mark.parametrize("kw", [{"regularization": object()},
-                                {"grad_clip": object()}])
-def test_regularization_and_clip_raise(kw):
-    """regularization= still raises (ROADMAP A.5); grad_clip= is taken
-    since clip.py was ported (tests/test_torch_train_stats.py runs it)."""
-    if "grad_clip" in kw:
-        assert ptt.optimizer.Adam(1e-3, **kw).grad_clip is kw["grad_clip"]
-        return
-    with pytest.raises(NotImplementedError, match="not ported.*A.5"):
-        ptt.optimizer.Adam(1e-3, **kw)
+def test_lamb_steps_match_jax():
+    """optimizer="lamb": the same program as JAX's, and 3 LAMB steps at
+    s=256 on the fused path match JAX's losses, step-1 gradients and
+    state as the Adam steps do (the k.b allowance of `_check_state`: a
+    key bias starts at 0, so its trust ratio is 1 and its rounding-noise
+    direction moves it up to lr a step either way)."""
+    (jmain, jstart, _), (tmain, tstart, _) = _build(256, "fused", "lamb")
+    assert _program_dict(tmain) == _program_dict(jmain)
+    assert _program_dict(tstart) == _program_dict(jstart)
+    assert "lamb" in [op.type for op in tmain.global_block.ops]
+    jax_run, port_run, params = _trajectories(256, "fused", "lamb")
+    _check_losses_and_grads(jax_run, port_run)
+    _check_state(jax_run[2], port_run[2], params, STEPS)
+
+
+def _regularized(pkg, mod):
+    """GPT's forward (gpt_lm_program(is_test=True)) with Adam,
+    L2Decay(1e-2) on every parameter, L1Decay(1e-3) on the token
+    embedding through its ParamAttr, and a global-norm clip."""
+    with pkg.unique_name_guard():
+        main, startup, f = mod.gpt_lm_program(
+            _cfg(mod.GPTConfig, "fused"), 256, is_test=True)
+        main.global_block.var("gpt/wte").regularizer = \
+            pkg.regularizer.L1Decay(1e-3)
+        with pkg.program_guard(main, startup):
+            pkg.optimizer.Adam(
+                LR, regularization=pkg.regularizer.L2Decay(1e-2),
+                grad_clip=pkg.clip.GradientClipByGlobalNorm(1.0)).minimize(
+                f["loss"])
+    return main, startup, f
+
+
+def test_regularized_adam_step_matches_jax():
+    """regularization= and a per-parameter regularizer with grad_clip=:
+    the clip's ops come before the decay's, the program is JAX's op for
+    op, and one step's loss and parameters match JAX's (parameters within
+    1e-5, the k.b allowance of `_check_state` for the key biases)."""
+    jmain, jstart, jf = _regularized(pt, jgpt)
+    tmain, _, tf = _regularized(ptt, tgpt)
+    assert _program_dict(tmain) == _program_dict(jmain)
+    types = [op.type for op in tmain.global_block.ops]
+    assert "sign" in types and types.index("sign") > max(
+        i for i, op in enumerate(tmain.global_block.ops)
+        if any("@CLIP" in n and "@REG" not in n
+               for n in op.output_names()))
+    jscope = pt.Scope()
+    pt.Executor().run(jstart, scope=jscope)
+    persist = [v.name for v in jmain.list_vars() if v.persistable
+               and jscope.find_var(v.name) is not None]
+    tscope = ptt.Scope()
+    ptt.io.set_params_from_numpy(
+        tscope, {n: np.asarray(jscope.find_var(n)) for n in persist}, "cpu")
+    feed = {"tokens": _tokens(256, 0)}
+    jl, = pt.Executor().run(jmain, feed=feed, fetch_list=[jf["loss"]],
+                            scope=jscope)
+    tl, = ptt.Executor(ptt.CPUPlace()).run(tmain, feed=feed,
+                                           fetch_list=[tf["loss"]],
+                                           scope=tscope)
+    np.testing.assert_allclose(tl, jl, rtol=LOSS_RTOL)
+    params = [p.name for p in jmain.global_block.all_parameters()]
+    _check_state({n: np.asarray(jscope.find_var(n)) for n in persist},
+                 {n: tscope.get_numpy(n) for n in persist}, params, 1)
 
 
 def test_gradients_seeded_with_ones_matches_jax():

@@ -436,14 +436,19 @@ def test_dropout_grad_with_fed_mask_matches_jax(impl, is_test):
     np.testing.assert_allclose(t, j, atol=TOL, rtol=TOL)
 
 
-def test_sparse_lookup_table_grad_is_not_ported_yet():
+@pytest.mark.parametrize("pad", [-1, 3])
+def test_sparse_lookup_table_grad_matches_jax(pad):
     """is_sparse=True builds the JAX package's desc (a selected_rows grad
-    var) but raises when run: SelectedRows come with a later slice."""
+    var); the SelectedRows grad, fetched dense, equals JAX's (duplicate
+    ids summed, the padding row left out)."""
     inputs = {"W": _f(10, 6), "Ids": _ids}
-    attrs = {"padding_idx": -1, "is_sparse": True}
-    with pytest.raises(NotImplementedError, match="is_sparse"):
-        _run_grad(ptt, ptt.Executor(ptt.CPUPlace()), "lookup_table", inputs,
-                  ["Out"], attrs, "Out", ["W"])
+    attrs = {"padding_idx": pad, "is_sparse": True}
+    jg, jdesc = _run_grad(pt, pt.Executor(), "lookup_table", inputs,
+                          ["Out"], attrs, "Out", ["W"])
+    tg, tdesc = _run_grad(ptt, ptt.Executor(ptt.CPUPlace()), "lookup_table",
+                          inputs, ["Out"], attrs, "Out", ["W"])
+    assert tdesc == jdesc
+    np.testing.assert_allclose(tg[0], jg[0], atol=TOL, rtol=TOL)
 
 
 def test_fused_attention_flash_op_matches_jax():

@@ -48,6 +48,7 @@ from paddle_tpu_torch.server import (AdapterConfig, DrainingError,
                                      Router, ServerConfig, TokenBucket)
 from paddle_tpu_torch.serving import (EngineOverloadError, FaultPlan,
                                       ServingConfig, ServingEngine)
+from test_torch_serving import _close_engines, _opened  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -81,7 +82,8 @@ def trained():
     t.jax_engine = JServingEngine(jp, cfg, JServingConfig(
         num_slots=2, max_queue=16, prefill_buckets=(4, 8), max_len=32))
     t.refs = {}
-    return t
+    yield t
+    t.jax_engine.close()
 
 
 def make_engine(trained, **kw):
@@ -90,7 +92,7 @@ def make_engine(trained, **kw):
     kw.setdefault("max_queue", 16)
     kw.setdefault("prefill_buckets", (4, 8))
     kw.setdefault("max_len", 32)
-    return ServingEngine(params, cfg, ServingConfig(**kw))
+    return _opened(ServingEngine(params, cfg, ServingConfig(**kw)))
 
 
 def make_server(trained, n=1, server_kw=None, **engine_kw):
@@ -1129,9 +1131,9 @@ def test_adapter_bindings_route_to_the_pool(trained):
     prompt = np.asarray([1, 2, 3], np.int32)
 
     def pool_engine(**kw):
-        eng = ServingEngine(params, cfg, ServingConfig(
+        eng = _opened(ServingEngine(params, cfg, ServingConfig(
             num_slots=2, prefill_buckets=(4, 8), max_len=32,
-            max_adapters=4, adapter_rank=2, **kw))
+            max_adapters=4, adapter_rank=2, **kw)))
         eng.upload_adapter(3, ptt.serving.make_adapter(cfg, 2, 3))
         return eng
 

@@ -48,6 +48,7 @@ from paddle_tpu_torch.serving import (AdapterError, AdapterGeometryError,
                                       MigrationTicket, ServingConfig,
                                       ServingEngine, TicketError,
                                       UnknownAdapterError, make_adapter)
+from test_torch_serving import _close_engines, _opened  # noqa: F401
 
 TIE = 1e-5
 RANK = 2
@@ -102,16 +103,16 @@ def _kw(kw, adapters):
 
 
 def make_engine(world, adapters=True, upload=(), **kw):
-    eng = ServingEngine(world["tp"], world["tcfg"],
-                        ServingConfig(**_kw(kw, adapters)))
+    eng = _opened(ServingEngine(world["tp"], world["tcfg"],
+                                ServingConfig(**_kw(kw, adapters))))
     for aid in upload:
         eng.upload_adapter(aid, make_adapter(world["tcfg"], RANK, aid))
     return eng
 
 
 def make_jax_engine(world, adapters=True, upload=(), **kw):
-    eng = JServingEngine(world["jp"], world["cfg"],
-                         JServingConfig(**_kw(kw, adapters)))
+    eng = _opened(JServingEngine(world["jp"], world["cfg"],
+                                 JServingConfig(**_kw(kw, adapters))))
     for aid in upload:
         eng.upload_adapter(aid, jmake_adapter(world["cfg"], RANK, aid))
     return eng

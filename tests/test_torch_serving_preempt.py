@@ -42,6 +42,7 @@ from paddle_tpu_torch.serving import (FaultPlan, MigrationError,
                                       MigrationTicket, ServingConfig,
                                       ServingEngine, SlotKVCache,
                                       TicketError)
+from test_torch_serving import _close_engines, _opened  # noqa: F401
 
 TIE = 1e-5
 
@@ -93,12 +94,13 @@ def _kw(kw):
 
 
 def make_engine(world, **kw):
-    return ServingEngine(world["tp"], world["tcfg"], ServingConfig(**_kw(kw)))
+    return _opened(ServingEngine(world["tp"], world["tcfg"],
+                                 ServingConfig(**_kw(kw))))
 
 
 def make_jax_engine(world, **kw):
-    return JServingEngine(world["jp"], world["cfg"],
-                          JServingConfig(**_kw(kw)))
+    return _opened(JServingEngine(world["jp"], world["cfg"],
+                                  JServingConfig(**_kw(kw))))
 
 
 def sequential_ref(world, prompt, max_new):
@@ -742,8 +744,8 @@ def test_bf16_arena_swaps_and_migrates(world):
     prompts = _pressure_prompts()
 
     def engine(**kw):
-        return ServingEngine(params, world["tcfg"],
-                             ServingConfig(**_kw(kw)))
+        return _opened(ServingEngine(params, world["tcfg"],
+                                     ServingConfig(**_kw(kw))))
 
     tight, roomy = engine(**PRESSURE), engine(**ROOMY)
     kw = dict(max_new_tokens=12, temperature=0.8, seed=3)

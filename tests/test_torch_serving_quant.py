@@ -42,6 +42,7 @@ from paddle_tpu_torch.models.gpt import GPTConfig as TGPTConfig
 from paddle_tpu_torch.serving import (MigrationTicket, ServingConfig,
                                       ServingEngine, SlotKVCache,
                                       TicketError)
+from test_torch_serving import _close_engines, _opened  # noqa: F401
 
 TIE = 1e-5
 MODES = {"int8w": {"weight_dtype": "int8"},
@@ -96,12 +97,13 @@ def _kw(kw):
 
 
 def make_engine(world, **kw):
-    return ServingEngine(world["tp"], world["tcfg"], ServingConfig(**_kw(kw)))
+    return _opened(ServingEngine(world["tp"], world["tcfg"],
+                                 ServingConfig(**_kw(kw))))
 
 
 def make_jax_engine(world, **kw):
-    return JServingEngine(world["jp"], world["cfg"],
-                          JServingConfig(**_kw(kw)))
+    return _opened(JServingEngine(world["jp"], world["cfg"],
+                                  JServingConfig(**_kw(kw))))
 
 
 def _run_mix(eng, prompts=MIX, max_new=8):
@@ -519,16 +521,16 @@ def test_create_engine_bf16_matches_jax(world, tmp_path):
                                    [fetches["logits"]], pt.Executor(),
                                    main_program=main)
     sc = _kw({})
-    jeng = pt.inference.create_engine(str(tmp_path), cfg,
-                                      JServingConfig(**sc),
-                                      dtype=jnp.bfloat16)
+    jeng = _opened(pt.inference.create_engine(str(tmp_path), cfg,
+                                              JServingConfig(**sc),
+                                              dtype=jnp.bfloat16))
     conf = ptt.inference.Config(str(tmp_path))
     conf.disable_gpu()
 
     def port(**kw):
-        return ptt.inference.create_engine(
+        return _opened(ptt.inference.create_engine(
             conf, world["tcfg"], ServingConfig(**_kw(kw)),
-            dtype=torch.bfloat16)
+            dtype=torch.bfloat16))
 
     eng = port()
     assert eng.scheduler.params["wte"].dtype == torch.bfloat16

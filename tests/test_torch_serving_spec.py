@@ -37,6 +37,7 @@ from paddle_tpu_torch.models import gpt_decode as tgd
 from paddle_tpu_torch.models.gpt import GPTConfig as TGPTConfig
 from paddle_tpu_torch.serving import (MigrationTicket, ServingConfig,
                                       ServingEngine, TicketError)
+from test_torch_serving import _close_engines, _opened  # noqa: F401
 
 TOP_K = 5
 PRESSURE = dict(num_slots=4, max_queue=16, block_size=4, kv_blocks=12,
@@ -112,12 +113,13 @@ def world():
 
 
 def make_engine(world, **kw):
-    return ServingEngine(world["tp"], world["tcfg"], ServingConfig(**_kw(kw)))
+    return _opened(ServingEngine(world["tp"], world["tcfg"],
+                                 ServingConfig(**_kw(kw))))
 
 
 def make_jax_engine(world, **kw):
-    return JServingEngine(world["jp"], world["cfg"],
-                          JServingConfig(**_kw(kw)))
+    return _opened(JServingEngine(world["jp"], world["cfg"],
+                                  JServingConfig(**_kw(kw))))
 
 
 def sequential_ref(world, prompt, max_new):
