@@ -303,6 +303,39 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 step reads the schedule to the host), against the CPU
                 within SCHED_RTOL. No hand kernel launches outside the
                 BERT run. In a child process (--optim-only);
+ 4j. rnn     -- control flow, LoD and the recurrences (models/book.py's
+                recurrent builders, ops/{rnn,control_flow}_ops.py), TF32
+                off, fp32, Adam lr 1e-3 on one fixed batch. (1)
+                seq2seq_attention at RNNsearch-50's widths (Bahdanau et
+                al. 2015: vocabularies 30 000, embeddings 620, hidden
+                1000, b80, length 50, lengths uniform in [10, 50]), 5
+                steps: losses finite and falling; the first dynamic_gru
+                on step 1's encoder input, card against the CPU port
+                (Hidden within GRU_H_ATOL, input and weight gradients
+                within RNN_GRAD_L2 relative L2), its Hidden past each
+                row's length bitwise the row's last valid state, and the
+                op's rule under torch's sync debug mode "error". (2)
+                rnn_encoder_decoder (two StaticRNNs: recurrent and
+                recurrent_grad) at the same widths, 3 steps, losses
+                falling; its encoder StaticRNN alone (embedding,
+                StaticRNN, mean) card against the CPU port: output within
+                RNN_OUT_RTOL * max, every parameter gradient within
+                RNN_GRAD_L2. (3) label_semantic_roles at the Fluid book's
+                SRL widths (depth 8, hidden 512, bidirectional: 16
+                dynamic_lstm ops; emb 32, 44 068 words, 3 162
+                predicates, 106 labels, b64, length 64), 3 steps, losses
+                falling; the first dynamic_lstm, card against the CPU,
+                within RNN_OUT_RTOL * max. Each of (1)-(3) prints step
+                ms, tokens/s, peak memory and the device kernels of a
+                step. (4) the programs of tests/test_control_flow.py and
+                test_control_flow_grad.py (paddle_tpu_torch/tools/
+                control_flow_cases.py), card against the CPU within
+                CF_RTOL * max|tensor| (CF_FLOOR floor),
+                GradientMergeOptimizer(SGD,
+                k_steps=4) for 8 micro-steps (parameters within
+                GM_PARAM_TOL of the CPU's, unchanged inside each merge
+                window), and the host syncs a While iteration. No hand
+                kernel launches. In a child process (--rnn-only);
   5. train   -- GPT-2 small (dropout 0.1) train programs with Adam through
                 Executor.run on CUDAPlace(0): 3 steps at s=1024 b=2
                 (flash_fwd, flash_bwd_dkv, flash_bwd_dq) and 3 at s=512
@@ -3959,6 +3992,423 @@ def phase_optim(seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 4j: control flow, LoD and the recurrences
+# ---------------------------------------------------------------------------
+
+# RNNsearch-50 (Bahdanau, Cho and Bengio, "Neural Machine Translation by
+# Jointly Learning to Align and Translate", ICLR 2015, §4.2 and appendix A):
+# 30 000-word source and target vocabularies, 620-dim embeddings, 1000
+# hidden units, minibatches of 80, sentences up to 50 words; their
+# RNNencdec-50 baseline trains at the same widths. Lengths uniform in
+# [RNN_MIN_LEN, RNN_LEN], source and target alike; Adam, one fixed batch.
+RNN_VOCAB, RNN_EMB, RNN_HIDDEN = 30000, 620, 1000
+RNN_BATCH, RNN_LEN, RNN_MIN_LEN, RNN_LR = 80, 50, 10, 1e-3
+S2S_STEPS, ENCDEC_STEPS = 5, 3
+# the Fluid book's SRL chapter (label_semantic_roles): depth 8, hidden 512,
+# bidirectional, emb_dim 32 (the JAX builder's one emb_dim for all three
+# embeddings), 44 068 words, 3 162 predicates, 106 labels; seq 64, b64,
+# lengths uniform in [SRL_MIN_LEN, SRL_LEN]
+SRL_WORDS, SRL_PREDS, SRL_LABELS = 44068, 3162, 106
+SRL_DEPTH, SRL_HIDDEN, SRL_EMB = 8, 512, 32
+SRL_LEN, SRL_BATCH, SRL_MIN_LEN, SRL_STEPS = 64, 64, 8, 3
+# card against the CPU port, same weights and inputs: dynamic_gru's Hidden
+# within GRU_H_ATOL absolute (h lies in (-1, 1)); gradients within
+# RNN_GRAD_L2 relative L2 (op_test's 5e-3); outputs within RNN_OUT_RTOL *
+# max |out|; each value and gradient of the control-flow programs within
+# CF_RTOL * max |its CPU tensor|, with a CF_FLOOR absolute floor (the
+# scale of the tensor, as the other phases hold: an element that
+# cancels to 0.019 from terms of ~0.5 carries their ulps);
+# GradientMerge's parameters within GM_PARAM_TOL
+GRU_H_ATOL, RNN_GRAD_L2, RNN_OUT_RTOL = 1e-5, 5e-3, 1e-5
+CF_RTOL, CF_FLOOR, GM_PARAM_TOL = 1e-6, 1e-7, 1e-6
+
+
+def _lengths(rng, lo, hi, b):
+    import numpy as np
+    return rng.randint(lo, hi + 1, (b, 1)).astype(np.int64)
+
+
+def _rnn_train(tag, build, feed, steps, seed, names, tokens, op_type):
+    """`steps` Adam steps of the program `build()` makes, on one fixed
+    batch on the card: losses, step ms, peak memory, the device kernels of
+    one more (profiled) step and its idle share, hand-kernel launches.
+    With `op_type`, step 1 also fetches the inputs of the program's first
+    op of that type (its parameters copied before the step). Returns
+    (record, {slot: step-1 input}, that op, main)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.tools.bench_resnet50 import to_device
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.unique_name_guard(), ptt.program_guard(main, startup):
+        spec = build()
+        ptt.optimizer.Adam(RNN_LR).minimize(spec["loss"])
+    startup.random_seed = main.random_seed = seed
+    exe, scope = _card_exe(), ptt.Scope()
+    exe.run(startup, scope=scope)
+    dfeed = to_device(feed, CARD)
+    op, first, before = None, [], {}
+    if op_type is not None:
+        op = next(o for o in main.global_block.ops if o.type == op_type)
+        persist = {v.name for v in main.list_vars() if v.persistable}
+        for slot, ns in op.inputs.items():
+            if ns and ns[0] in persist:
+                before[slot] = scope.find_var(ns[0]).detach().clone()
+            elif ns:
+                first.append((slot, ns[0]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts zeroed just before, read just after ----
+    zero_counts(names)
+    losses, ms = [], []
+    for i in range(steps):
+        t = time.perf_counter()
+        out = exe.run(main, feed=dfeed, fetch_list=[spec["loss"]] + (
+            [n for _, n in first] if i == 0 else []),
+            scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(out[0].item()))
+        if i == 0:
+            before.update(zip([s for s, _ in first], out[1:]))
+    counts = read_counts(names)
+    # ------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    wall, busy, idle, events = _idle_share(lambda: exe.run(
+        main, feed=dfeed, fetch_list=[spec["loss"]], scope=scope,
+        return_numpy=False))
+    med = float(np.median(ms[1:]))
+    rec = {"model": tag, "steps": steps, "optimizer": "adam", "lr": RNN_LR,
+           "losses": losses, "step_ms": ms, "median_step_ms": med,
+           "tokens_per_step": tokens, "tokens_per_s": tokens / (med / 1e3),
+           "max_memory_allocated": peak,
+           "ops": len(main.global_block.ops),
+           "device_kernels_per_step": events,
+           "profiled_step": {"wall_ms": wall, "device_busy_ms": busy,
+                             "device_idle_share": idle},
+           "device_idle_share": 1.0 - busy / med, "launches": counts}
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"rnn {tag}: losses {losses} (finite and falling expected)")
+    if any(counts.values()):
+        fail(f"rnn {tag}: hand kernels launched {counts} (none expected)")
+    return rec, before, op, main
+
+
+def _gru_op_run(device, ins, dout):
+    """dynamic_gru as a one-op program over `ins` ({slot: tensor}) with
+    gradients([Hidden], [Input, Weight], target_gradients=[dOut]) through
+    Executor.run on `device`: (Hidden, dInput, dWeight) as tensors there."""
+    import paddle_tpu_torch as ptt
+    main = ptt.Program()
+    blk = main.global_block
+    feed = dict(ins, dOut=dout)
+    for n, v in feed.items():
+        blk.create_var(name=n, shape=tuple(v.shape),
+                       dtype=str(v.dtype).replace("torch.", ""))
+    blk.append_op("dynamic_gru", {s: [s] for s in ins},
+                  {"Hidden": ["h"], "LastH": ["last_h"]}, {})
+    gx, gw = ptt.gradients([blk.var("h")],
+                           [blk.var("Input"), blk.var("Weight")],
+                           target_gradients=[blk.var("dOut")])
+    exe = ptt.Executor(ptt.CPUPlace() if device == "cpu"
+                       else ptt.CUDAPlace(0))
+    return exe.run(main, feed={n: v.to(device) for n, v in feed.items()},
+                   fetch_list=["h", gx.name, gw.name], return_numpy=False)
+
+
+def _gru_held(first, seed):
+    """The first dynamic_gru of the seq2seq step (its encoder input and
+    weight at step 1): card against the CPU port, the frozen state, and
+    the rule under the sync debug mode."""
+    import torch
+    from paddle_tpu_torch.framework.registry import LowerContext, get_op_def
+    x, w = first["Input"], first["Weight"]
+    lens = first["SequenceLength"].reshape(-1)
+    gen = torch.Generator().manual_seed(seed)
+    dout = torch.randn(tuple(x.shape[:2]) + (w.shape[0],), generator=gen)
+    card = _gru_op_run(CARD, first, dout)
+    cpu = _gru_op_run("cpu", {s: v.cpu() for s, v in first.items()}, dout)
+    h_err = float((card[0].cpu() - cpu[0]).abs().max())
+    gx_l2, gw_l2 = (_rel_l2(card[k].cpu(), cpu[k]) for k in (1, 2))
+    h = card[0]
+    frozen = all(torch.equal(h[r, int(n):], h[r, int(n) - 1:int(n)].expand(
+        h.shape[1] - int(n), -1)) for r, n in enumerate(lens.tolist()))
+    rule = get_op_def("dynamic_gru").lower
+    ctx = LowerContext(device=x.device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rule(ctx, {s: [v] for s, v in first.items()}, {})
+        synced = None
+    except RuntimeError as e:
+        synced = str(e)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    rec = {"shape": list(x.shape), "hidden_max_abs_diff": h_err,
+           "hidden_atol": GRU_H_ATOL, "d_input_rel_l2": gx_l2,
+           "d_weight_rel_l2": gw_l2, "grad_rel_l2_tol": RNN_GRAD_L2,
+           "frozen_past_length_bitwise": frozen,
+           "rule_under_sync_debug_error": synced is None}
+    if h_err > GRU_H_ATOL or max(gx_l2, gw_l2) > RNN_GRAD_L2:
+        fail(f"rnn dynamic_gru: card against CPU {rec}")
+    if not frozen:
+        fail("rnn dynamic_gru: a row's Hidden past its length is not its "
+             "last valid state, bit for bit")
+    if synced is not None:
+        fail(f"rnn dynamic_gru: the rule synchronised with the host: "
+             f"{synced}")
+    return rec
+
+
+def _rnn_seq2seq(seed, names):
+    """Part 1: seq2seq_attention at RNNsearch-50's widths."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import book
+    rng = np.random.RandomState(seed)
+    b, L, V = RNN_BATCH, RNN_LEN, RNN_VOCAB
+    tin = rng.randint(1, V, (b, L)).astype(np.int64)
+    feed = {"src": rng.randint(1, V, (b, L)).astype(np.int64),
+            "src_lens": _lengths(rng, RNN_MIN_LEN, L, b), "tgt_in": tin,
+            "tgt_out": np.roll(tin, -1, axis=1),
+            "tgt_lens": _lengths(rng, RNN_MIN_LEN, L, b)}
+
+    rec, first, _, _ = _rnn_train(
+        "seq2seq_attention", lambda: book.seq2seq_attention(
+            V, V, L, L, emb_dim=RNN_EMB, hidden=RNN_HIDDEN),
+        feed, S2S_STEPS, seed, names, int(feed["tgt_lens"].sum()),
+        "dynamic_gru")
+    rec["tokens"] = "target (non-pad)"
+    rec["dynamic_gru"] = _gru_held(first, seed)
+    return rec
+
+
+def _encoder_program():
+    """rnn_encoder_decoder's encoder alone: embedding, the StaticRNN, mean."""
+    import paddle_tpu_torch as ptt
+    L = ptt.layers
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.unique_name_guard(), ptt.program_guard(main, startup):
+        src = L.data("src", [RNN_LEN], dtype="int64")
+        emb = L.embedding(src, size=[RNN_VOCAB, RNN_EMB])
+        boot = L.fill_constant_batch_size_like(
+            L.unsqueeze(L.reduce_sum(emb, dim=[1, 2]), axes=[1]),
+            [-1, RNN_HIDDEN], "float32", 0.0)
+        emb_tm = L.transpose(emb, [1, 0, 2])          # [T, b, d]
+        rnn = L.StaticRNN()
+        with rnn.step():
+            x_t = rnn.step_input(emb_tm)
+            prev = rnn.memory(init=boot)
+            h = L.fc(input=[x_t, prev], size=RNN_HIDDEN, act="tanh")
+            rnn.update_memory(prev, h)
+            rnn.step_output(h)
+        out = rnn()
+        pg = ptt.append_backward(L.mean(out))
+    return main, startup, out, pg
+
+
+def _encoder_held(seed, src):
+    """The encoder StaticRNN (recurrent and recurrent_grad) on the card
+    against the CPU port from the same weights: its output and every
+    parameter gradient."""
+    main, startup, out, pg = _encoder_program()
+    startup.random_seed = main.random_seed = seed
+    exe = _card_exe()
+    import paddle_tpu_torch as ptt
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope)
+    init = _host_copy(scope)
+    fetch = [out.name] + [g.name for _, g in pg]
+    card = exe.run(main, feed={"src": src}, fetch_list=fetch, scope=scope,
+                   return_numpy=False)
+    cpu = ptt.Executor(ptt.CPUPlace()).run(
+        main, feed={"src": src}, fetch_list=fetch,
+        scope=_scope_from(init, "cpu"), return_numpy=False)
+    scale = float(cpu[0].abs().max())
+    out_err = float((card[0].cpu() - cpu[0]).abs().max()) / scale
+    grads = {p.name: _rel_l2(c.cpu(), h)
+             for (p, _), c, h in zip(pg, card[1:], cpu[1:])}
+    rec = {"out_max_diff_over_max": out_err, "out_rtol": RNN_OUT_RTOL,
+           "grad_rel_l2": grads, "grad_rel_l2_tol": RNN_GRAD_L2}
+    if out_err > RNN_OUT_RTOL or max(grads.values()) > RNN_GRAD_L2:
+        fail(f"rnn encoder StaticRNN: card against CPU {rec}")
+    return rec
+
+
+def _rnn_encdec(seed, names):
+    """Part 2: rnn_encoder_decoder (two StaticRNNs) at the same widths."""
+    import numpy as np
+    from paddle_tpu_torch.models import book
+    rng = np.random.RandomState(seed + 1)
+    b, L, V = RNN_BATCH, RNN_LEN, RNN_VOCAB
+    src = rng.randint(1, V, (b, L)).astype(np.int64)
+    tin = rng.randint(1, V, (b, L)).astype(np.int64)
+    feed = {"src": src, "tgt_in": tin, "tgt_out": np.roll(tin, -1, axis=1),
+            "tgt_lens": _lengths(rng, RNN_MIN_LEN, L, b)}
+    rec, _, _, main = _rnn_train(
+        "rnn_encoder_decoder", lambda: book.rnn_encoder_decoder(
+            V, V, L, L, emb_dim=RNN_EMB, hidden=RNN_HIDDEN),
+        feed, ENCDEC_STEPS, seed, names, int(feed["tgt_lens"].sum()), None)
+    rec["tokens"] = "target (non-pad)"
+    rec["recurrent_ops"] = [op.type for op in main.global_block.ops].count(
+        "recurrent")
+    rec["encoder"] = _encoder_held(seed, src)
+    return rec
+
+
+def _rnn_srl(seed, names):
+    """Part 3: label_semantic_roles at the book chapter's widths."""
+    import numpy as np
+    from paddle_tpu_torch.framework.registry import LowerContext, get_op_def
+    from paddle_tpu_torch.models import book
+    rng = np.random.RandomState(seed + 2)
+    b, L = SRL_BATCH, SRL_LEN
+    feed = {"word": rng.randint(0, SRL_WORDS, (b, L)).astype(np.int64),
+            "predicate": rng.randint(0, SRL_PREDS, (b, L)).astype(np.int64),
+            "mark": rng.randint(0, 2, (b, L)).astype(np.int64),
+            "target": rng.randint(0, SRL_LABELS, (b, L)).astype(np.int64),
+            "lens": _lengths(rng, SRL_MIN_LEN, L, b)}
+    rec, first, op, main = _rnn_train(
+        "label_semantic_roles", lambda: book.label_semantic_roles(
+            SRL_WORDS, SRL_LABELS, L, pred_vocab=SRL_PREDS,
+            emb_dim=SRL_EMB, hidden=SRL_HIDDEN, depth=SRL_DEPTH),
+        feed, SRL_STEPS, seed, names, int(feed["lens"].sum()),
+        "dynamic_lstm")
+    rec["tokens"] = "tokens (non-pad)"
+    rec["dynamic_lstm_ops"] = [o.type for o in main.global_block.ops
+                               ].count("dynamic_lstm")
+    ins = {s: [v] for s, v in first.items()}
+    rule = get_op_def("dynamic_lstm").lower
+    card = rule(LowerContext(device=CARD), ins, op.attrs)
+    cpu = rule(LowerContext(device="cpu"),
+               {s: [v[0].cpu()] for s, v in ins.items()}, op.attrs)
+    errs = {k: float((card[k][0].cpu() - cpu[k][0]).abs().max())
+            / float(cpu[k][0].abs().max()) for k in ("Hidden", "Cell")}
+    rec["first_lstm"] = {"shape": list(ins["Input"][0].shape),
+                         "max_diff_over_max": errs, "rtol": RNN_OUT_RTOL}
+    if max(errs.values()) > RNN_OUT_RTOL:
+        fail(f"rnn srl: the first dynamic_lstm, card against CPU: {errs}")
+    return rec
+
+
+def _cf_run(exe, main, fetch, feeds, scope):
+    return [[v.cpu() for v in exe.run(main, feed=f, fetch_list=fetch,
+                                      scope=scope, return_numpy=False)]
+            for f in feeds]
+
+
+def _rnn_control_flow():
+    """Part 4: the control-flow programs of the JAX tests and
+    GradientMerge, card against the CPU port; host syncs per While
+    iteration."""
+    import warnings
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.tools import control_flow_cases as cfc
+    progs = {}
+    for pid, build, feeds in cfc.PROGRAMS:
+        main, startup = ptt.Program(), ptt.Program()
+        with ptt.unique_name_guard(), ptt.program_guard(main, startup):
+            fetch, _ = build(ptt)
+        exe, scope = _card_exe(), ptt.Scope()
+        exe.run(startup, scope=scope)
+        init = _host_copy(scope)
+        fetch = [v.name for v in fetch]
+        card = _cf_run(exe, main, fetch, feeds, scope)
+        cpu = _cf_run(ptt.Executor(ptt.CPUPlace()), main, fetch, feeds,
+                      _scope_from(init, "cpu"))
+        worst = 0.0
+        for cs, hs in zip(card, cpu):
+            for c, h in zip(cs, hs):
+                if not c.is_floating_point():
+                    if not torch.equal(c, h):
+                        fail(f"rnn control flow {pid}: card {c.tolist()} "
+                             f"against CPU {h.tolist()}")
+                    continue
+                bound = max(CF_RTOL * float(h.abs().max()), CF_FLOOR)
+                err = float((c - h).abs().max())
+                if err > bound:
+                    fail(f"rnn control flow {pid}: card {c.tolist()} "
+                         f"against CPU {h.tolist()}: {err} > {bound}")
+                worst = max(worst, err / bound)
+        progs[pid] = {"runs": len(feeds), "share_of_bound": worst}
+    # GradientMerge(SGD, k=4): 8 micro-steps, card against CPU
+    main, startup, loss = cfc.gradient_merge_program(ptt)
+    params = [p.name for p in main.global_block.all_parameters()]
+    exe, scope = _card_exe(), ptt.Scope()
+    exe.run(startup, scope=scope)
+    cscope, cexe = _scope_from(_host_copy(scope), "cpu"), \
+        ptt.Executor(ptt.CPUPlace())
+    prev = {n: scope.find_var(n).detach().cpu().clone() for n in params}
+    gm_worst = 0.0
+    for i, f in enumerate(cfc.gradient_merge_micro_batches()):
+        exe.run(main, feed=f, fetch_list=[loss], scope=scope)
+        cexe.run(main, feed=f, fetch_list=[loss], scope=cscope)
+        for n in params:
+            c = scope.find_var(n).detach().cpu()
+            gm_worst = max(gm_worst, float((c - cscope.find_var(n)).abs()
+                                           .max()))
+            if ((i + 1) % cfc.GM_K) != 0 and not torch.equal(c, prev[n]):
+                fail(f"rnn GradientMerge: {n} moved inside a merge window "
+                     f"(micro-step {i})")
+            prev[n] = c.clone()
+    if gm_worst > GM_PARAM_TOL:
+        fail(f"rnn GradientMerge: parameters {gm_worst} from the CPU's")
+    # host syncs a While iteration: the eager loop reads its condition
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.unique_name_guard(), ptt.program_guard(main, startup):
+        fetch, _ = cfc.while_sums_to_ten(ptt)
+    exe = _card_exe()
+    exe.run(main, fetch_list=[v.name for v in fetch], return_numpy=False,
+            scope=ptt.Scope())
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, i = exe.run(main, fetch_list=[v.name for v in fetch],
+                           return_numpy=False, scope=ptt.Scope())
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    iters = int(i.item())
+    syncs = sum("called a synchronizing CUDA operation" in str(w.message)
+                for w in caught)
+    return {"programs": progs, "gradient_merge": {
+                "k_steps": cfc.GM_K, "micro_steps": 2 * cfc.GM_K,
+                "max_abs_param_diff": gm_worst, "tol": GM_PARAM_TOL},
+            "while_host_syncs": syncs, "while_iterations": iters,
+            "while_host_syncs_per_iteration": syncs / iters}
+
+
+def phase_rnn(seed):
+    """Phase 4j: the recurrent slice at full width (RNNsearch-50's
+    seq2seq_attention and RNNencdec-50's rnn_encoder_decoder, the SRL
+    chapter's label_semantic_roles) and the control-flow programs, card
+    against the CPU port. In a child process (--rnn-only)."""
+    import torch
+    t_phase = time.perf_counter()
+    names = list(KERNELS)
+    parts = {}
+    for key, fn in (("seq2seq_attention", _rnn_seq2seq),
+                    ("rnn_encoder_decoder", _rnn_encdec),
+                    ("label_semantic_roles", _rnn_srl)):
+        t = time.perf_counter()
+        parts[key] = fn(seed, names)
+        parts[key]["wall_s"] = time.perf_counter() - t
+        emit({"phase": "rnn", "part": key, **parts[key]})
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    parts["control_flow"] = _rnn_control_flow()
+    parts["control_flow"]["wall_s"] = time.perf_counter() - t
+    summary = {"phase": "rnn", **parts,
+               "launches": {k: sum(p["launches"][k] for p in parts.values()
+                                   if "launches" in p) for k in names},
+               "wall_s": time.perf_counter() - t_phase}
+    emit(summary)
+    return summary
+
+
+# ---------------------------------------------------------------------------
 # phase 5: GPT-2 small training steps
 # ---------------------------------------------------------------------------
 
@@ -5263,10 +5713,10 @@ def phase_times(serve, train, bert, optim, spike, seed):
 
 
 def in_child(seed, flag):
-    """Phase 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h or 4i in a process of its own
-    (this script with --engine-only, --server-only, --spec-only,
-    --quant-only, --adapters-only, --bench-only, --nmt-only, --lenet-only
-    or --optim-only), its JSON
+    """Phase 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h, 4i or 4j in a process of its
+    own (this script with --engine-only, --server-only, --spec-only,
+    --quant-only, --adapters-only, --bench-only, --nmt-only, --lenet-only,
+    --optim-only or --rnn-only), its JSON
     lines passed through, its summary returned. After the engine's run, torch.profiler traces taken
     later in the same process lost one kernel record a trace (PERF.md §6,
     the engine's calls 2-7), which the times phase's device-time checks
@@ -5308,6 +5758,8 @@ def main():
                       help="run phase 4h alone, likewise")
     only.add_argument("--optim-only", action="store_true",
                       help="run phase 4i alone, likewise")
+    only.add_argument("--rnn-only", action="store_true",
+                      help="run phase 4j alone, likewise")
     args = ap.parse_args()
     preflight()
     import torch
@@ -5320,7 +5772,8 @@ def main():
              phase_bench if args.bench_only else
              phase_nmt if args.nmt_only else
              phase_lenet if args.lenet_only else
-             phase_optim if args.optim_only else None)
+             phase_optim if args.optim_only else
+             phase_rnn if args.rnn_only else None)
     if alone is not None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -5357,6 +5810,7 @@ def main():
         nmt = in_child(args.seed, "--nmt-only")
         lenet = in_child(args.seed, "--lenet-only")
         optim = in_child(args.seed, "--optim-only")
+        rnn = in_child(args.seed, "--rnn-only")
         train = phase_train(args.seed)
         bert = phase_bert(args.seed)
         resnet = phase_resnet(args.seed)
@@ -5371,6 +5825,7 @@ def main():
                    "engine": engine, "server": server, "spec": spec,
                    "quant": quant, "adapters": adapters, "bench": bench,
                    "nmt": nmt, "lenet": lenet, "optim": optim,
+                   "rnn": rnn,
                    "train": train["summaries"],
                    "bert": bert["runs"],
                    "resnet": resnet, "spike": spike["rows"],

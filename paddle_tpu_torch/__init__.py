@@ -20,7 +20,9 @@ models (`models.{lenet,vgg,book}`, `nets`), the Switch MoE FFN
 (`nets.switch_moe_ffn`), every optimizer of the JAX package with LR
 schedules, regularizers and SelectedRows sparse embedding gradients
 (`optimizer`, `layers.learning_rate_scheduler`, `regularizer`,
-`framework.selected_rows`).
+`framework.selected_rows`), and control flow, LoD and the recurrences
+(`layers.control_flow`, `layers.rnn`, `layers.sequence`, `lod_tensor`,
+`reader.bucketing`) with the recurrent book models.
 
 Places are real: `Executor()` runs on `CUDAPlace(0)` and raises when no GPU
 is present; `Executor(CPUPlace())` runs on the CPU.
@@ -49,6 +51,9 @@ from . import server
 from . import analysis
 from . import clip
 from . import compiler
+from . import lod_tensor
+from .lod_tensor import create_lod_tensor, create_random_int_lodtensor
+from . import reader
 from .compiler import CompiledProgram, BuildStrategy, ExecutionStrategy
 
 __version__ = "0.1.0"
@@ -62,4 +67,6 @@ __all__ = ["Program", "Block", "Operator", "Variable", "Parameter",
            "nets", "optimizer", "regularizer", "initializer", "io",
            "observability", "inference", "contrib", "profiler",
            "serving", "server", "analysis", "clip", "compiler",
-           "CompiledProgram", "BuildStrategy", "ExecutionStrategy"]
+           "CompiledProgram", "BuildStrategy", "ExecutionStrategy",
+           "lod_tensor", "create_lod_tensor", "create_random_int_lodtensor",
+           "reader"]

@@ -491,16 +491,34 @@ class Program:
 
     def _prune(self, targets: Sequence[str]) -> "Program":
         """Drop ops not needed to produce `targets` (reference prune.cc).
-        The port has no control-flow ops yet, so there are no sub-block
-        reads to follow."""
+
+        Control-flow ops (while/cond/recurrent) are kept or dropped as a
+        unit; when kept, everything their sub-blocks read from the outer
+        scope becomes needed too — otherwise the producers of loop-closure
+        vars would be pruned out from under the loop (reference prune.cc
+        recurses into sub-blocks for the same reason).
+        """
         pruned = self.clone()
         blk = pruned.global_block
         needed = set(targets)
         keep: List[Operator] = []
+        sub_keys = ("sub_block", "sub_block_t", "sub_block_f")
+
+        def sub_reads(op):
+            from ..ops.control_flow_ops import _block_outer_reads
+            reads = []
+            for key in sub_keys:
+                if key in op.attrs:
+                    reads += _block_outer_reads(
+                        pruned, pruned.blocks[op.attrs[key]])
+            return reads
+
         for op in reversed(blk.ops):
             if set(op.output_names()) & needed or op.type in ("feed",):
                 keep.append(op)
                 needed.update(op.input_names())
+                if any(k in op.attrs for k in sub_keys):
+                    needed.update(sub_reads(op))
         blk.ops = list(reversed(keep))
         # drop vars no surviving op references (reference prune.cc does the
         # same) — keeps inference exports free of optimizer-state vars

@@ -36,7 +36,14 @@ Places are real: `Executor()` runs on `CUDAPlace(0)`, `Executor(CPUPlace())`
 on the CPU, and with no GPU and no explicit CPU place the constructor
 raises — it never falls back to the CPU on its own.
 
-Not yet ported: host-boundary ops (ROADMAP A.6), the dataset trainer loop
+Control flow (while, conditional_block, recurrent) runs as macro ops
+(ops/control_flow_ops.py) that loop and branch over their sub-blocks in
+Python, inside the one op sequence; a sub-block's ops run without
+donation, and no update op before the last macro grad op of a block is
+donated, so a value a macro stashed for its grad replay is never written
+in place before the replay reads it.
+
+Not yet ported: host-boundary ops (ROADMAP A.7), the dataset trainer loop
 (`train_from_dataset`/`infer_from_dataset`, A.12), the parameter-server
 path (A.9) and `capture_hlo`.
 """
@@ -54,8 +61,8 @@ import numpy as np
 import torch
 
 from .core import Program, Variable, default_main_program
-from .registry import (LowerContext, dtype_name, lower_op, resolve_op,
-                       torch_dtype)
+from .registry import (_HOST_OPS, _MACROS, LowerContext, dtype_name,
+                       lower_op, resolve_op, torch_dtype)
 from .selected_rows import SelectedRows, to_dense
 from ..observability.metrics import get_registry
 from ..observability.tracer import trace_span, tracing_enabled
@@ -185,19 +192,44 @@ def classify_persistables(program, feed_names: set, fetch_names):
       mutable  — read from and written back to the scope
       created  — produced by this program (startup init): written only
       readonly — read-only constants from the scope
-    Copied from paddle_tpu's executor (the port has no macro or host ops
-    yet, so there are no sub-blocks to flatten)."""
+    Copied from paddle_tpu's executor: a macro op's sub-block reads are
+    reads of the macro op, its outputs are implicit reads, and sub-block
+    locals are never persistables."""
     blk = program.global_block
+
+    def _expand(ops):
+        # Flatten macro ops' sub-blocks for read/write classification
+        # (sub-block reads are reads of the enclosing op). The macro op
+        # is yielded BEFORE its sub-block ops: its implicit reads
+        # (carry-in / branch pass-through) happen before any write
+        # inside it.
+        for op in ops:
+            yield op
+            for key in ("sub_block", "sub_block_t", "sub_block_f"):
+                if key in op.attrs:
+                    yield from _expand(program.blocks[op.attrs[key]].ops)
+
     written = set()
     external_reads = set()
     written_so_far = set(feed_names)
-    for op in blk.ops:
-        if op.type in ("feed", "fetch"):
+    sub_local = set()
+    for b in program.blocks[1:]:
+        sub_local.update(b.vars)
+    macro_attrs = ("sub_block", "sub_block_t", "sub_block_f")
+    for op in _expand(blk.ops):
+        if op.type in ("feed", "fetch") or op.type in _HOST_OPS:
             continue
-        for n in op.input_names():
-            if n not in written_so_far:
+        reads = list(op.input_names())
+        if any(k in op.attrs for k in macro_attrs):
+            # a macro op's outputs are also implicit reads: while carries
+            # state in, conditional_block's untaken branch passes values
+            # through
+            reads += op.output_names()
+        for n in reads:
+            if n not in written_so_far and n not in sub_local:
                 external_reads.add(n)
-        written.update(op.output_names())
+        outs = [n for n in op.output_names() if n not in sub_local]
+        written.update(outs)
         written_so_far.update(op.output_names())
     for n in fetch_names:
         if n not in written_so_far:
@@ -213,7 +245,10 @@ def classify_persistables(program, feed_names: set, fetch_names):
 
 def _to_numpy(t) -> np.ndarray:
     """A host copy: never a view of a tensor the executor may later
-    update in place."""
+    update in place. A tensor array (a tuple in the environment) comes
+    back stacked, as numpy stacks JAX's tuple."""
+    if isinstance(t, (tuple, list)):
+        return np.asarray([_to_numpy(v) for v in t])
     if isinstance(t, torch.Tensor):
         t = t.detach()
         if t.dtype == torch.bfloat16:
@@ -240,7 +275,8 @@ def _as_feed_tensor(value, var: Optional[Variable], device) -> torch.Tensor:
 
 
 # The JAX package's host-boundary op types (file IO, RPC, readers): the
-# port's registry has no register_host_op yet, so they raise by name.
+# port's registry registers no host op yet (ROADMAP A.7), so they raise by
+# name.
 _JAX_HOST_OPS = frozenset((
     "save", "load", "save_combine", "load_combine", "send", "send_barrier",
     "fetch_barrier", "recv", "prefetch", "checkpoint_notify",
@@ -271,8 +307,10 @@ class _Step:
     """The compiled step: one cache entry's prepared plan. `ops` pairs
     each op with its resolved OpDef; `donatable` maps an optimizer op's
     index to its (input slot, var name) pairs whose output writes the same
-    name, with the dtype and shape the var declares. Holds nothing of a
-    run's tensors."""
+    name, with the dtype and shape the var declares; an update op before
+    the block's last macro grad op is not donatable (the macro's stashed
+    entry values must reach its grad replay unchanged). Holds nothing of
+    a run's tensors."""
 
     def __init__(self, program, fetch_names, mutable, created, readonly):
         blk = program.global_block
@@ -285,9 +323,13 @@ class _Step:
         self.check_nan_inf = os.environ.get("FLAGS_check_nan_inf",
                                             "0") == "1"
         mut = set(mutable)
+        last_macro_grad = max(
+            (i for i, (op, _) in enumerate(self.ops)
+             if op.type.endswith("_grad") and op.type in _MACROS),
+            default=-1)
         self.donatable: Dict[int, List] = {}
         for i, (op, opdef) in enumerate(self.ops):
-            if not opdef.is_optimizer_op:
+            if not opdef.is_optimizer_op or i < last_macro_grad:
                 continue
             pairs = []
             for slot, names in op.inputs.items():
@@ -448,7 +490,7 @@ class Executor:
         if host:
             raise NotImplementedError(
                 f"host-boundary op(s) {host} are not ported to "
-                "paddle_tpu_torch yet (ROADMAP A.6)")
+                "paddle_tpu_torch yet (ROADMAP A.7)")
         if not any(op.type not in ("feed", "fetch") for op in blk.ops):
             # nothing to run: the fetches come from the scope, as the JAX
             # executor's host-only programs do (no cache entry)
@@ -841,6 +883,12 @@ def as_torch_function(program: Program, fetch_list, is_test: bool = True,
                 opdef.stateful and not op.type.endswith("_grad")):
             ops.append((op, opdef))
             needed.update(op.input_names())
+            for key in ("sub_block", "sub_block_t", "sub_block_f"):
+                if key in op.attrs:
+                    # a macro's closure: what its sub-blocks read outside
+                    from ..ops.control_flow_ops import _block_outer_reads
+                    needed.update(_block_outer_reads(
+                        program, program.blocks[op.attrs[key]]))
     ops.reverse()
     want = None if device is None else torch.device(device)
     if want is not None and want.type == "cuda" and want.index is None:

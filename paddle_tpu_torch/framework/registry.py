@@ -14,15 +14,17 @@ rule, a plain function on torch tensors; that one rule gives
     their own grad lowering.
 
 Ops can override the grad-desc maker or the grad lowering when the generic
-path is wrong (rng ops like dropout, ops with saved intermediates). The
-macro (control-flow) and host-op tables exist, empty: the ops that fill
-them come with later slices.
+path is wrong (rng ops like dropout, ops with saved intermediates).
+Control-flow ops (while, conditional_block, recurrent and their grads) are
+macros (`register_macro_op`): they run with the whole environment and
+reach their sub-blocks through the op. The host-op table exists, empty:
+host-boundary ops (save/load, send/recv, readers) come with ROADMAP A.7.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Set
+from typing import Any, Callable, Dict, List, Optional, Sequence, Set
 
 import torch
 
@@ -30,7 +32,8 @@ from .core import Block, Operator, GRAD_SUFFIX
 
 __all__ = ["OpDef", "register_op", "get_op_def", "has_op_def",
            "infer_op_shapes", "LowerContext", "lower_op", "DUMMY_BATCH",
-           "torch_dtype", "dtype_name", "shape_spec", "resolve_op"]
+           "torch_dtype", "dtype_name", "shape_spec", "resolve_op",
+           "register_macro_op"]
 
 # Dummy concrete size substituted for -1 (batch) dims during meta-device
 # inference; a large prime so a genuine layer dim colliding with it (and
@@ -116,15 +119,32 @@ def get_op_def(op_type: str) -> OpDef:
     return _REGISTRY[op_type]
 
 
-# The JAX registry's two side tables, carried over with their meaning; no op
-# of the ported paths registers into them yet. `_MACROS`: control-flow ops
-# that lower with full context, fn(ctx, op, env) (`paddle_tpu/framework/
-# registry.py:109`). `_HOST_OPS`: host-boundary ops (file IO, RPC, readers)
-# that the executor runs against the scope outside the op sequence,
-# fn(op, scope, feed) (:135). Passes over a block, such as the AMP rewrite's
-# re-inference, skip both.
+# Macro ops (control flow) run with full context: fn(ctx, op, env), where
+# env is the live name->tensor binding and op carries the sub-block attrs
+# (`paddle_tpu/framework/registry.py:109`). They reach their sub-blocks
+# through op.block.program; ops/control_flow_ops.py runs them as Python
+# loops and branches over the sub-block's ops. `_HOST_OPS`: host-boundary
+# ops (file IO, RPC, readers) that the executor runs against the scope
+# outside the op sequence, fn(op, scope, feed) (:135); none is registered
+# yet (ROADMAP A.7). Passes over a block, such as the AMP rewrite's
+# re-inference and build-time shape inference, skip both.
 _MACROS: Dict[str, Callable] = {}
 _HOST_OPS: Dict[str, Callable] = {}
+
+
+def register_macro_op(op_type: str, aliases: Sequence[str] = (), **opdef_kw):
+    """aliases: extra op-type names sharing this rule, reference-IR
+    compatibility names (conditional_block_infer is the inference-time
+    registration of the same kernel,
+    controlflow/conditional_block_infer_op.cc)."""
+    def deco(fn):
+        opdef_kw.setdefault("not_differentiable",
+                            "grad_maker" not in opdef_kw)
+        for name in (op_type,) + tuple(aliases):
+            _MACROS[name] = fn
+            _REGISTRY[name] = OpDef(type=name, lower=None, **opdef_kw)
+        return fn
+    return deco
 
 
 def has_op_def(op_type: str) -> bool:
@@ -142,15 +162,18 @@ class LowerContext:
     `rng()` returns the run's seeded `torch.Generator` (one per run, drawn
     from in op order, so a run is a pure function of scope, feed and seed).
     During meta-device inference `abstract` is True and `rng()` is None.
+    `differentiable` is True while a macro grad op replays a sub-block
+    under `torch.func.vjp`: a While lowered then takes its bounded form.
     `inplace` names the input slots an optimizer rule may overwrite: the
     executor sets it, per op, for a state var that the op writes under its
     own name and that the executor bound in the scope itself (donation).
     """
 
     def __init__(self, device=None, seed: Optional[int] = None,
-                 abstract: bool = False):
+                 abstract: bool = False, differentiable: bool = False):
         self.device = torch.device(device if device is not None else "cpu")
         self.abstract = abstract
+        self.differentiable = differentiable
         self.inplace: frozenset = frozenset()
         self._seed = seed
         self._gen: Optional[torch.Generator] = None
@@ -177,9 +200,10 @@ class LowerContext:
 # ---------------------------------------------------------------------------
 
 def resolve_op(op: Operator) -> OpDef:
-    """The OpDef whose rules run `op`: its own, or for a `<type>_grad`
-    op the forward type's (its grad_lower or the generic vjp)."""
-    if op.type.endswith("_grad"):
+    """The OpDef whose rules run `op`: its own (a macro's, `while_grad`
+    included), or for another `<type>_grad` op the forward type's (its
+    grad_lower or the generic vjp)."""
+    if op.type.endswith("_grad") and op.type not in _MACROS:
         return get_op_def(op.type[: -len("_grad")])
     return get_op_def(op.type)
 
@@ -187,7 +211,12 @@ def resolve_op(op: Operator) -> OpDef:
 def lower_op(ctx: LowerContext, op: Operator, env: Dict[str, Any],
              opdef: Optional[OpDef] = None) -> None:
     """Run one op: read inputs from env, write outputs into env. `opdef`
-    is `resolve_op(op)` when the caller resolved it beforehand."""
+    is `resolve_op(op)` when the caller resolved it beforehand. Macros
+    come first, as in JAX: `while_grad` and the other macro grads are not
+    the generic vjp's."""
+    if op.type in _MACROS:
+        _MACROS[op.type](ctx, op, env)
+        return
     if op.type.endswith("_grad"):
         _lower_grad_op(ctx, op, env, opdef)
         return
@@ -308,8 +337,9 @@ def _lower_grad_op(ctx: LowerContext, op: Operator, env: Dict[str, Any],
 def infer_op_shapes(op: Operator, block: Block) -> None:
     """Set output var shapes/dtypes by running the lowering rule on
     meta-device tensors. -1 (batch) dims are substituted with DUMMY_BATCH
-    and mapped back to -1 in the outputs."""
-    if op.type in ("feed", "fetch"):
+    and mapped back to -1 in the outputs. Macros have no rule to run on
+    the meta device: their layers declare the outputs."""
+    if op.type in ("feed", "fetch") or op.type in _MACROS:
         return
     if op.type.endswith("_grad"):
         _infer_grad_shapes(op, block)

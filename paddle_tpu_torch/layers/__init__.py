@@ -1,5 +1,7 @@
 """Layers DSL of the PyTorch port (the GPT, BERT, ResNet, NMT Transformer,
-book-model and Switch MoE subset), the LR schedules
+book-model and Switch MoE subset), control flow (`layers.control_flow`:
+While, cond, Switch, StaticRNN, DynamicRNN, IfElse), the sequence and RNN
+layers (`layers.sequence`, `layers.rnn`), the LR schedules
 (`layers.learning_rate_scheduler`) and the decoders (`layers.decode`)."""
 
 from .math import *  # noqa: F401,F403
@@ -7,10 +9,14 @@ from .nn import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403
 from .sequence import *  # noqa: F401,F403
 from .learning_rate_scheduler import *  # noqa: F401,F403
+from .control_flow import *  # noqa: F401,F403
+from .rnn import *  # noqa: F401,F403
 
 from . import math  # noqa: F401
 from . import nn  # noqa: F401
 from . import tensor  # noqa: F401
 from . import sequence  # noqa: F401
 from . import learning_rate_scheduler  # noqa: F401
+from . import control_flow  # noqa: F401
+from . import rnn  # noqa: F401
 from . import decode  # noqa: F401

@@ -1,6 +1,8 @@
-"""Math layers: elementwise_add and elementwise_sub (and `+`, `-`, `*`,
-`/` on Variables), matmul, einsum, scale, mean, reduce_sum, reduce_mean,
-reduce_max, clip, cumsum, less_than, less_equal, tril.
+"""Math layers: elementwise_add, elementwise_sub, elementwise_mul and
+elementwise_mod (and `+`, `-`, `*`, `/` on Variables), matmul, einsum,
+scale, mean, reduce_sum, reduce_mean, reduce_max, clip, cumsum, the
+compares equal, less_than, less_equal and greater_than, logical_or,
+logical_not, tril.
 
 Copied from `paddle_tpu/layers/math.py`: the same op types, slots and
 attrs.
@@ -9,9 +11,11 @@ attrs.
 from ..framework.core import Variable
 from ..framework.layer_helper import LayerHelper
 
-__all__ = ["elementwise_add", "elementwise_sub", "matmul", "einsum", "scale",
+__all__ = ["elementwise_add", "elementwise_sub", "elementwise_mul",
+           "elementwise_mod", "matmul", "einsum", "scale",
            "mean", "reduce_sum", "reduce_mean", "reduce_max", "clip",
-           "cumsum", "less_than", "less_equal", "tril"]
+           "cumsum", "equal", "less_than", "less_equal", "greater_than",
+           "logical_or", "logical_not", "tril"]
 
 
 def _to_variable(x, ref: Variable):
@@ -49,6 +53,14 @@ def elementwise_add(x, y, axis=-1, act=None, name=None):
 
 def elementwise_sub(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_sub", x, y, axis, act, name)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_mul", x, y, axis, act, name)
+
+
+def elementwise_mod(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_mod", x, y, axis, act, name)
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
@@ -136,12 +148,32 @@ def _compare(op_type, x, y, name=None):
     return out
 
 
+def equal(x, y, name=None):
+    return _compare("equal", x, y, name)
+
+
 def less_than(x, y, name=None):
     return _compare("less_than", x, y, name)
 
 
 def less_equal(x, y, name=None):
     return _compare("less_equal", x, y, name)
+
+
+def greater_than(x, y, name=None):
+    return _compare("greater_than", x, y, name)
+
+
+def logical_or(x, y, name=None):
+    return _compare("logical_or", x, y, name)
+
+
+def logical_not(x, name=None):
+    helper = LayerHelper("logical_not", name=name)
+    out = helper.create_variable_for_type_inference("bool",
+                                                    stop_gradient=True)
+    helper.append_op("logical_not", {"X": [x.name]}, {"Out": [out.name]})
+    return out
 
 
 def tril(x, diagonal=0, name=None):

@@ -16,7 +16,8 @@ from ..framework.layer_helper import LayerHelper
 from ..initializer import Constant, Normal, Xavier
 
 __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
-           "dropout", "relu", "sigmoid", "tanh", "gelu", "sqrt", "softmax",
+           "dropout", "relu", "sigmoid", "tanh", "gelu", "sqrt", "square",
+           "softmax",
            "softmax_with_cross_entropy", "square_error_cost", "topk",
            "accuracy", "one_hot", "fused_attention",
            "add_position_encoding"]
@@ -247,6 +248,10 @@ def tanh(x, name=None):
 
 def sqrt(x, name=None):
     return _unary("sqrt", x, name=name)
+
+
+def square(x, name=None):
+    return _unary("square", x, name=name)
 
 
 def gelu(x, approximate=False, name=None):

@@ -1,6 +1,7 @@
-"""Tensor layers: data, fill_constant, cast, concat, split, reshape,
-squeeze, unsqueeze, transpose, slice, arange, argmax, increment,
-create_global_var, create_parameter.
+"""Tensor layers: data, fill_constant, fill_constant_batch_size_like,
+cast, concat, split, reshape, squeeze, unsqueeze, transpose, slice,
+assign, where, arange, argmax, increment, create_global_var,
+create_parameter.
 
 Copied from `paddle_tpu/layers/tensor.py`: the same op types, slots and
 attrs, so a program built by either DSL serializes alike.
@@ -8,12 +9,13 @@ attrs, so a program built by either DSL serializes alike.
 
 import numpy as np
 
-from ..framework.core import (convert_np_dtype, default_main_program,
-                              unique_name)
+from ..framework.core import (Variable, convert_np_dtype,
+                              default_main_program, unique_name)
 from ..framework.layer_helper import LayerHelper
 
-__all__ = ["data", "fill_constant", "cast", "concat", "split", "reshape",
-           "squeeze", "unsqueeze", "transpose", "slice", "arange", "argmax",
+__all__ = ["data", "fill_constant", "fill_constant_batch_size_like", "cast",
+           "concat", "split", "reshape", "squeeze", "unsqueeze",
+           "transpose", "slice", "assign", "where", "arange", "argmax",
            "increment", "create_global_var", "create_parameter"]
 
 _builtin_range = range
@@ -38,6 +40,20 @@ def fill_constant(shape, dtype, value, name=None):
     helper.append_op("fill_constant", {}, {"Out": [out.name]},
                      {"shape": list(shape), "dtype": convert_np_dtype(dtype),
                       "value": float(value)})
+    return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0,
+                                  name=None):
+    helper = LayerHelper("fill_constant_batch_size_like", name=name)
+    out = helper.create_variable_for_type_inference(dtype,
+                                                    stop_gradient=True)
+    helper.append_op("fill_constant_batch_size_like",
+                     {"Input": [input.name]}, {"Out": [out.name]},
+                     {"shape": list(shape), "dtype": convert_np_dtype(dtype),
+                      "value": float(value), "input_dim_idx": input_dim_idx,
+                      "output_dim_idx": output_dim_idx})
     return out
 
 
@@ -121,6 +137,31 @@ def slice(input, axes, starts, ends, name=None):
     helper.append_op("slice", {"Input": [input.name]}, {"Out": [out.name]},
                      {"axes": list(axes), "starts": list(starts),
                       "ends": list(ends)})
+    return out
+
+
+def assign(input, output=None, name=None):
+    helper = LayerHelper("assign", name=name)
+    if output is None:
+        output = helper.create_variable_for_type_inference(
+            input.dtype if isinstance(input, Variable) else "float32")
+    if isinstance(input, Variable):
+        helper.append_op("assign", {"X": [input.name]},
+                         {"Out": [output.name]})
+    else:
+        arr = np.asarray(input)
+        helper.append_op("assign_value", {}, {"Out": [output.name]},
+                         {"shape": list(arr.shape), "dtype": str(arr.dtype),
+                          "values": arr.reshape(-1).tolist()})
+    return output
+
+
+def where(condition, x, y, name=None):
+    helper = LayerHelper("where", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("where",
+                     {"Condition": [condition.name], "X": [x.name],
+                      "Y": [y.name]}, {"Out": [out.name]})
     return out
 
 

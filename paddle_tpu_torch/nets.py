@@ -3,8 +3,7 @@ simple_img_conv_pool, img_conv_group, sequence_conv_pool, glu,
 scaled_dot_product_attention).
 
 Copied from `paddle_tpu/nets.py`, with switch_moe_ffn (the Switch top-1
-mixture-of-experts FFN). sequence_conv_pool needs sequence_pool (ROADMAP
-A.6) and raises until it lands."""
+mixture-of-experts FFN)."""
 
 from __future__ import annotations
 
@@ -92,11 +91,37 @@ def scaled_dot_product_attention(queries, keys, values, num_heads=1,
 def sequence_conv_pool(input, num_filters, filter_size, lengths=None,
                        act="sigmoid", pool_type="max"):
     """1-D windowed conv over [b, s, d] + sequence pool (reference
-    nets.py sequence_conv_pool for text CNNs)."""
-    raise NotImplementedError(
-        "sequence_conv_pool needs layers.sequence_pool, which is not "
-        "ported to paddle_tpu_torch yet (ROADMAP A.6: control flow, LoD "
-        "and RNN)")
+    nets.py sequence_conv_pool for text CNNs). The k-token window is built
+    by concatenating k shifted copies along the feature dim (same math as
+    sequence_conv with zero padding) and projecting once — one matmul
+    instead of a sliding loop."""
+    k = int(filter_size)
+    if k == 1:
+        win = input
+    else:
+        before = (k - 1) // 2
+        s_len = input.shape[1]
+        shifted = []
+        for off in range(-before, k - before):
+            if off == 0:
+                shifted.append(input)
+                continue
+            # shift via slice + concat of a zero block
+            if off < 0:
+                body = layers.slice(input, axes=[1], starts=[0],
+                                    ends=[s_len + off])
+                zed = layers.scale(layers.slice(
+                    input, axes=[1], starts=[0], ends=[-off]), scale=0.0)
+                shifted.append(layers.concat([zed, body], axis=1))
+            else:
+                body = layers.slice(input, axes=[1], starts=[off],
+                                    ends=[s_len])
+                zed = layers.scale(layers.slice(
+                    input, axes=[1], starts=[0], ends=[off]), scale=0.0)
+                shifted.append(layers.concat([body, zed], axis=1))
+        win = layers.concat(shifted, axis=2)
+    conv = layers.fc(win, num_filters, num_flatten_dims=2, act=act)
+    return layers.sequence_pool(conv, pool_type, lengths=lengths)
 
 
 def switch_moe_ffn(x, num_experts, d_model, d_ffn, capacity_factor=1.25,

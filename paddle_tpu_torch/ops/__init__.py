@@ -8,3 +8,7 @@ from . import attention_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import misc_ops  # noqa: F401
 from . import sequence_ops  # noqa: F401
+from . import extra_ops  # noqa: F401
+from . import control_flow_ops  # noqa: F401
+from . import lod_array_ops  # noqa: F401
+from . import rnn_ops  # noqa: F401

@@ -1,11 +1,12 @@
 """Activation ops of the GPT, BERT and ResNet slices: relu, gelu, softmax;
 sqrt, which the global-norm clip appends; sigmoid and tanh, which the
-book models and `nets.glu` append; exp, pow and cos, which the LR
-schedules append; and the rounding ops floor, ceil, round and sign (the
+book models and `nets.glu` append; square (the control-flow tests'
+losses, GradientMerge's); exp, pow and cos, which the LR schedules
+append; and the rounding ops floor, ceil, round and sign (the
 schedules' staircases, the L1 regularizer).
 
 Port of the `relu` (:20), `sigmoid` (:22), `tanh` (:24), `gelu` (:26),
-`exp` (:41), `sqrt` (:46), `cos` (:52), `pow` (:60) and `softmax` (:91)
+`exp` (:41), `sqrt` (:46), `square` (:48), `cos` (:52), `pow` (:60) and `softmax` (:91)
 entries of `paddle_tpu/ops/activation_ops.py` and of its `_register_round`
 table (:79-88). gelu's `approximate=True` is the tanh form (GPT-2's
 gelu_new, the form the models' FFN uses, `models/_common.py`),
@@ -45,6 +46,11 @@ def _gelu(ctx, ins, attrs):
 @register_op("sqrt")
 def _sqrt(ctx, ins, attrs):
     return {"Out": [torch.sqrt(ins["X"][0])]}
+
+
+@register_op("square")
+def _square(ctx, ins, attrs):
+    return {"Out": [torch.square(ins["X"][0])]}
 
 
 @register_op("exp")

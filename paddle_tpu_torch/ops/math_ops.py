@@ -4,7 +4,8 @@ tap append: elementwise_mul/div/max, clip, clip_by_norm, squared_l2_norm,
 isfinite; the ops of the NMT Transformer and the book models:
 elementwise_sub, the reduce family, tril_triu; and those the Switch MoE
 FFN, the LR schedules and ModelAverage append: elementwise_min/pow and the
-compare and logical family.
+compare and logical family; elementwise_mod, which GradientMergeOptimizer's
+step boundary appends.
 
 Port of the matching rules in `paddle_tpu/ops/math_ops.py` (_broadcast_y:21,
 the elementwise family :33-55, matmul:64, mul:79, einsum:104, the reduce
@@ -67,6 +68,8 @@ _register_elementwise("elementwise_div", torch.div)
 _register_elementwise("elementwise_min", torch.minimum)
 _register_elementwise("elementwise_max", torch.maximum)
 _register_elementwise("elementwise_pow", torch.pow)
+# floored modulo: jnp.mod's sign rule
+_register_elementwise("elementwise_mod", torch.remainder)
 
 
 @register_op("matmul")

@@ -3,14 +3,15 @@ lookup_table (with its dense and its SelectedRows grad), fill, constants,
 cast, random init, top_k; where and assign, which the training
 telemetry's skip/halt gates append; transpose2, squeeze2, unsqueeze2,
 concat and split, which the NMT Transformer, the book models and `nets`
-append; and one_hot, arg_max, cumsum and increment, which the Switch MoE
-FFN and the LR schedules append.
+append; one_hot, arg_max, cumsum and increment, which the Switch MoE
+FFN and the LR schedules append; and fill_constant_batch_size_like, which
+the StaticRNN/DynamicRNN memories append.
 
 Port of the matching rules in `paddle_tpu/ops/tensor_ops.py` (reshape2:42,
 transpose2:55, squeeze2:67, unsqueeze2:79, concat:110, split:115,
 slice:141, lookup_table:256-299, one_hot:315, where:329, fill_constant:347,
-fill_any_like:370, assign:377, assign_value:382, cast:388, increment:415,
-uniform_random:435, gaussian_random:446, top_k:483, arg_max:490,
+fill_constant_batch_size_like:354, fill_any_like:370, assign:377,
+assign_value:382, cast:388, increment:415, uniform_random:435, gaussian_random:446, top_k:483, arg_max:490,
 cumsum:517). The grads of reshape2, transpose2, squeeze2, unsqueeze2,
 concat, split, slice, where, assign, cast, cumsum and increment take the
 generic vjp path (cast's is a cast back to the input's dtype); one_hot
@@ -179,6 +180,21 @@ def _one_hot(ctx, ins, attrs):
 @register_op("fill_constant", not_differentiable=True, grad_free=True)
 def _fill_constant(ctx, ins, attrs):
     return {"Out": [torch.full(tuple(attrs["shape"]), attrs["value"],
+                               dtype=torch_dtype(attrs.get("dtype",
+                                                           "float32")),
+                               device=ctx.device)]}
+
+
+@register_op("fill_constant_batch_size_like", not_differentiable=True,
+             grad_free=True)
+def _fill_cbsl(ctx, ins, attrs):
+    """The shape attr with Out[output_dim_idx] = Input.shape[input_dim_idx]
+    (StaticRNN/DynamicRNN memories, rnn_encoder_decoder's boot)."""
+    ref = ins["Input"][0]
+    shape = list(attrs["shape"])
+    shape[attrs.get("output_dim_idx", 0)] = \
+        ref.shape[attrs.get("input_dim_idx", 0)]
+    return {"Out": [torch.full(tuple(shape), attrs["value"],
                                dtype=torch_dtype(attrs.get("dtype",
                                                            "float32")),
                                device=ctx.device)]}

@@ -19,10 +19,12 @@ parameter's own regularizer, `regularizer.py`), in the reference's order
 finiteness flag and, for skip_step/halt, the gates); with none installed
 the program is exactly what it was without the tap.
 
-Still raising, each naming its ROADMAP item: `DGCMomentumOptimizer` with
-nranks > 1 (its c_allreduce_sum: the parallelism slice, A.8),
-`PipelineOptimizer` (A.8) and `GradientMergeOptimizer` (its conditional
-block: control flow, A.6). The dygraph branch of `minimize` is A.12.
+`GradientMergeOptimizer` runs the inner update in a `layers.cond` true
+branch every k-th step (a conditional_block; its sub-block's update ops
+run without donation). Still raising, each naming its ROADMAP item:
+`DGCMomentumOptimizer` with nranks > 1 (its c_allreduce_sum: the
+parallelism slice, A.8) and `PipelineOptimizer` (A.8). The dygraph branch
+of `minimize` is A.12.
 """
 
 from __future__ import annotations
@@ -730,15 +732,108 @@ class DGCMomentumOptimizer(Optimizer):
 
 class GradientMergeOptimizer:
     """Accumulate gradients over k micro-steps, apply the inner optimizer
-    once per k (`paddle_tpu/optimizer.py` GradientMergeOptimizer). It puts
-    the inner update in a conditional block, which comes with control
-    flow (ROADMAP A.6)."""
+    once per k (reference: the batch-merge pass ir/multi_batch_merge_pass.cc
+    and test_dist_mnist_batch_merge.py). Built on cond: the k-th step runs
+    the inner update ops in the true branch and resets the accumulators."""
 
     def __init__(self, inner_optimizer, k_steps: int = 1, avg: bool = True):
-        raise NotImplementedError(
-            "GradientMergeOptimizer puts the inner update in a conditional "
-            "block (layers.cond), which is not ported to paddle_tpu_torch "
-            "yet (ROADMAP A.6: control flow)")
+        self.inner = inner_optimizer
+        self.k = int(k_steps)
+        self.avg = avg
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        from . import layers
+        from .framework.core import default_startup_program
+        startup = startup_program or default_startup_program()
+        main = loss.block.program
+        block = main.global_block
+        params_grads = self.inner.backward(
+            loss, parameter_list=parameter_list, no_grad_set=no_grad_set)
+        n_before = len(block.ops)
+
+        # step counter
+        step_name = unique_name("grad_merge_step")
+        block.create_var(name=step_name, shape=(1,), dtype="float32",
+                         persistable=True, stop_gradient=True)
+        sb = startup.global_block
+        sb.create_var(name=step_name, shape=(1,), dtype="float32",
+                      persistable=True, stop_gradient=True)
+        sb.append_op("fill_constant", {}, {"Out": [step_name]},
+                     {"shape": [1], "dtype": "float32", "value": 0.0},
+                     infer_shape=False)
+        block.append_op("increment", {"X": [step_name]},
+                        {"Out": [step_name]}, {"step": 1.0},
+                        infer_shape=False)
+        step = block.var(step_name)
+
+        # gradient accumulators
+        accs = []
+        for p, g in params_grads:
+            acc_name = unique_name(f"{p.name}@GRAD_MERGE")
+            block.create_var(name=acc_name, shape=p.shape, dtype=g.dtype,
+                             persistable=True, stop_gradient=True)
+            sb.create_var(name=acc_name, shape=p.shape, dtype=g.dtype,
+                          persistable=True, stop_gradient=True)
+            sb.append_op("fill_constant", {}, {"Out": [acc_name]},
+                         {"shape": list(p.shape), "dtype": g.dtype,
+                          "value": 0.0}, infer_shape=False)
+            block.append_op("sum", {"X": [acc_name, g.name]},
+                            {"Out": [acc_name]}, infer_shape=False)
+            accs.append(block.var(acc_name))
+
+        # inner optimizer state must exist OUTSIDE the cond branches
+        lr = self.inner._global_lr(main, startup)
+        for p, _ in params_grads:
+            self.inner._create_accumulators(p, startup)
+        state_vars = [v for by_param in self.inner._accumulators.values()
+                      for v in by_param.values()]
+
+        boundary = layers.equal(
+            layers.elementwise_mod(
+                step, layers.fill_constant([1], "float32", float(self.k))),
+            layers.fill_constant([1], "float32", 0.0))
+
+        ret_vars = [p for p, _ in params_grads] + state_vars + accs
+
+        def true_fn():
+            cur = main.current_block()
+            effs = []
+            for (p, _), acc in zip(params_grads, accs):
+                eff = cur.create_var(
+                    name=unique_name(f"{p.name}@GRAD_EFF"),
+                    shape=p.shape, dtype=acc.dtype)
+                cur.append_op("scale", {"X": [acc.name]},
+                              {"Out": [eff.name]},
+                              {"scale": 1.0 / self.k if self.avg else 1.0},
+                              infer_shape=False)
+                effs.append(cur.var(eff.name))
+            # the inner optimizer's clip + weight decay act on the MERGED
+            # gradient, same order as apply_gradients
+            pgs = [(p, e) for (p, _), e in zip(params_grads, effs)]
+            if self.inner.grad_clip is not None:
+                pgs = self.inner.grad_clip(pgs)
+            pgs = self.inner._apply_regularization(pgs)
+            for (p, g), acc in zip(pgs, accs):
+                self.inner._append_optimize_op(
+                    cur, p, g, self.inner._param_lr(cur, lr, p))
+                cur.append_op("scale", {"X": [acc.name]},
+                              {"Out": [acc.name]}, {"scale": 0.0},
+                              infer_shape=False)
+            return list(ret_vars)
+
+        def false_fn():
+            return list(ret_vars)
+
+        outs = layers.cond(boundary, true_fn, false_fn)
+        if not isinstance(outs, (list, tuple)):
+            outs = [outs]
+        for var, out in zip(ret_vars, outs):
+            block.append_op("assign", {"X": [out.name]},
+                            {"Out": [var.name]}, infer_shape=False)
+        for op in block.ops[n_before:]:
+            op.attrs.setdefault("op_role", "optimize")
+        return [], params_grads
 
 
 class PipelineOptimizer:

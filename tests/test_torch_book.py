@@ -8,8 +8,8 @@ on the CPU, at a small size.
   * LeNet-5 (MNIST-shaped, 1x28x28, 10 classes), fit_a_line, word2vec
     (dense and is_sparse=True), recommender (narrow vocabularies) and the
     five `nets` helpers (simple_img_conv_pool, img_conv_group with
-    batch_norm, glu, scaled_dot_product_attention, switch_moe_ffn): both
-    DSLs build the same programs, op
+    batch_norm, glu, scaled_dot_product_attention, switch_moe_ffn,
+    sequence_conv_pool): both DSLs build the same programs, op
     for op with their slots, attrs and vars, and the same startup; then
     one SGD step from the JAX startup values (carried by name with
     io.set_params_from_numpy): the loss within 1e-5 relative and every
@@ -18,7 +18,9 @@ on the CPU, at a small size.
   * VGG-16 through `image_classification_program("vgg16")` at 32x32:
     its `clone(for_test=True)` forward (batch_norm on the running
     statistics, dropout off) within 1e-5 of JAX's;
-  * every builder that still raises names its ROADMAP item.
+  * the recurrent book models (seq2seq_attention, label_semantic_roles,
+    rnn_encoder_decoder) at tests/test_book_models.py's shapes, one SGD
+    step each, held the same way.
 """
 
 import numpy as np
@@ -299,6 +301,9 @@ def _nets_build(which):
                 out, aux = nets.switch_moe_ffn(x, 4, 8, 16)
                 return {"loss": L.mean(out) + L.scale(aux, scale=0.01),
                         "out": out}
+            elif which == "sequence_conv_pool":
+                lens = L.data("lens", [], dtype="int64")
+                out = nets.sequence_conv_pool(x, 5, 3, lengths=lens)
             else:
                 out = nets.scaled_dot_product_attention(x, x, x, 2)
         return {"loss": L.mean(out), "out": out}
@@ -307,27 +312,75 @@ def _nets_build(which):
 
 @pytest.mark.parametrize("which", ["simple_img_conv_pool", "img_conv_group",
                                    "glu", "scaled_dot_product_attention",
-                                   "switch_moe_ffn"])
+                                   "switch_moe_ffn", "sequence_conv_pool"])
 def test_nets_helper_step_matches_jax(which):
     r = np.random.RandomState(5)
     if which in ("simple_img_conv_pool", "img_conv_group"):
         feed = {"img": r.randn(4, 3, 12, 12).astype(np.float32)}
     else:
         feed = {"x": r.randn(3, 6, 8).astype(np.float32)}
+        if which == "sequence_conv_pool":
+            feed["lens"] = np.array([6, 2, 4], np.int64)
     check_step(*build_both(_nets_build(which), _sgd), feed,
                fetch=("loss", "out"))
 
 
-@pytest.mark.parametrize("fn,item", [
-    (lambda: tbook.seq2seq_attention(20, 20, 5, 5), "A.6"),
-    (lambda: tbook.label_semantic_roles(20, 5, 6), "A.6"),
-    (lambda: tbook.rnn_encoder_decoder(20, 20, 5, 5), "A.6"),
-    (lambda: tnets.sequence_conv_pool(None, 4, 3), "A.6"),
-], ids=["seq2seq_attention", "label_semantic_roles", "rnn_encoder_decoder",
-        "sequence_conv_pool"])
-def test_unported_book_builders_raise(fn, item):
-    main, startup = ptt.Program(), ptt.Program()
-    with ptt.program_guard(main, startup):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP {item}"):
-            fn()
+# ---------------------------------------------------------------------------
+# the recurrent book models (dynamic_gru, the lstm stack, two StaticRNNs)
+# at tests/test_book_models.py's shapes
+# ---------------------------------------------------------------------------
+
+def _seq2seq_feed(r, b=8, SV=30, TV=25, SL=7, TL=6):
+    tin = r.randint(1, TV, (b, TL)).astype(np.int64)
+    return {"src": r.randint(1, SV, (b, SL)).astype(np.int64),
+            "src_lens": r.randint(3, SL + 1, (b, 1)).astype(np.int64),
+            "tgt_in": tin, "tgt_out": (tin * 2 % TV).astype(np.int64),
+            "tgt_lens": r.randint(2, TL + 1, (b, 1)).astype(np.int64)}
+
+
+def test_seq2seq_attention_step_matches_jax():
+    """The GRU encoder-decoder with Luong attention (bidirectional
+    dynamic_gru over ragged source lengths)."""
+    def build(pkg):
+        return (jbook if pkg is pt else tbook).seq2seq_attention(
+            30, 25, 7, 6, emb_dim=16, hidden=16)
+    check_step(*build_both(build, _sgd), _seq2seq_feed(
+        np.random.RandomState(6)), fetch=("loss", "logits"))
+
+
+def test_srl_tagger_step_matches_jax():
+    """label_semantic_roles: the depth-2 bidirectional dynamic_lstm stack
+    over ragged lengths, masked token CE."""
+    V, L, SL, b = 50, 9, 8, 8
+
+    def build(pkg):
+        return (jbook if pkg is pt else tbook).label_semantic_roles(
+            V, L, SL, emb_dim=8, hidden=16, depth=2)
+    r = np.random.RandomState(7)
+    word = r.randint(0, V, (b, SL)).astype(np.int64)
+    feed = {"word": word,
+            "predicate": r.randint(0, V, (b, SL)).astype(np.int64),
+            "mark": r.randint(0, 2, (b, SL)).astype(np.int64),
+            "target": (word % L).astype(np.int64),
+            "lens": r.randint(4, SL + 1, (b, 1)).astype(np.int64)}
+    check_step(*build_both(build, _sgd), feed, fetch=("loss", "logits"))
+
+
+def test_rnn_encoder_decoder_step_matches_jax():
+    """Two StaticRNNs (recurrent and recurrent_grad) in one train step."""
+    Ts, Tt, b = 6, 5, 16
+
+    def build(pkg):
+        return (jbook if pkg is pt else tbook).rnn_encoder_decoder(
+            40, 40, Ts, Tt)
+    r = np.random.RandomState(8)
+    src = r.randint(1, 40, (b, Ts)).astype(np.int64)
+    feed = {"src": src,
+            "tgt_in": np.concatenate([src[:, :1] * 0 + 1, src[:, :Tt - 1]],
+                                     axis=1).astype(np.int64),
+            "tgt_out": src[:, :Tt].astype(np.int64),
+            "tgt_lens": np.full((b, 1), Tt, np.int64)}
+    jprog, tprog = build_both(build, _sgd)
+    assert [op.type for op in tprog[0].global_block.ops].count(
+        "recurrent") == 2
+    check_step(jprog, tprog, feed, fetch=("loss", "logits"))

@@ -319,7 +319,7 @@ def test_unported_executor_paths_raise_naming_their_items():
     p = ptt.Program()
     p.global_block.append_op("save", {"X": []}, {}, {"file_path": "f"},
                              infer_shape=False)
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(NotImplementedError, match="A.7"):
         exe.run(p)
 
 

@@ -609,7 +609,9 @@ _NEW_MODULES = ("models/gpt_decode.py", "profiler.py", "serving/__init__.py",
                 "observability/timeseries.py",
                 "observability/train_stats.py",
                 "framework/selected_rows.py", "regularizer.py",
-                "layers/learning_rate_scheduler.py")
+                "layers/learning_rate_scheduler.py", "lod_tensor.py",
+                "reader/bucketing.py", "ops/control_flow_ops.py",
+                "layers/control_flow.py")
 
 
 def test_new_modules_import_neither_jax_nor_paddle_tpu():
