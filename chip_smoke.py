@@ -336,6 +336,40 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 GM_PARAM_TOL of the CPU's, unchanged inside each merge
                 window), and the host syncs a While iteration. No hand
                 kernel launches. In a child process (--rnn-only);
+ 4k. io      -- the host-boundary ops and IO (ops/{io_dist,reader,loss,
+                metrics}_ops.py, io.py, reader/), TF32 off, cuDNN's
+                deterministic convolutions. (1) ResNet-50 at
+                bench_resnet50's shape (b128, 224x224, bf16 AMP,
+                Momentum(0.1, 0.9)) fed through create_py_reader ->
+                create_double_buffer_reader -> read from a
+                reader.decorator pipeline (`buffered`) over synthetic
+                batches drawn from the seed; 9 steps: a save_combine in
+                the host suffix at step 3 (.npz, the op's format) and a
+                Fluid-format save_persistables after it, an async native
+                save_persistables at step 5, steps 6-8 timed and step 9
+                traced (idle share); a second executor loads the step-3
+                checkpoint with load_combine and runs steps 4-5 from the
+                same reader position: every persistable bitwise run A's
+                at step 5; the Fluid file loads in the CPU port with the
+                card's values and the CPU port writes the same bytes for
+                them; the CPU port's reader ops give the batches the card
+                read, bitwise; no reader thread after reset; beside it
+                bench_resnet50's fed step (the feed on the card once) in
+                the same process. (2) the loss and metric ops, card
+                against the CPU port: linear_chain_crf and crf_decoding
+                at the SRL chapter's 106 labels (b64 x 64, lengths
+                8-64), nce at word2vec's width (2073 classes, hidden 256,
+                b1024, 25 negatives fed), hierarchical_sigmoid at the
+                same width, warpctc at 5000 frames x b32 over 100 classes
+                (blank 0), auc (4095 thresholds) and ctr_metric_bundle
+                over 1M predictions in 8 batches: losses within LOSS_RTOL
+                * max, gradients within LOSS_GRAD_L2 relative L2, Viterbi
+                paths exactly, metric states within METRIC_RTOL; each
+                op's device ms (busy time in a trace of the device;
+                warpctc's ~8e5 kernels the span between two CUDA events,
+                its CPU reference in a process of its own, started with
+                the phase). No hand kernel launches. In a child process
+                (--io-only);
   5. train   -- GPT-2 small (dropout 0.1) train programs with Adam through
                 Executor.run on CUDAPlace(0): 3 steps at s=1024 b=2
                 (flash_fwd, flash_bwd_dkv, flash_bwd_dq) and 3 at s=512
@@ -4409,6 +4443,622 @@ def phase_rnn(seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 4k: host-boundary ops and IO: ResNet-50 fed through the reader ops,
+# checkpointed and resumed; the loss and metric ops at their models' widths
+# ---------------------------------------------------------------------------
+
+IO_BATCH = 128          # bench_resnet50's batch
+IO_STEPS = 9            # run A: save_combine at 3, async save at 5; 6-8
+IO_SAVE_STEP = 3        # timed, 9 traced for the idle share
+IO_ASYNC_STEP = 5
+IO_FED_STEPS = 3        # bench_resnet50's fed step, timed after a warm-up
+# loss and metric ops, card against the CPU port (op_test's tolerances)
+LOSS_RTOL = 1e-5        # each loss within LOSS_RTOL * max |loss|
+LOSS_GRAD_L2 = 5e-3     # each gradient, relative L2
+METRIC_RTOL = 1e-6      # metric states and values, relative
+
+
+def _io_batches(seed, start, stop):
+    """A reader creator of batches start..stop-1 of the synthetic
+    ImageNet-shaped stream (images U(0, 1), NCHW 3x224x224, labels in
+    [0, 1000)), each batch drawn from its own seed, so that a reader can
+    begin at any batch."""
+    import numpy as np
+
+    def batches():
+        for i in range(start, stop):
+            rng = np.random.RandomState(seed * 1009 + i)
+            yield (rng.rand(IO_BATCH, 3, 224, 224).astype(np.float32),
+                   rng.randint(0, 1000, (IO_BATCH, 1)).astype(np.int64))
+    return batches
+
+
+def _io_program(model=True):
+    """bench_resnet50's train program (ResNet-50, 1000 classes, NCHW, bf16
+    AMP, Momentum(0.1, 0.9)) fed by a non-iterable PyReader whose read goes
+    through a double buffer: create_py_reader ->
+    create_double_buffer_reader -> read, the host prefix of every step.
+    With model=False the reader feeds a scale op only (the CPU run that
+    reads the same stream). Returns (main, startup, loss, reader)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import resnet
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.unique_name_guard(), ptt.program_guard(main, startup):
+        img = ptt.layers.data("img", [3, 224, 224], dtype="float32")
+        label = ptt.layers.data("label", [1], dtype="int64")
+        rd = ptt.PyReader(feed_list=[img, label], capacity=2,
+                          iterable=False)
+        if model:
+            logits = resnet.resnet50(img, 1000)
+            loss = ptt.layers.mean(
+                ptt.layers.softmax_with_cross_entropy(logits, label))
+            opt = ptt.contrib.mixed_precision.decorate(
+                ptt.optimizer.MomentumOptimizer(0.1, 0.9))
+            opt.minimize(loss)
+        else:
+            loss = ptt.layers.scale(img, 1.0)
+    blk = main.global_block
+    read = next(op for op in blk.ops if op.type == "read")
+    blk.create_var(name="io.double_buffer", shape=None, dtype="float32")
+    blk.insert_op(blk.ops.index(read), "create_double_buffer_reader",
+                  {"UnderlyingReader": read.input("Reader")},
+                  {"Out": ["io.double_buffer"]}, {}, infer_shape=False)
+    read.inputs["Reader"] = ["io.double_buffer"]
+    return main, startup, loss, rd
+
+
+def _io_start(rd, scope, seed, start, stop):
+    """Start an epoch of batches start..stop-1 through the decorator
+    pipeline (`buffered`, a filling thread two batches ahead)."""
+    from paddle_tpu_torch import reader
+    rd.decorate_batch_generator(
+        reader.buffered(_io_batches(seed, start, stop), 2))
+    rd.start(scope)
+
+
+def _io_reader_threads():
+    import threading
+    time.sleep(0.3)     # a stopped thread notices within one poll (0.1 s)
+    return [t.name for t in threading.enumerate()
+            if t.name in ("reader.double_buffer", "py_reader.pump")]
+
+
+def _io_step(exe, prog, loss, scope, fetch_data=False):
+    import torch
+    t = time.perf_counter()
+    out = exe.run(prog, fetch_list=[loss] + (["img", "label"]
+                                             if fetch_data else []),
+                  scope=scope, return_numpy=False)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def _io_run_a(seed, work):
+    """Run A: IO_STEPS reader-fed steps from the seeded startup; at
+    IO_SAVE_STEP a save_combine in the host suffix (the JAX op's .npz) and
+    then a Fluid-format save_persistables; at IO_ASYNC_STEP an async
+    native save_persistables. Returns (record, program, loss, names, the
+    step-3 and step-5 values, the (img, label) the card read)."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    main, startup, loss, rd = _io_program()
+    startup.random_seed = main.random_seed = seed
+    exe, scope = _card_exe(), ptt.Scope()
+    exe.run(startup, scope=scope)
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    saving = main.clone()
+    saving.global_block.append_op(
+        "save_combine", {"X": names}, {},
+        {"file_path": os.path.join(work, "ck3.npz")}, infer_shape=False)
+    _io_start(rd, scope, seed, 0, IO_STEPS)
+    rec = {"persistables": len(names), "step_ms": [], "losses": []}
+    read, at3, at5 = [], None, None
+    for step in range(1, IO_STEPS + 1):
+        if step == IO_STEPS:
+            wall, busy, idle, events = _idle_share(
+                lambda: exe.run(main, fetch_list=[loss], scope=scope))
+            rec["traced_step"] = {"wall_ms": wall, "busy_ms": busy,
+                                  "idle": idle, "device_events": events}
+            continue
+        out, ms = _io_step(exe, saving if step == IO_SAVE_STEP else main,
+                           loss, scope, step <= IO_ASYNC_STEP)
+        rec["step_ms"].append(ms)
+        rec["losses"].append(float(out[0].float().item()))
+        if step <= IO_ASYNC_STEP:
+            read.append((out[1], out[2]))
+        if step == IO_SAVE_STEP:
+            t = time.perf_counter()
+            ptt.io.save_persistables(exe, os.path.join(work, "ck3_fluid"),
+                                     main, scope=scope, format="fluid",
+                                     filename="params")
+            rec["fluid_save_s"] = time.perf_counter() - t
+            at3 = {n: scope.find_var(n).clone() for n in names}
+        if step == IO_ASYNC_STEP:
+            t = time.perf_counter()
+            ptt.io.save_persistables(exe, os.path.join(work, "ck5"), main,
+                                     scope=scope, sync=False)
+            rec["async_save_return_s"] = time.perf_counter() - t
+            at5 = {n: scope.find_var(n).clone() for n in names}
+    t = time.perf_counter()
+    ptt.io.wait_for_saves()
+    rec["async_save_wait_s"] = time.perf_counter() - t
+    rd.reset(scope)
+    rec["threads_after_reset"] = _io_reader_threads()
+    timed = rec["step_ms"][IO_ASYNC_STEP:]
+    rec["median_step_ms"] = sorted(timed)[len(timed) // 2]
+    rec["img_per_s"] = IO_BATCH / (rec["median_step_ms"] / 1e3)
+    rec["save_combine_step_ms"] = rec["step_ms"][IO_SAVE_STEP - 1]
+    rec["bytes"] = {
+        "npz": os.path.getsize(os.path.join(work, "ck3.npz")),
+        "fluid": os.path.getsize(os.path.join(work, "ck3_fluid",
+                                              "params")),
+        "native": os.path.getsize(os.path.join(work, "ck5",
+                                               "params.npz"))}
+    if not all(np.isfinite(rec["losses"])):
+        fail(f"io: non-finite losses {rec['losses']}")
+    if rec["threads_after_reset"]:
+        fail(f"io: reader threads left after reset: "
+             f"{rec['threads_after_reset']}")
+    return rec, main, loss, rd, names, at3, at5, read
+
+
+def _io_fed(seed):
+    """bench_resnet50's fed step (the feed on the card once) in the same
+    process: median of IO_FED_STEPS steps after a warm-up, and one traced
+    step's idle share."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.tools import bench_resnet50 as bench
+    main, startup, loss, _ = bench.build_program(amp=True, lr=0.1)
+    startup.random_seed = main.random_seed = seed
+    exe, scope = _card_exe(), ptt.Scope()
+    exe.run(startup, scope=scope)
+    feed = bench.to_device(bench.feed(np.random.RandomState(seed),
+                                      IO_BATCH))
+    _bert_steps(exe, main, {"loss": loss}, scope, [feed], [])
+    losses, step_ms, _ = _bert_steps(exe, main, {"loss": loss}, scope,
+                                     [feed] * IO_FED_STEPS, [])
+    wall, busy, idle, events = _idle_share(
+        lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope))
+    med = sorted(step_ms)[len(step_ms) // 2]
+    return {"step_ms": step_ms, "median_step_ms": med,
+            "img_per_s": IO_BATCH / (med / 1e3), "losses": losses,
+            "traced_step": {"wall_ms": wall, "busy_ms": busy, "idle": idle,
+                            "device_events": events}}
+
+
+def _io_resume(seed, work, main, loss, rd, names, at3, at5):
+    """Run B: a second executor loads the step-3 checkpoint with a
+    load_combine program, reads batches 3-4 of the same stream through the
+    same reader ops and runs steps 4-5 of the same program; its
+    persistables must equal run A's at step 5 bitwise."""
+    import torch
+    import paddle_tpu_torch as ptt
+    exe, scope = _card_exe(), ptt.Scope()
+    load = ptt.Program()
+    blk = load.global_block
+    for n in names:
+        v = main.global_block.var(n)
+        blk.create_var(name=n, shape=v.shape, dtype=v.dtype,
+                       persistable=True)
+    blk.append_op("load_combine", {}, {"Out": names},
+                  {"file_path": os.path.join(work, "ck3.npz")},
+                  infer_shape=False)
+    t = time.perf_counter()
+    exe.run(load, scope=scope)
+    torch.cuda.synchronize()
+    rec = {"load_combine_s": time.perf_counter() - t}
+    loaded_bad = [n for n in names if not torch.equal(scope.find_var(n),
+                                                      at3[n])]
+    if loaded_bad:
+        fail(f"io: load_combine differs from the step-3 values: "
+             f"{loaded_bad[:4]}")
+    _io_start(rd, scope, seed, IO_SAVE_STEP, IO_ASYNC_STEP)
+    rec["losses"] = []
+    for _ in range(IO_SAVE_STEP, IO_ASYNC_STEP):
+        out, _ = _io_step(exe, main, loss, scope)
+        rec["losses"].append(float(out[0].float().item()))
+    rd.reset(scope)
+    diff = [n for n in names if not torch.equal(scope.find_var(n), at5[n])]
+    rec["params_compared"] = len(names)
+    rec["params_not_bitwise"] = diff
+    if diff:
+        worst = max((scope.find_var(n).float() - at5[n].float()).abs()
+                    .max().item() for n in diff)
+        fail(f"io: resumed run parts from run A at step 5 in "
+             f"{len(diff)} persistables ({diff[:4]}), max diff {worst}")
+    return rec
+
+
+def _io_cpu_checks(seed, work, main, names, at3, read):
+    """The checkpoints on the CPU port: the Fluid step-3 file loads there
+    with the card's values, and the CPU port writes the same bytes for
+    them; the .npz loads through load_combine; and the reader pipeline
+    through the CPU port's double buffer gives the batches the card read,
+    bitwise."""
+    import torch
+    import paddle_tpu_torch as ptt
+    cpu, sc = ptt.Executor(ptt.CPUPlace()), ptt.Scope()
+    t = time.perf_counter()
+    ptt.io.load_persistables(cpu, os.path.join(work, "ck3_fluid"), main,
+                             filename="params", scope=sc)
+    rec = {"fluid_load_cpu_s": time.perf_counter() - t}
+    bad = [n for n in names
+           if not torch.equal(sc.find_var(n), at3[n].cpu())]
+    if bad:
+        fail(f"io: the Fluid step-3 file on the CPU differs: {bad[:4]}")
+    ptt.io.save_persistables(cpu, os.path.join(work, "ck3_cpu"), main,
+                             scope=sc, format="fluid", filename="params")
+    with open(os.path.join(work, "ck3_fluid", "params"), "rb") as a, \
+            open(os.path.join(work, "ck3_cpu", "params"), "rb") as b:
+        rec["fluid_bytes_equal_cpu"] = a.read() == b.read()
+    if not rec["fluid_bytes_equal_cpu"]:
+        fail("io: the card's Fluid step-3 file and the CPU port's bytes "
+             "for the same arrays differ")
+    cpu_reader, st, y, rd = _io_program(model=False)
+    sc2 = ptt.Scope()
+    cpu.run(st, scope=sc2)
+    _io_start(rd, sc2, seed, 0, len(read))
+    bad_batches = []
+    for i, (img, label) in enumerate(read):
+        got = cpu.run(cpu_reader, fetch_list=["img", "label"], scope=sc2,
+                      return_numpy=False)
+        if not (torch.equal(img.cpu(), got[0])
+                and torch.equal(label.cpu(), got[1])):
+            bad_batches.append(i)
+    rd.reset(sc2)
+    rec["batches_compared"] = len(read)
+    if bad_batches:
+        fail(f"io: the card read other batches than the CPU port: "
+             f"{bad_batches}")
+    return rec
+
+
+def _io_part1(seed, work):
+    import torch
+    t = time.perf_counter()
+    run_a, main, loss, rd, names, at3, at5, read = _io_run_a(seed, work)
+    emit({"phase": "io", "part": "resnet50_reader_run", **run_a})
+    fed = _io_fed(seed)
+    emit({"phase": "io", "part": "bench_resnet50_fed", **fed})
+    torch.cuda.empty_cache()
+    resume = _io_resume(seed, work, main, loss, rd, names, at3, at5)
+    emit({"phase": "io", "part": "resume", **resume})
+    cpu = _io_cpu_checks(seed, work, main, names, at3, read)
+    emit({"phase": "io", "part": "cpu_checks", **cpu})
+    del at3, at5, read
+    torch.cuda.empty_cache()
+    return {"run": run_a, "fed": fed, "resume": resume, "cpu": cpu,
+            "reader_vs_fed": run_a["median_step_ms"]
+            / fed["median_step_ms"], "wall_s": time.perf_counter() - t}
+
+
+def _io_device_ms(fn, tries=3):
+    """(fn's result, device busy ms, device events, wall s) of one call
+    of `fn`: busy is the union of its device events' intervals, read from
+    the profiler's raw event list (parsing the trace into its event tree
+    took over 10 minutes at CTC's ~8e5 kernels). A trace that recorded no
+    device event (the profiler drops one now and then) is taken again:
+    `fn` must give the same result each call."""
+    import torch
+    from torch.autograd import DeviceType
+    from paddle_tpu_torch.tools.profile_gpt import _union_us
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        spans = [(e.start_ns(), e.end_ns())
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA]
+        if spans:
+            return out, _union_us(spans) / 1e6, len(spans), wall
+    fail(f"io: {tries} traces recorded no device event")
+
+
+def _io_card_and_cpu(main, startup, feed, fetch, seed):
+    """Run `main` once on the CPU port and once on the card, traced, from
+    the same startup values and feed: (card outputs on the host, CPU
+    outputs, a record of the card run's device busy ms and events and both
+    runs' wall seconds)."""
+    import paddle_tpu_torch as ptt
+    startup.random_seed = main.random_seed = seed
+    cpu, csc = ptt.Executor(ptt.CPUPlace()), ptt.Scope()
+    cpu.run(startup, scope=csc)
+    card, gsc = _card_exe(), ptt.Scope()
+    ptt.io.set_params_from_numpy(
+        gsc, {n: csc.find_var(n).numpy() for n in csc.var_names()
+              if hasattr(csc.find_var(n), "numpy")}, "cuda")
+    t = time.perf_counter()
+    want = cpu.run(main, feed=feed, fetch_list=fetch, scope=csc)
+    cpu_s = time.perf_counter() - t
+    got, busy, events, wall = _io_device_ms(lambda: card.run(
+        main, feed=feed, fetch_list=fetch, scope=gsc))
+    return got, want, {"device_ms": busy, "device_events": events,
+                       "card_wall_s": wall, "cpu_wall_s": cpu_s}
+
+
+def _io_loss_holds(name, got, want, grads):
+    """Loss (the first fetch) within LOSS_RTOL * max |loss|; the `grads`
+    fetches that follow within LOSS_GRAD_L2 relative L2."""
+    import numpy as np
+    rec = {"loss_err": float(np.abs(got[0] - want[0]).max()),
+           "loss_tol": LOSS_RTOL * float(np.abs(want[0]).max())}
+    if not np.isfinite(got[0]).all() or rec["loss_err"] > rec["loss_tol"]:
+        fail(f"io {name}: loss {rec['loss_err']} over {rec['loss_tol']}")
+    rec["grad_rel_l2"] = {}
+    for g, w, gname in zip(got[1:], want[1:], grads):
+        rel = float(np.linalg.norm(g.astype(np.float64) - w)
+                    / max(np.linalg.norm(w.astype(np.float64)), 1e-30))
+        rec["grad_rel_l2"][gname] = rel
+        if not np.isfinite(g).all() or rel > LOSS_GRAD_L2:
+            fail(f"io {name}: {gname} at {rel} relative L2")
+    return rec
+
+
+def _io_crf(seed):
+    """linear_chain_crf and crf_decoding at the Fluid book SRL chapter's
+    label set: 106 labels, b64 x 64, lengths uniform in [8, 64]."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    rng = np.random.RandomState(seed)
+    b, t, c = 64, 64, 106
+    feed = {"em": rng.randn(b, t, c).astype(np.float32),
+            "lab": rng.randint(0, c, (b, t)).astype(np.int64),
+            "len": _lengths(rng, 8, 64, b)}
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.unique_name_guard(), ptt.program_guard(main, startup):
+        em = ptt.layers.data("em", [t, c], stop_gradient=False)
+        lab = ptt.layers.data("lab", [t], dtype="int64")
+        ln = ptt.layers.data("len", [1], dtype="int64")
+        nll, trans = ptt.layers.linear_chain_crf(em, lab, ln)
+        ptt.append_backward(ptt.layers.mean(nll))
+    dec, dec_start = ptt.Program(), ptt.Program()
+    with ptt.unique_name_guard(), ptt.program_guard(dec, dec_start):
+        em2 = ptt.layers.data("em", [t, c])
+        ln2 = ptt.layers.data("len", [1], dtype="int64")
+        tr2 = ptt.layers.create_parameter([c + 2, c], "float32",
+                                          name=trans.name)
+        path = ptt.layers.crf_decoding(em2, tr2, ln2)
+    grads = ["em@GRAD", trans.name + "@GRAD"]
+    got, want, times = _io_card_and_cpu(main, startup, feed,
+                                        [nll.name] + grads, seed)
+    rec = {"shape": [b, t, c], **times,
+           **_io_loss_holds("linear_chain_crf", got, want, grads)}
+    feed2 = {"em": feed["em"], "len": feed["len"]}
+    pg, pw, times2 = _io_card_and_cpu(dec, dec_start, feed2, [path], seed)
+    rec["decoding"] = {**times2,
+                       "paths_equal": bool(np.array_equal(pg[0], pw[0]))}
+    if not rec["decoding"]["paths_equal"]:
+        fail("io crf_decoding: the card's Viterbi paths differ from the "
+             "CPU port's")
+    return rec
+
+
+def _io_nce(seed):
+    """nce at word2vec's width on the imikolov dictionary (2073 classes,
+    hidden 256), b1024, 25 negatives fed (drawn here by numpy, so neither
+    device draws): the cost and the explicit grad lowering, card vs CPU."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import loss_ops
+    rng = np.random.RandomState(seed)
+    b, d, c, k = 1024, 256, 2073, 25
+    arrs = {"x": rng.randn(b, d).astype(np.float32),
+            "w": (rng.randn(c, d) * 0.05).astype(np.float32),
+            "bias": (rng.randn(c) * 0.05).astype(np.float32),
+            "label": rng.randint(0, c, (b, 1)).astype(np.int64),
+            "neg": rng.randint(0, c, (b, k)).astype(np.int32)}
+
+    def run(device):
+        t = {n: torch.from_numpy(a).to(device) for n, a in arrs.items()}
+        cost = loss_ops._nce_forward(t["x"], t["w"], t["bias"],
+                                     t["label"][:, 0], t["neg"])
+        g = loss_ops._nce_grad_lower(None, {
+            "Input": [t["x"]], "Weight": [t["w"]], "Bias": [t["bias"]],
+            "Label": [t["label"]], "Negatives": [t["neg"]],
+            "Cost@GRAD": [torch.full_like(cost, 1.0 / b)]}, {})
+        return [cost] + [g[s][0] for s in ("Input@GRAD", "Weight@GRAD",
+                                           "Bias@GRAD")]
+    want = [v.numpy() for v in run("cpu")]
+    out, ms, events, wall = _io_device_ms(lambda: run("cuda"))
+    got = [v.cpu().numpy() for v in out]
+    return {"shape": [b, d, c, k], "device_ms": ms, "device_events": events,
+            "card_wall_s": wall,
+            **_io_loss_holds("nce", got, want, ["Input@GRAD",
+                                                "Weight@GRAD",
+                                                "Bias@GRAD"])}
+
+
+def _io_hsigmoid(seed):
+    """hierarchical_sigmoid at the same width: 2073 classes, hidden 256,
+    b1024, with its bias; the generic vjp gradients."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    rng = np.random.RandomState(seed + 1)
+    b, d, c = 1024, 256, 2073
+    feed = {"x": rng.randn(b, d).astype(np.float32),
+            "label": rng.randint(0, c, (b, 1)).astype(np.int64)}
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.unique_name_guard(), ptt.program_guard(main, startup):
+        x = ptt.layers.data("x", [d], stop_gradient=False)
+        lab = ptt.layers.data("label", [1], dtype="int64")
+        cost = ptt.layers.hsigmoid(x, lab, c)
+        ptt.append_backward(ptt.layers.mean(cost))
+    grads = ["x@GRAD", "hsigmoid_0.w_0@GRAD", "hsigmoid_0.b_0@GRAD"]
+    got, want, times = _io_card_and_cpu(main, startup, feed,
+                                        [cost.name] + grads, seed)
+    return {"shape": [b, d, c], **times,
+            **_io_loss_holds("hierarchical_sigmoid", got, want, grads)}
+
+
+IO_CTC = (32, 5000, 100, 200)   # batch, frames, classes, longest label
+
+
+def _io_ctc_case(seed):
+    """warpctc at 5000 frames x b32 over 100 classes, blank 0 (labels of
+    50-200 tokens, frames 4000-5000 a row), mean loss, its gradient: (the
+    program, its feed, the fetch names)."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    rng = np.random.RandomState(seed + 2)
+    b, t, c, lmax = IO_CTC
+    feed = {"logits": rng.randn(b, t, c).astype(np.float32),
+            "label": rng.randint(1, c, (b, lmax)).astype(np.int64),
+            "logit_len": _lengths(rng, 4000, 5000, b),
+            "label_len": _lengths(rng, 50, 200, b)}
+    main = ptt.Program()
+    with ptt.unique_name_guard(), ptt.program_guard(main, ptt.Program()):
+        x = ptt.layers.data("logits", [t, c], stop_gradient=False)
+        lab = ptt.layers.data("label", [lmax], dtype="int64")
+        ll = ptt.layers.data("logit_len", [1], dtype="int64")
+        bl = ptt.layers.data("label_len", [1], dtype="int64")
+        ctc = ptt.layers.warpctc(x, lab, ll, bl, blank=0)
+        ptt.append_backward(ptt.layers.mean(ctc))
+    return main, feed, [ctc.name, "logits@GRAD"]
+
+
+def _io_ctc_reference(seed, path):
+    """The CPU port's CTC (loss rows, gradient) saved to `path`: run in a
+    process of its own while the card does the phase's other parts (its
+    5000-frame loop and vjp take ~30 s on the host)."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, HERE)
+    import paddle_tpu_torch as ptt
+    torch.set_num_threads(4)
+    main, feed, fetch = _io_ctc_case(seed)
+    t = time.perf_counter()
+    loss, grad = ptt.Executor(ptt.CPUPlace()).run(
+        main, feed=feed, fetch_list=fetch, scope=ptt.Scope())
+    np.savez(path, loss=loss, grad=grad, s=time.perf_counter() - t)
+
+
+def _io_ctc(seed, reference):
+    """warpctc on the card against the CPU port's reference process
+    (`reference`: (process, path)). JAX's log-space recursion, its
+    gradient the vjp through the loop; ~8e5 kernels, so its device time
+    is the span between two CUDA events (a trace of it costs minutes)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    main, feed, fetch = _io_ctc_case(seed)
+    card = _card_exe()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t = time.perf_counter()
+    start.record()
+    got = card.run(main, feed=feed, fetch_list=fetch, scope=ptt.Scope())
+    end.record()
+    torch.cuda.synchronize()
+    rec = {"shape": list(IO_CTC), "card_wall_s": time.perf_counter() - t,
+           "device_span_ms": start.elapsed_time(end)}
+    proc, path = reference
+    proc.join(timeout=600)
+    if proc.exitcode != 0:
+        fail(f"io warpctc: the CPU reference process exited "
+             f"{proc.exitcode}")
+    with np.load(path) as z:
+        want = [z["loss"], z["grad"]]
+        rec["cpu_wall_s"] = float(z["s"])
+    return {**rec, **_io_loss_holds("warpctc", got, want,
+                                    ["logits@GRAD"])}
+
+
+def _io_metrics(seed):
+    """auc (4095 thresholds, running totals) and ctr_metric_bundle over
+    1M predictions in 8 batches, card vs CPU: the states and the AUC
+    within METRIC_RTOL relative."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    rng = np.random.RandomState(seed + 3)
+    n, batches = 1 << 17, 8
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.unique_name_guard(), ptt.program_guard(main, startup):
+        p = ptt.layers.data("p", [2])
+        y = ptt.layers.data("y", [1], dtype="int64")
+        prob = ptt.layers.data("prob", [1])
+        click = ptt.layers.data("click", [1])
+        auc, stats = ptt.layers.auc(p, y, num_thresholds=4095,
+                                    slide_steps=0)
+        ctr = ptt.contrib.layers.ctr_metric_bundle(prob, click)
+    fetch = [auc] + list(stats) + list(ctr)
+    cpu, csc = ptt.Executor(ptt.CPUPlace()), ptt.Scope()
+    card, gsc = _card_exe(), ptt.Scope()
+    cpu.run(startup, scope=csc)
+    card.run(startup, scope=gsc)
+    for _ in range(batches):
+        q = rng.rand(n, 1).astype(np.float32)
+        feed = {"p": np.concatenate([1 - q, q], 1),
+                "y": (rng.rand(n, 1) < q).astype(np.int64),
+                "prob": q, "click": (rng.rand(n, 1) < 0.2)
+                .astype(np.float32)}
+        want = cpu.run(main, feed=feed, fetch_list=fetch, scope=csc)
+        got = card.run(main, feed=feed, fetch_list=fetch, scope=gsc)
+    # one more batch traced, on a copy of the states
+    copy = _clone_scope(gsc)
+    _, ms, _, _ = _io_device_ms(lambda: card.run(
+        main, feed=feed, fetch_list=fetch, scope=copy))
+    errs = [float(np.abs(g.astype(np.float64) - w).max()
+                  / max(np.abs(w.astype(np.float64)).max(), 1e-30))
+            for g, w in zip(got, want)]
+    rec = {"predictions": n * batches, "thresholds": 4095,
+           "auc": float(got[0]), "auc_cpu": float(want[0]),
+           "worst_rel": max(errs), "device_ms_per_batch": ms}
+    if max(errs) > METRIC_RTOL:
+        fail(f"io metrics: a state differs by {max(errs)} relative")
+    return rec
+
+
+def phase_io(seed):
+    """Phase 4k: ResNet-50 at bench_resnet50's shape fed by the reader ops,
+    checkpointed (save_combine in the host suffix, Fluid and async native
+    saves) and resumed by a second executor, bitwise; the loss and metric
+    ops at their models' widths, card vs CPU port. No hand kernel
+    launches. In a child process (--io-only)."""
+    import torch
+    t_phase = time.perf_counter()
+    # convolution algorithms that give the same bits every run, so that a
+    # resumed run can equal the uninterrupted one
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    work = os.path.join(WORK_DIR, "io")
+    os.makedirs(work, exist_ok=True)
+    import multiprocessing
+    ref = multiprocessing.get_context("spawn").Process(
+        target=_io_ctc_reference, args=(seed, os.path.join(work, "ctc.npz")))
+    ref.start()
+    try:
+        zero_counts(KERNELS)
+        # ---- the main path: counts zeroed just before, read just after -
+        parts = {"resnet50": _io_part1(seed, work)}
+        for key, fn in (("linear_chain_crf", _io_crf), ("nce", _io_nce),
+                        ("hierarchical_sigmoid", _io_hsigmoid),
+                        ("warpctc", lambda s: _io_ctc(
+                            s, (ref, os.path.join(work, "ctc.npz")))),
+                        ("metrics", _io_metrics)):
+            t = time.perf_counter()
+            parts[key] = fn(seed)
+            parts[key]["wall_s"] = time.perf_counter() - t
+            emit({"phase": "io", "part": key, **parts[key]})
+            torch.cuda.empty_cache()
+        launches = read_counts(KERNELS)
+    finally:
+        if ref.is_alive():
+            ref.terminate()
+        ref.join()
+    # -------------------------------------------------------------------
+    if any(launches.values()):
+        fail(f"io: the phase launched hand kernels: {launches}")
+    summary = {"phase": "io", "cudnn_deterministic": True, **parts,
+               "launches": launches, "wall_s": time.perf_counter() - t_phase}
+    emit(summary)
+    return summary
+
+
+# ---------------------------------------------------------------------------
 # phase 5: GPT-2 small training steps
 # ---------------------------------------------------------------------------
 
@@ -5713,10 +6363,10 @@ def phase_times(serve, train, bert, optim, spike, seed):
 
 
 def in_child(seed, flag):
-    """Phase 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h, 4i or 4j in a process of its
-    own (this script with --engine-only, --server-only, --spec-only,
+    """Phase 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h, 4i, 4j or 4k in a process of
+    its own (this script with --engine-only, --server-only, --spec-only,
     --quant-only, --adapters-only, --bench-only, --nmt-only, --lenet-only,
-    --optim-only or --rnn-only), its JSON
+    --optim-only, --rnn-only or --io-only), its JSON
     lines passed through, its summary returned. After the engine's run, torch.profiler traces taken
     later in the same process lost one kernel record a trace (PERF.md §6,
     the engine's calls 2-7), which the times phase's device-time checks
@@ -5760,6 +6410,8 @@ def main():
                       help="run phase 4i alone, likewise")
     only.add_argument("--rnn-only", action="store_true",
                       help="run phase 4j alone, likewise")
+    only.add_argument("--io-only", action="store_true",
+                      help="run phase 4k alone, likewise")
     args = ap.parse_args()
     preflight()
     import torch
@@ -5773,7 +6425,8 @@ def main():
              phase_nmt if args.nmt_only else
              phase_lenet if args.lenet_only else
              phase_optim if args.optim_only else
-             phase_rnn if args.rnn_only else None)
+             phase_rnn if args.rnn_only else
+             phase_io if args.io_only else None)
     if alone is not None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -5811,6 +6464,7 @@ def main():
         lenet = in_child(args.seed, "--lenet-only")
         optim = in_child(args.seed, "--optim-only")
         rnn = in_child(args.seed, "--rnn-only")
+        io_ = in_child(args.seed, "--io-only")
         train = phase_train(args.seed)
         bert = phase_bert(args.seed)
         resnet = phase_resnet(args.seed)
@@ -5825,7 +6479,7 @@ def main():
                    "engine": engine, "server": server, "spec": spec,
                    "quant": quant, "adapters": adapters, "bench": bench,
                    "nmt": nmt, "lenet": lenet, "optim": optim,
-                   "rnn": rnn,
+                   "rnn": rnn, "io": io_,
                    "train": train["summaries"],
                    "bert": bert["runs"],
                    "resnet": resnet, "spike": spike["rows"],

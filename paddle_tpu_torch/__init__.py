@@ -22,7 +22,11 @@ schedules, regularizers and SelectedRows sparse embedding gradients
 (`optimizer`, `layers.learning_rate_scheduler`, `regularizer`,
 `framework.selected_rows`), and control flow, LoD and the recurrences
 (`layers.control_flow`, `layers.rnn`, `layers.sequence`, `lod_tensor`,
-`reader.bucketing`) with the recurrent book models.
+`reader.bucketing`) with the recurrent book models, and the host-boundary
+ops and IO: save/load ops, both checkpoint formats (`io`,
+`framework.fluid_interop`), async saves, the readers (`reader`,
+`PyReader`, `DataFeeder`, the reader ops), the loss ops (CTC, CRF, NCE,
+hierarchical sigmoid) and the metric ops, `metrics` and `average`.
 
 Places are real: `Executor()` runs on `CUDAPlace(0)` and raises when no GPU
 is present; `Executor(CPUPlace())` runs on the CPU.
@@ -54,6 +58,10 @@ from . import compiler
 from . import lod_tensor
 from .lod_tensor import create_lod_tensor, create_random_int_lodtensor
 from . import reader
+from . import metrics
+from . import average
+from .data_feeder import DataFeeder
+from .reader.py_reader import PyReader
 from .compiler import CompiledProgram, BuildStrategy, ExecutionStrategy
 
 __version__ = "0.1.0"
@@ -69,4 +77,4 @@ __all__ = ["Program", "Block", "Operator", "Variable", "Parameter",
            "serving", "server", "analysis", "clip", "compiler",
            "CompiledProgram", "BuildStrategy", "ExecutionStrategy",
            "lod_tensor", "create_lod_tensor", "create_random_int_lodtensor",
-           "reader"]
+           "reader", "metrics", "average", "DataFeeder", "PyReader"]

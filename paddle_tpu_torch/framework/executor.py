@@ -43,9 +43,19 @@ donation, and no update op before the last macro grad op of a block is
 donated, so a value a macro stashed for its grad replay is never written
 in place before the replay reads it.
 
-Not yet ported: host-boundary ops (ROADMAP A.7), the dataset trainer loop
+Host-boundary ops (`registry.register_host_op`: save/load, the readers)
+run against the scope outside the op sequence, as in the JAX executor:
+those before the first compute op run before the step (a load, a read
+that puts its batch into the run's feed), those after the last compute op
+after it, on the post-step scope (a save reads the updated values); a host
+op between compute ops raises JAX's message, and a host-only program
+(a save or load program) runs its host ops and nothing else. Each runs
+under a `host/<type>` span on the executor's device.
+
+Not yet ported: the RPC host ops and `create_ctr_reader` (the parameter
+server, ROADMAP A.9), the dataset trainer loop
 (`train_from_dataset`/`infer_from_dataset`, A.12), the parameter-server
-path (A.9) and `capture_hlo`.
+path (A.9) and `capture_hlo` (A.8).
 """
 
 from __future__ import annotations
@@ -272,17 +282,44 @@ def _as_feed_tensor(value, var: Optional[Variable], device) -> torch.Tensor:
     return t.to(device)
 
 
+# The JAX package's host-boundary op types that the port does not register
+# yet: the RPC ops of ops/io_dist_ops.py and the CTR log reader, which come
+# with the parameter server (ROADMAP A.9). They raise by name.
+_UNPORTED_HOST_OPS = frozenset((
+    "send", "send_barrier", "fetch_barrier", "recv", "prefetch",
+    "checkpoint_notify", "listen_and_serv", "fl_listen_and_serv",
+    "gen_nccl_id", "c_gen_nccl_id", "create_ctr_reader"))
 
 
-# The JAX package's host-boundary op types (file IO, RPC, readers): the
-# port's registry registers no host op yet (ROADMAP A.7), so they raise by
-# name.
-_JAX_HOST_OPS = frozenset((
-    "save", "load", "save_combine", "load_combine", "send", "send_barrier",
-    "fetch_barrier", "recv", "prefetch", "checkpoint_notify",
-    "listen_and_serv", "fl_listen_and_serv", "gen_nccl_id",
-    "create_py_reader", "create_double_buffer_reader",
-    "create_custom_reader", "create_ctr_reader", "read"))
+def _is_host_op(op_type: str) -> bool:
+    return op_type in _HOST_OPS or op_type in _UNPORTED_HOST_OPS
+
+
+def _split_host_ops(blk):
+    """(host prefix, host suffix, any compute op) of a block, as the JAX
+    executor splits it (paddle_tpu/framework/executor.py:358-369): host
+    ops before the first compute op, host ops after the last; a host op
+    between compute ops raises."""
+    pre, post = [], []
+    compute_seen = False
+    for op in blk.ops:
+        if _is_host_op(op.type):
+            (post if compute_seen else pre).append(op)
+        elif op.type not in ("feed", "fetch"):
+            compute_seen = True
+            if post:
+                raise RuntimeError(
+                    f"host-boundary op(s) "
+                    f"{[o.type for o in post]} appear between "
+                    f"compute ops; split the program (the reference "
+                    f"emits separate save/load programs too)")
+    unported = sorted({op.type for op in pre + post
+                       if op.type in _UNPORTED_HOST_OPS})
+    if unported:
+        raise NotImplementedError(
+            f"host-boundary op(s) {unported} are not ported to "
+            "paddle_tpu_torch yet (the parameter server, ROADMAP A.9)")
+    return pre, post, compute_seen
 
 
 def _sig(v):
@@ -315,7 +352,8 @@ class _Step:
     def __init__(self, program, fetch_names, mutable, created, readonly):
         blk = program.global_block
         self.ops = [(op, resolve_op(op)) for op in blk.ops
-                    if op.type not in ("feed", "fetch")]
+                    if op.type not in ("feed", "fetch")
+                    and op.type not in _HOST_OPS]
         self.fetch_names = list(fetch_names)
         self.mutable, self.created = list(mutable), list(created)
         self.readonly = list(readonly)
@@ -483,19 +521,22 @@ class Executor:
                 "Executor.capture_hlo (the optimized HLO that "
                 "tools/comm_volume.py reads) has no counterpart in the "
                 "eager executor (ROADMAP A.8)")
-        self._check_feed(program, feed)
 
         blk = program.global_block
-        host = [op.type for op in blk.ops if op.type in _JAX_HOST_OPS]
-        if host:
-            raise NotImplementedError(
-                f"host-boundary op(s) {host} are not ported to "
-                "paddle_tpu_torch yet (ROADMAP A.7)")
-        if not any(op.type not in ("feed", "fetch") for op in blk.ops):
-            # nothing to run: the fetches come from the scope, as the JAX
-            # executor's host-only programs do (no cache entry)
+        # Host-boundary ops run against the scope: the prefix now (a read
+        # puts its batch into this run's feed, a copy of the caller's), the
+        # suffix after the step, on the post-step scope
+        host_pre, host_post, compute_seen = _split_host_ops(blk)
+        if host_pre or host_post:
+            feed = dict(feed)
+        self._run_host_ops(host_pre, scope, feed)
+        if not compute_seen:
+            # host-only program (save/load programs): everything already
+            # ran in the prefix; the fetches come from the scope, as the
+            # JAX executor's do (no cache entry)
             return [_to_numpy(scope.find_var(f)) if return_numpy
                     else scope.find_var(f) for f in fetch_names]
+        self._check_feed(program, feed)
 
         # Training telemetry (observability/train_stats.py): a program
         # whose minimize() attached the tap carries the loss/grad-norm/
@@ -605,6 +646,7 @@ class Executor:
 
         for n in step.out_names:
             scope._bind(n, env[n], self._token)
+        self._run_host_ops(host_post, scope, feed)  # saves see the update
         missing = [n for n in all_fetch if n not in env]
         if missing:
             raise KeyError(f"fetch target(s) {missing} are not produced by "
@@ -641,6 +683,11 @@ class Executor:
         if return_numpy:
             return [_to_numpy(f) for f in fetches]
         return list(fetches)
+
+    def _run_host_ops(self, ops, scope, feed):
+        for op in ops:
+            with trace_span(f"host/{op.type}", "host"):
+                _HOST_OPS[op.type](op, scope, feed, self.device)
 
     def _run_ops(self, step, ctx, env, scope_in, owned, flop_mode):
         """Run the plan's ops on `env`. An optimizer op gets, in
@@ -823,12 +870,12 @@ class Executor:
     def train_from_dataset(self, *args, **kwargs):
         raise NotImplementedError(
             "Executor.train_from_dataset is not ported to paddle_tpu_torch "
-            "yet (ROADMAP A.12: dataset.py and the reader stack)")
+            "yet (ROADMAP A.12: dataset.py)")
 
     def infer_from_dataset(self, *args, **kwargs):
         raise NotImplementedError(
             "Executor.infer_from_dataset is not ported to paddle_tpu_torch "
-            "yet (ROADMAP A.12: dataset.py and the reader stack)")
+            "yet (ROADMAP A.12: dataset.py)")
 
     # -- utilities -----------------------------------------------------------
     def close(self):
@@ -867,7 +914,7 @@ def as_torch_function(program: Program, fetch_list, is_test: bool = True,
     if is_test:
         program = program.clone(for_test=True)
     host = [op.type for op in program.global_block.ops
-            if op.type in _JAX_HOST_OPS]
+            if _is_host_op(op.type)]
     if host:
         raise ValueError(
             f"as_torch_function: program contains host-boundary op(s) "

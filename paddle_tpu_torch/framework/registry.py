@@ -17,8 +17,10 @@ Ops can override the grad-desc maker or the grad lowering when the generic
 path is wrong (rng ops like dropout, ops with saved intermediates).
 Control-flow ops (while, conditional_block, recurrent and their grads) are
 macros (`register_macro_op`): they run with the whole environment and
-reach their sub-blocks through the op. The host-op table exists, empty:
-host-boundary ops (save/load, send/recv, readers) come with ROADMAP A.7.
+reach their sub-blocks through the op. Host-boundary ops (save/load, the
+readers; `register_host_op`) run outside the op sequence, against the
+scope: the executor runs those before the first compute op before the
+step, and those after the last compute op after it.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from .core import Block, Operator, GRAD_SUFFIX
 __all__ = ["OpDef", "register_op", "get_op_def", "has_op_def",
            "infer_op_shapes", "LowerContext", "lower_op", "DUMMY_BATCH",
            "torch_dtype", "dtype_name", "shape_spec", "resolve_op",
-           "register_macro_op"]
+           "register_macro_op", "register_host_op"]
 
 # Dummy concrete size substituted for -1 (batch) dims during meta-device
 # inference; a large prime so a genuine layer dim colliding with it (and
@@ -123,12 +125,19 @@ def get_op_def(op_type: str) -> OpDef:
 # env is the live name->tensor binding and op carries the sub-block attrs
 # (`paddle_tpu/framework/registry.py:109`). They reach their sub-blocks
 # through op.block.program; ops/control_flow_ops.py runs them as Python
-# loops and branches over the sub-block's ops. `_HOST_OPS`: host-boundary
-# ops (file IO, RPC, readers) that the executor runs against the scope
-# outside the op sequence, fn(op, scope, feed) (:135); none is registered
-# yet (ROADMAP A.7). Passes over a block, such as the AMP rewrite's
-# re-inference and build-time shape inference, skip both.
+# loops and branches over the sub-block's ops. Passes over a block, such
+# as the AMP rewrite's re-inference and build-time shape inference, skip
+# macros and host ops alike.
 _MACROS: Dict[str, Callable] = {}
+
+# Host-boundary ops (`paddle_tpu/framework/registry.py:129`): file IO
+# (save/load) and the reader machinery, side effects that are not a
+# function of tensors. The executor runs them against the scope, outside
+# the op sequence: ops before the first compute op before the step (loads,
+# reads), ops after the last compute op after it, on the post-step scope
+# (saves). fn(op, scope, feed, device) mutates scope/feed in place; device
+# is the executor's (JAX's fn(op, scope, feed) has one device), where a
+# load places its tensors and a double-buffered reader stages its batches.
 _HOST_OPS: Dict[str, Callable] = {}
 
 
@@ -142,6 +151,21 @@ def register_macro_op(op_type: str, aliases: Sequence[str] = (), **opdef_kw):
                             "grad_maker" not in opdef_kw)
         for name in (op_type,) + tuple(aliases):
             _MACROS[name] = fn
+            _REGISTRY[name] = OpDef(type=name, lower=None, **opdef_kw)
+        return fn
+    return deco
+
+
+def register_host_op(op_type: str, aliases: Sequence[str] = (), **opdef_kw):
+    """@register_host_op("save") def _(op, scope, feed, device): ...
+    JAX's signature and defaults: a host op is not differentiable and its
+    zero gradient is intended; aliases register the same rule under
+    reference-IR names (c_gen_nccl_id)."""
+    def deco(fn):
+        opdef_kw.setdefault("not_differentiable", True)
+        opdef_kw.setdefault("grad_free", True)
+        for name in (op_type,) + tuple(aliases):
+            _HOST_OPS[name] = fn
             _REGISTRY[name] = OpDef(type=name, lower=None, **opdef_kw)
         return fn
     return deco
@@ -339,7 +363,8 @@ def infer_op_shapes(op: Operator, block: Block) -> None:
     meta-device tensors. -1 (batch) dims are substituted with DUMMY_BATCH
     and mapped back to -1 in the outputs. Macros have no rule to run on
     the meta device: their layers declare the outputs."""
-    if op.type in ("feed", "fetch") or op.type in _MACROS:
+    if op.type in ("feed", "fetch") or op.type in _MACROS \
+            or op.type in _HOST_OPS:
         return
     if op.type.endswith("_grad"):
         _infer_grad_shapes(op, block)

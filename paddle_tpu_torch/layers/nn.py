@@ -2,7 +2,8 @@
 (one input or a list), embedding, conv2d, pool2d, batch_norm, layer_norm,
 dropout, relu, sigmoid, tanh, gelu, sqrt, softmax,
 softmax_with_cross_entropy, square_error_cost, topk, accuracy, one_hot,
-fused_attention, add_position_encoding.
+fused_attention, add_position_encoding; the metric and loss layers auc,
+precision_recall, warpctc, linear_chain_crf, crf_decoding, nce, hsigmoid.
 
 Copied from `paddle_tpu/layers/nn.py`: the same op types, slots, attrs and
 parameter initializers, and the same order of var creation, so programs
@@ -20,7 +21,8 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
            "softmax",
            "softmax_with_cross_entropy", "square_error_cost", "topk",
            "accuracy", "one_hot", "fused_attention",
-           "add_position_encoding"]
+           "add_position_encoding", "auc", "precision_recall", "warpctc",
+           "linear_chain_crf", "crf_decoding", "nce", "hsigmoid"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -331,3 +333,136 @@ def add_position_encoding(input, alpha=1.0, beta=1.0, name=None):
     helper.append_op("add_position_encoding", {"X": [input.name]},
                      {"Out": [out.name]}, {"alpha": alpha, "beta": beta})
     return out
+
+
+def auc(input, label, curve="ROC", num_thresholds=2 ** 12 - 1, topk=1,
+        slide_steps=1, name=None):
+    """Streaming in-graph AUC (reference: layers/metric_op.py auc,
+    metrics/auc_op.h). Creates persistable StatPos/StatNeg accumulators
+    updated in place every step. Returns (auc_out, [stat_pos, stat_neg])."""
+    helper = LayerHelper("auc", name=name)
+    buckets = num_thresholds + 1
+    rows = slide_steps if slide_steps > 0 else 1
+    stat_pos = helper.create_global_state_var(
+        "auc_stat_pos", [rows, buckets], "int64")
+    stat_neg = helper.create_global_state_var(
+        "auc_stat_neg", [rows, buckets], "int64")
+    auc_out = helper.create_variable_for_type_inference("float32", True)
+    helper.append_op(
+        "auc",
+        {"Predict": [input.name], "Label": [label.name],
+         "StatPos": [stat_pos.name], "StatNeg": [stat_neg.name]},
+        {"AUC": [auc_out.name], "StatPosOut": [stat_pos.name],
+         "StatNegOut": [stat_neg.name]},
+        {"curve": curve, "num_thresholds": num_thresholds,
+         "slide_steps": slide_steps}, infer_shape=False)
+    return auc_out, [stat_pos, stat_neg]
+
+
+def precision_recall(max_probs, indices, labels, class_number, weights=None,
+                     name=None):
+    """Streaming per-class precision/recall/F1 (reference:
+    metrics/precision_recall_op.h). Returns (batch_metrics [6],
+    accum_metrics [6], accum_states [C, 4])."""
+    helper = LayerHelper("precision_recall", name=name)
+    states = helper.create_global_state_var(
+        "pr_states", [class_number, 4], "float32")
+    batch_m = helper.create_variable_for_type_inference("float32", True)
+    accum_m = helper.create_variable_for_type_inference("float32", True)
+    inputs = {"MaxProbs": [max_probs.name], "Indices": [indices.name],
+              "Labels": [labels.name], "StatesInfo": [states.name]}
+    if weights is not None:
+        inputs["Weights"] = [weights.name]
+    helper.append_op(
+        "precision_recall", inputs,
+        {"BatchMetrics": [batch_m.name], "AccumMetrics": [accum_m.name],
+         "AccumStatesInfo": [states.name]},
+        {"class_number": class_number}, infer_shape=False)
+    return batch_m, accum_m, states
+
+
+def warpctc(input, label, input_length, label_length, blank=0,
+            norm_by_times=False, name=None):
+    """CTC loss (reference: layers/nn.py warpctc; dense-tensor form with
+    explicit lengths instead of LoD)."""
+    helper = LayerHelper("warpctc", name=name)
+    loss = helper.create_variable_for_type_inference("float32")
+    helper.append_op(
+        "warpctc",
+        {"Logits": [input.name], "Label": [label.name],
+         "LogitsLength": [input_length.name],
+         "LabelLength": [label_length.name]},
+        {"Loss": [loss.name]}, {"blank": blank,
+                                "norm_by_times": norm_by_times})
+    return loss
+
+
+def linear_chain_crf(input, label, length, param_attr=None, name=None):
+    """CRF negative log-likelihood (reference: layers/nn.py
+    linear_chain_crf). Creates the [(C+2), C] transition parameter; returns
+    the per-sequence NLL [b, 1]."""
+    helper = LayerHelper("linear_chain_crf", name=name)
+    c = input.shape[-1]
+    trans = helper.create_parameter(param_attr, [c + 2, c], "float32")
+    ll = helper.create_variable_for_type_inference("float32")
+    helper.append_op(
+        "linear_chain_crf",
+        {"Emission": [input.name], "Transition": [trans.name],
+         "Label": [label.name], "Length": [length.name]},
+        {"LogLikelihood": [ll.name]})
+    from .math import scale as _scale
+    return _scale(ll, scale=-1.0), trans
+
+
+def crf_decoding(input, transition, length, name=None):
+    """Viterbi decode with a trained transition param (reference:
+    layers/nn.py crf_decoding)."""
+    helper = LayerHelper("crf_decoding", name=name)
+    path = helper.create_variable_for_type_inference("int64")
+    helper.append_op(
+        "crf_decoding",
+        {"Emission": [input.name], "Transition": [transition.name],
+         "Length": [length.name]},
+        {"ViterbiPath": [path.name]})
+    return path
+
+
+def nce(input, label, num_total_classes, num_neg_samples=10,
+        param_attr=None, bias_attr=None, name=None, seed=0,
+        sampler="uniform"):
+    """reference: layers/nn.py nce."""
+    helper = LayerHelper("nce", name=name)
+    d = input.shape[-1]
+    w = helper.create_parameter(param_attr, [num_total_classes, d],
+                                input.dtype)
+    ins = {"Input": [input.name], "Weight": [w.name],
+           "Label": [label.name]}
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_total_classes],
+                                    input.dtype, is_bias=True)
+        ins["Bias"] = [b.name]
+    cost = helper.create_variable_for_type_inference("float32")
+    negs = helper.create_variable_for_type_inference("int32")
+    helper.append_op("nce", ins,
+                     {"Cost": [cost.name], "Negatives": [negs.name]},
+                     {"num_neg_samples": num_neg_samples, "seed": seed,
+                      "sampler": sampler})
+    return cost
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None):
+    """reference: layers/nn.py hsigmoid (default complete binary tree)."""
+    helper = LayerHelper("hsigmoid", name=name)
+    d = input.shape[-1]
+    w = helper.create_parameter(param_attr, [num_classes - 1, d],
+                                input.dtype)
+    ins = {"X": [input.name], "W": [w.name], "Label": [label.name]}
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_classes - 1],
+                                    input.dtype, is_bias=True)
+        ins["Bias"] = [b.name]
+    cost = helper.create_variable_for_type_inference("float32")
+    helper.append_op("hierarchical_sigmoid", ins, {"Cost": [cost.name]},
+                     {"num_classes": num_classes})
+    return cost

@@ -16,7 +16,7 @@ from ..framework.layer_helper import LayerHelper
 __all__ = ["data", "fill_constant", "fill_constant_batch_size_like", "cast",
            "concat", "split", "reshape", "squeeze", "unsqueeze",
            "transpose", "slice", "assign", "where", "arange", "argmax",
-           "increment", "create_global_var", "create_parameter"]
+           "increment", "create_global_var", "create_parameter", "load"]
 
 _builtin_range = range
 
@@ -230,3 +230,15 @@ def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
     return helper.create_parameter(attr, list(shape), dtype,
                                    is_bias=is_bias,
                                    default_initializer=default_initializer)
+
+
+def load(out, file_path, load_as_fp16=None):
+    """reference: layers/io.py load: a load op writing a saved tensor into
+    `out` at executor host-op time (ops/io_dist_ops.py load)."""
+    helper = LayerHelper("load")
+    helper.append_op("load", {}, {"Out": [out.name]},
+                     {"file_path": file_path,
+                      **({"load_as_fp16": bool(load_as_fp16)}
+                         if load_as_fp16 is not None else {})},
+                     infer_shape=False)
+    return out

@@ -12,3 +12,7 @@ from . import extra_ops  # noqa: F401
 from . import control_flow_ops  # noqa: F401
 from . import lod_array_ops  # noqa: F401
 from . import rnn_ops  # noqa: F401
+from . import io_dist_ops  # noqa: F401
+from . import reader_ops  # noqa: F401
+from . import loss_ops  # noqa: F401
+from . import metrics_ops  # noqa: F401

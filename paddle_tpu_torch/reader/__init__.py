@@ -1,8 +1,19 @@
-"""Reader toolkit of the port: the padding-bucket policy
-(`reader/bucketing.py`). The reader decorators and PyReader
-(`paddle_tpu/reader/{decorator,py_reader}.py`) come with ROADMAP A.12."""
+"""Reader composition toolkit (reference: python/paddle/reader/): the
+decorators, PyReader and the padding-bucket policy, exported as the JAX
+package's `paddle_tpu/reader/__init__.py` exports them."""
 
+from .decorator import (map_readers, buffered, compose, chain, shuffle,  # noqa: F401
+                        firstn, xmap_readers, cache, batch,
+                        multiprocess_reader, ComposeNotAligned,
+                        PipeReader, Fake)
+from .py_reader import (PyReader, create_py_reader_by_data,  # noqa: F401
+                        read_file, double_buffer)
 from .bucketing import (pow2_boundaries, bucket_for, pad_to_bucket,  # noqa: F401
                         bucketed)
 
-__all__ = ["pow2_boundaries", "bucket_for", "pad_to_bucket", "bucketed"]
+__all__ = ["map_readers", "buffered", "compose", "chain", "shuffle",
+           "firstn", "xmap_readers", "cache", "batch",
+           "multiprocess_reader", "ComposeNotAligned", "PipeReader",
+           "Fake", "PyReader", "create_py_reader_by_data", "read_file",
+           "double_buffer", "pow2_boundaries",
+           "bucket_for", "pad_to_bucket", "bucketed"]

@@ -317,10 +317,28 @@ def test_unported_executor_paths_raise_naming_their_items():
     with pytest.raises(NotImplementedError, match="A.12"):
         exe.train_from_dataset(ptt.Program(), dataset=None)
     p = ptt.Program()
-    p.global_block.append_op("save", {"X": []}, {}, {"file_path": "f"},
+    p.global_block.append_op("send", {"X": []}, {}, {"epmap": ["e:1"]},
                              infer_shape=False)
-    with pytest.raises(NotImplementedError, match="A.7"):
+    with pytest.raises(NotImplementedError, match="A.9"):
         exe.run(p)
+
+
+def test_host_save_program_runs_in_the_prefix(tmp_path):
+    """A save op, which raised before the host ops were ported, runs as a
+    host-only program: the file holds the scope's value, and no step is
+    compiled."""
+    exe, scope = ptt.Executor(ptt.CPUPlace()), ptt.Scope()
+    w = np.arange(6, dtype=np.float32).reshape(2, 3)
+    ptt.io.set_params_from_numpy(scope, {"w": w}, "cpu")
+    p = ptt.Program()
+    p.global_block.create_var(name="w", shape=[2, 3], dtype="float32",
+                              persistable=True)
+    path = str(tmp_path / "w.npy")
+    p.global_block.append_op("save", {"X": ["w"]}, {}, {"file_path": path},
+                             infer_shape=False)
+    exe.run(p, scope=scope)
+    np.testing.assert_array_equal(np.load(path), w)
+    assert exe.compile_count == 0
 
 
 @pytest.mark.parametrize("opt", ["sgd", "momentum", "momentum_nesterov"])
