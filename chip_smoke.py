@@ -370,6 +370,35 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 its CPU reference in a process of its own, started with
                 the phase). No hand kernel launches. In a child process
                 (--io-only);
+  4l. ps    -- the parameter server (transpiler/, distributed/pskv.py
+                and its C++ server built with g++, the executor's PS path,
+                the Communicator): DeepFM at tools/bench_deepfm_ps.py's
+                width (26 fields over a 1e5 vocabulary, embedding 16,
+                batch 512, fc (400, 400), no dense features), Adam 1e-3 on
+                the servers, sync mode, loopback pskv servers, the
+                trainer's step on the card, every trainer from the same
+                startup weights. (1) 3 warm-up and 20 timed steps on one
+                server: median step ms, samples/s, the host ms a step of
+                each part of the exchange (the ps/* spans: pull_sparse,
+                scatter, step, fetch, push_sparse, push_dense,
+                pull_dense), device busy ms
+                and the idle share of one traced step; (2) 5 steps on the
+                card and 5 on the CPU port from the same batches, each
+                against its own server: every loss within PS_LOSS_RTOL,
+                the fm_v and fm_w1 rows each server moved the same set,
+                every id of the batches and no other, and every element
+                of both tables within PS_ROW_ATOL + PS_ROW_RTOL |x|; (3)
+                two trainers on threads, identical feeds, both on the
+                card, SGD 0.05 on
+                the servers: each trainer's losses within PS_LOCAL_RTOL /
+                PS_LOCAL_ATOL of a local run on the card; (4)
+                checkpoint_notify after 3 steps, restore_notify into fresh
+                servers: every table and the next step's loss bitwise; (5)
+                async mode through the Communicator, 20 steps on one batch:
+                finite losses, the last five below the first five; (6)
+                (2)'s card run over four sharded servers: losses and the
+                whole sparse tables bitwise the one-server run's. No hand
+                kernel launches. In a child process (--ps-only);
   5. train   -- GPT-2 small (dropout 0.1) train programs with Adam through
                 Executor.run on CUDAPlace(0): 3 steps at s=1024 b=2
                 (flash_fwd, flash_bwd_dkv, flash_bwd_dq) and 3 at s=512
@@ -6362,11 +6391,381 @@ def phase_times(serve, train, bert, optim, spike, seed):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 4l: the parameter server: DeepFM at tools/bench_deepfm_ps.py's width
+# trained on the card against loopback pskv servers
+# ---------------------------------------------------------------------------
+
+PS_BATCH = 512          # tools/bench_deepfm_ps.py's shape: 26 fields over a
+PS_VOCAB = 100000       # 1e5 vocabulary, embedding 16, fc (400, 400)
+PS_WARMUP = 3
+PS_STEPS = 20           # timed sync steps, one server
+PS_HELD = 5             # card vs CPU, 4 servers vs 1, two trainers vs local
+PS_ASYNC_STEPS = 20
+PS_LOSS_RTOL = 1e-4     # card vs CPU port, each step's loss
+PS_ROW_RTOL = 2e-3      # card vs CPU port, the pulled rows (tests/
+PS_ROW_ATOL = 1e-6      # test_dist_ps.py's rtol)
+PS_LOCAL_RTOL = 2e-3    # two PS trainers vs a local run (test_dist_ps.py)
+PS_LOCAL_ATOL = 1e-4
+PS_SGD_LR = 0.05        # test_ps_sparse_embedding_matches_local's optimizer
+
+
+def _ps_startup_values(seed, vocab):
+    """Host copies of the DeepFM parameters a startup run on the card
+    gives: the weights every trainer of the phase starts from."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.io import _host_arrays
+    from paddle_tpu_torch.tools import bench_deepfm_ps as bd
+    main, startup, _ = bd.build(vocab, seed=seed)
+    scope = ptt.Scope()
+    ptt.Executor().run(startup, scope=scope)
+    return _host_arrays({p.name: scope.find_var(p.name)
+                         for p in main.all_parameters()})
+
+
+class _PSJob:
+    """One DeepFM trainer (the bench's program, transpiled) with its own
+    loopback pskv servers, its startup run on `device` and the parameters
+    set to `init`."""
+
+    def __init__(self, init, device, vocab, n_servers=1, sync=True,
+                 optimizer="adam", lr=1e-3, endpoints=None, trainer_id=0,
+                 trainers=1, servers=True):
+        import paddle_tpu_torch as ptt
+        from paddle_tpu_torch.tools import bench_deepfm_ps as bd
+        from paddle_tpu_torch.transpiler import start_pserver
+        self.endpoints = endpoints or bd.free_endpoints(n_servers)
+        self.main, startup, self.spec = bd.build(vocab, lr=lr,
+                                                 optimizer=optimizer)
+        t = bd.transpile(self.main, startup, self.endpoints, trainer_id,
+                         trainers, sync)
+        self.servers = [start_pserver(t.get_pserver_program(ep))
+                        for ep in self.endpoints] if servers else []
+        self.plan = self.main._ps_plan
+        self.exe = ptt.Executor(ptt.CPUPlace() if device == "cpu" else None)
+        self.scope = ptt.Scope()
+        self.exe.run(startup, scope=self.scope)
+        ptt.io.set_params_from_numpy(self.scope, init, self.exe.device)
+
+    def step(self, feed):
+        import numpy as np
+        loss, = self.exe.run(self.main, feed=feed,
+                             fetch_list=[self.spec["loss"]], scope=self.scope)
+        return float(np.ravel(loss)[0])
+
+    def rows(self, ids):
+        """The servers' current fm_v and fm_w1 rows of `ids`."""
+        return {s.name: self.plan.pull_sparse_sharded(s, ids)
+                for s in self.plan.specs if s.sparse}
+
+    def tables(self):
+        """Every table the servers hold, whole, on the host."""
+        import numpy as np
+        out = {}
+        for s in self.plan.specs:
+            if s.sparse:
+                out[s.name] = self.plan.pull_sparse_sharded(
+                    s, np.arange(s.shape[0]))
+            else:
+                out[s.name] = self.plan._client(s.endpoint).pull_dense(
+                    s.name, s.size)
+        return out
+
+    def close(self):
+        self.plan.shutdown()
+        for srv in self.servers:
+            srv.stop()
+
+
+def _ps_timed(init, seed):
+    """Part 1: PS_WARMUP then PS_STEPS sync steps, one server; the host
+    time of each part of the exchange from the ps/* spans; device busy
+    and the idle share of one traced step."""
+    import statistics
+    import numpy as np
+    from paddle_tpu_torch.observability import tracer
+    from paddle_tpu_torch.tools import bench_deepfm_ps as bd
+    job = _PSJob(init, None, PS_VOCAB)
+    feeds = bd.batches(seed, PS_BATCH, PS_VOCAB)
+    try:
+        for _ in range(PS_WARMUP):
+            job.step(next(feeds))
+        t = tracer.enable_tracing()
+        t.clear()
+        times, losses = [], []
+        try:
+            for _ in range(PS_STEPS):
+                t0 = time.perf_counter()
+                losses.append(job.step(next(feeds)))
+                times.append((time.perf_counter() - t0) * 1e3)
+            spans = [s for s in t.snapshot() if s.cat == "ps"]
+        finally:
+            t.clear()
+            tracer.disable_tracing()
+        parts = {}
+        for s in spans:
+            key = s.name.split("/", 1)[1]
+            parts[key] = parts.get(key, 0.0) + s.dur_us / 1e3 / PS_STEPS
+        wall, busy, idle, events = _idle_share(
+            lambda: job.step(next(feeds)))
+        widths = sorted(set(job.plan.scatter_widths))
+    finally:
+        job.close()
+    if not all(np.isfinite(losses)):
+        fail(f"ps: non-finite loss in the timed steps: {losses}")
+    med = statistics.median(times)
+    return {"median_step_ms": med, "samples_per_s": PS_BATCH / med * 1e3,
+            "step_ms": times,
+            "host_ms_per_step": parts,
+            "other_ms": med - sum(parts.values()),
+            "traced_step": {"wall_ms": wall, "busy_ms": busy,
+                            "idle_share": idle, "device_events": events,
+                            "idle_share_of_median": 1.0 - busy / med},
+            "scatter_widths": widths, "losses": losses}
+
+
+def _ps_card_vs_cpu(init, seed):
+    """Part 2 (and the one-server run of part 6): PS_HELD steps on the card
+    and on the CPU port from the same weights and batches, each against its
+    own server; the losses held, the rows each side's server moved held to
+    be the same set (every id of the batches, no other), and every element
+    of the sparse tables held to PS_ROW_ATOL + PS_ROW_RTOL |x|."""
+    import numpy as np
+    from paddle_tpu_torch.tools import bench_deepfm_ps as bd
+    feeds = list(zip(range(PS_HELD), bd.batches(seed + 1, PS_BATCH,
+                                                PS_VOCAB)))
+    fed = np.unique(np.concatenate([f["feat_ids"].ravel()
+                                    for _, f in feeds]))
+    last = np.unique(feeds[-1][1]["feat_ids"])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        job = _PSJob(init, dev, PS_VOCAB)
+        try:
+            t0 = time.perf_counter()
+            out[dev] = ([job.step(f) for _, f in feeds],
+                        job.rows(np.arange(PS_VOCAB)),
+                        time.perf_counter() - t0)
+        finally:
+            job.close()
+    (closs, ctabs, cs), (hloss, htabs, hs) = out["cuda"], out["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(closs, hloss))
+    if loss_err > PS_LOSS_RTOL:
+        fail(f"ps card vs cpu: losses {closs} vs {hloss} (rel "
+             f"{loss_err} > {PS_LOSS_RTOL})")
+    rows_rec = {}
+    for name in ctabs:
+        a, b = ctabs[name], htabs[name]
+        w0 = np.asarray(init[name], np.float32).reshape(a.shape)
+        moved = {dev: np.flatnonzero((t != w0).any(1))
+                 for dev, t in (("cuda", a), ("cpu", b))}
+        for dev, rows in moved.items():
+            if not np.array_equal(rows, fed):
+                fail(f"ps card vs cpu: the {dev} server moved "
+                     f"{len(rows)} {name} rows, the batches hold "
+                     f"{len(fed)} ids ({len(np.setxor1d(rows, fed))} "
+                     f"differ)")
+        bad = np.abs(a - b) > PS_ROW_ATOL + PS_ROW_RTOL * np.abs(b)
+        if bad.any():
+            i = np.argwhere(bad)[0]
+            fail(f"ps card vs cpu: {name} row {i[0]} elem {i[1]}: "
+                 f"{a[tuple(i)]} vs {b[tuple(i)]} ({int(bad.sum())} "
+                 f"elements apart)")
+        rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-30)
+        rows_rec[name] = {"rows_moved": int(len(fed)),
+                          "max_rel": float(rel.max()),
+                          "max_abs": float(np.abs(a - b).max()),
+                          "last_batch_rows": int(len(last)),
+                          "last_batch_max_rel": float(rel[last].max())}
+    return {"losses_card": closs, "losses_cpu": hloss,
+            "loss_max_rel": loss_err, "rows": rows_rec,
+            "card_s": cs, "cpu_s": hs}, (feeds, closs, ctabs)
+
+
+def _ps_two_trainers(init, seed):
+    """Part 3: two trainers on threads, identical feeds, both on the card,
+    SGD on the servers; each trainer's losses against a local run on the
+    card of the same program and optimizer."""
+    import threading
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.tools import bench_deepfm_ps as bd
+    feeds = [f for _, f in zip(range(PS_HELD),
+                               bd.batches(seed + 2, PS_BATCH, PS_VOCAB))]
+    main, startup, spec = bd.build(PS_VOCAB, lr=PS_SGD_LR, optimizer="sgd")
+    exe, scope = ptt.Executor(), ptt.Scope()
+    exe.run(startup, scope=scope)
+    ptt.io.set_params_from_numpy(scope, init, exe.device)
+    local = [float(np.ravel(exe.run(main, feed=f, fetch_list=[spec["loss"]],
+                                    scope=scope)[0])[0]) for f in feeds]
+    endpoints = None
+    jobs = []
+    try:
+        for tid in range(2):
+            jobs.append(_PSJob(init, None, PS_VOCAB, optimizer="sgd",
+                               lr=PS_SGD_LR, endpoints=endpoints,
+                               trainer_id=tid, trainers=2,
+                               servers=(tid == 0)))
+            endpoints = jobs[0].endpoints
+        res, errors = [None, None], []
+
+        def run(tid):
+            try:
+                res[tid] = [jobs[tid].step(f) for f in feeds]
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"trainer {tid}: {e!r}")
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in (0, 1)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        wall = time.perf_counter() - t0
+        if any(th.is_alive() for th in threads) or errors:
+            fail(f"ps two trainers: {errors or 'a trainer hung'}")
+    finally:
+        for job in jobs:
+            job.close()
+    for tid in (0, 1):
+        err = np.abs(np.array(res[tid]) - np.array(local))
+        if (err > PS_LOCAL_ATOL + PS_LOCAL_RTOL * np.abs(local)).any():
+            fail(f"ps two trainers: trainer {tid} losses {res[tid]} vs "
+                 f"local {local}")
+    return {"local": local, "trainer0": res[0], "trainer1": res[1],
+            "max_abs": float(max(np.max(np.abs(np.array(r) -
+                                               np.array(local)))
+                                 for r in res)),
+            "wall_s": wall}
+
+
+def _ps_checkpoint(init, seed, work):
+    """Part 4: 3 steps, checkpoint_notify, then restore_notify into fresh
+    servers: every table bitwise, and the next step's loss bitwise."""
+    import numpy as np
+    from paddle_tpu_torch.tools import bench_deepfm_ps as bd
+    feeds = bd.batches(seed + 3, PS_BATCH, PS_VOCAB)
+    ck = os.path.join(work, "ps_ckpt")
+    os.makedirs(ck, exist_ok=True)
+    a = _PSJob(init, None, PS_VOCAB)
+    try:
+        for _ in range(3):
+            a.step(next(feeds))
+        t0 = time.perf_counter()
+        a.plan.checkpoint_notify(ck)
+        save_s = time.perf_counter() - t0
+        saved = a.tables()
+        nxt = next(feeds)
+        loss_a = a.step(nxt)
+    finally:
+        a.close()
+    b = _PSJob(init, None, PS_VOCAB)
+    try:
+        b.plan.ensure_init(b.scope)
+        t0 = time.perf_counter()
+        b.plan.restore_notify(ck, scope=b.scope)
+        load_s = time.perf_counter() - t0
+        restored = b.tables()
+        loss_b = b.step(nxt)
+    finally:
+        b.close()
+    for name, v in saved.items():
+        if not np.array_equal(v, restored[name]):
+            fail(f"ps checkpoint: table {name} differs after the restore")
+    if loss_a != loss_b:
+        fail(f"ps checkpoint: next loss {loss_b} != {loss_a}")
+    nbytes = sum(os.path.getsize(os.path.join(ck, f))
+                 for f in os.listdir(ck))
+    return {"tables": sorted(saved), "bitwise": True, "next_loss": loss_a,
+            "checkpoint_bytes": nbytes, "save_s": save_s, "restore_s": load_s}
+
+
+def _ps_async(init, seed):
+    """Part 5: async mode through the Communicator, PS_ASYNC_STEPS steps
+    on one fixed batch."""
+    import statistics
+    import numpy as np
+    from paddle_tpu_torch.tools import bench_deepfm_ps as bd
+    feed = next(bd.batches(seed + 4, PS_BATCH, PS_VOCAB))
+    job = _PSJob(init, None, PS_VOCAB, sync=False)
+    try:
+        comm = job.plan.start_communicator(job.scope, recv_interval_ms=5)
+        losses, times = [], []
+        for _ in range(PS_ASYNC_STEPS):
+            t0 = time.perf_counter()
+            losses.append(job.step(feed))
+            times.append((time.perf_counter() - t0) * 1e3)
+        sent, merged = comm.sent_batches, comm.merged_grads
+    finally:
+        job.close()
+    if not all(np.isfinite(losses)) or \
+            np.mean(losses[-5:]) >= np.mean(losses[:5]):
+        fail(f"ps async: losses do not fall: {losses}")
+    return {"losses": losses, "median_step_ms": statistics.median(times),
+            "sent_batches": sent, "merged_grads": merged}
+
+
+def _ps_four_servers(init, one):
+    """Part 6: the part-2 card run again over 4 sharded servers: losses
+    and the whole sparse tables bitwise the one-server run's."""
+    import numpy as np
+    feeds, losses1, rows1 = one
+    job = _PSJob(init, None, PS_VOCAB, n_servers=4)
+    try:
+        losses = [job.step(f) for _, f in feeds]
+        rows = job.rows(np.arange(PS_VOCAB))
+    finally:
+        job.close()
+    if losses != losses1:
+        fail(f"ps 4 servers: losses {losses} != one server's {losses1}")
+    for name in rows:
+        if not np.array_equal(rows[name], rows1[name]):
+            fail(f"ps 4 servers: {name} table differs from one server's")
+    return {"losses": losses, "bitwise": True}
+
+
+def phase_ps(seed):
+    """Phase 4l: DeepFM at tools/bench_deepfm_ps.py's width, sync PS on
+    loopback pskv servers, the trainer's step on the card. No hand kernel
+    launches. In a child process (--ps-only)."""
+    import torch
+    t_phase = time.perf_counter()
+    work = os.path.join(WORK_DIR, "ps")
+    os.makedirs(work, exist_ok=True)
+    from paddle_tpu_torch.distributed import pskv
+    t = time.perf_counter()
+    pskv.load_lib()
+    build_s = time.perf_counter() - t
+    init = _ps_startup_values(seed, PS_VOCAB)
+    zero_counts(KERNELS)
+    # ---- the main path: counts zeroed just before, read just after -----
+    parts = {"timed": _ps_timed(init, seed)}
+    emit({"phase": "ps", "part": "timed", **parts["timed"]})
+    parts["card_vs_cpu"], one = _ps_card_vs_cpu(init, seed)
+    emit({"phase": "ps", "part": "card_vs_cpu", **parts["card_vs_cpu"]})
+    parts["two_trainers"] = _ps_two_trainers(init, seed)
+    emit({"phase": "ps", "part": "two_trainers", **parts["two_trainers"]})
+    parts["checkpoint"] = _ps_checkpoint(init, seed, work)
+    emit({"phase": "ps", "part": "checkpoint", **parts["checkpoint"]})
+    parts["async"] = _ps_async(init, seed)
+    emit({"phase": "ps", "part": "async", **parts["async"]})
+    parts["four_servers"] = _ps_four_servers(init, one)
+    emit({"phase": "ps", "part": "four_servers", **parts["four_servers"]})
+    launches = read_counts(KERNELS)
+    # -------------------------------------------------------------------
+    if any(launches.values()):
+        fail(f"ps: the phase launched hand kernels: {launches}")
+    summary = {"phase": "ps", "pskv_build_s": build_s,
+               "device": torch.cuda.get_device_name(0), **parts,
+               "launches": launches, "wall_s": time.perf_counter() - t_phase}
+    emit(summary)
+    return summary
+
+
 def in_child(seed, flag):
-    """Phase 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h, 4i, 4j or 4k in a process of
-    its own (this script with --engine-only, --server-only, --spec-only,
+    """Phase 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h, 4i, 4j, 4k or 4l in a process
+    of its own (this script with --engine-only, --server-only, --spec-only,
     --quant-only, --adapters-only, --bench-only, --nmt-only, --lenet-only,
-    --optim-only, --rnn-only or --io-only), its JSON
+    --optim-only, --rnn-only, --io-only or --ps-only), its JSON
     lines passed through, its summary returned. After the engine's run, torch.profiler traces taken
     later in the same process lost one kernel record a trace (PERF.md §6,
     the engine's calls 2-7), which the times phase's device-time checks
@@ -6412,6 +6811,8 @@ def main():
                       help="run phase 4j alone, likewise")
     only.add_argument("--io-only", action="store_true",
                       help="run phase 4k alone, likewise")
+    only.add_argument("--ps-only", action="store_true",
+                      help="run phase 4l alone, likewise")
     args = ap.parse_args()
     preflight()
     import torch
@@ -6426,7 +6827,8 @@ def main():
              phase_lenet if args.lenet_only else
              phase_optim if args.optim_only else
              phase_rnn if args.rnn_only else
-             phase_io if args.io_only else None)
+             phase_io if args.io_only else
+             phase_ps if args.ps_only else None)
     if alone is not None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -6465,6 +6867,7 @@ def main():
         optim = in_child(args.seed, "--optim-only")
         rnn = in_child(args.seed, "--rnn-only")
         io_ = in_child(args.seed, "--io-only")
+        ps = in_child(args.seed, "--ps-only")
         train = phase_train(args.seed)
         bert = phase_bert(args.seed)
         resnet = phase_resnet(args.seed)
@@ -6479,7 +6882,7 @@ def main():
                    "engine": engine, "server": server, "spec": spec,
                    "quant": quant, "adapters": adapters, "bench": bench,
                    "nmt": nmt, "lenet": lenet, "optim": optim,
-                   "rnn": rnn, "io": io_,
+                   "rnn": rnn, "io": io_, "ps": ps,
                    "train": train["summaries"],
                    "bert": bert["runs"],
                    "resnet": resnet, "spike": spike["rows"],

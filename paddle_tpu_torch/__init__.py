@@ -26,7 +26,12 @@ schedules, regularizers and SelectedRows sparse embedding gradients
 ops and IO: save/load ops, both checkpoint formats (`io`,
 `framework.fluid_interop`), async saves, the readers (`reader`,
 `PyReader`, `DataFeeder`, the reader ops), the loss ops (CTC, CRF, NCE,
-hierarchical sigmoid) and the metric ops, `metrics` and `average`.
+hierarchical sigmoid) and the metric ops, `metrics` and `average`, and
+the parameter server: the pskv service (`distributed.pskv`, a C++ server
+built with g++ at first use), `transpiler.DistributeTranspiler` and its
+trainer runtime, the RPC and PS ops, the async `distributed.Communicator`,
+elastic membership, `distributed.launch`, the PS fleet (`incubate`) and
+DeepFM (`models.deepfm`).
 
 Places are real: `Executor()` runs on `CUDAPlace(0)` and raises when no GPU
 is present; `Executor(CPUPlace())` runs on the CPU.
@@ -60,6 +65,9 @@ from .lod_tensor import create_lod_tensor, create_random_int_lodtensor
 from . import reader
 from . import metrics
 from . import average
+from . import transpiler
+from . import distributed
+from . import incubate
 from .data_feeder import DataFeeder
 from .reader.py_reader import PyReader
 from .compiler import CompiledProgram, BuildStrategy, ExecutionStrategy
@@ -77,4 +85,5 @@ __all__ = ["Program", "Block", "Operator", "Variable", "Parameter",
            "serving", "server", "analysis", "clip", "compiler",
            "CompiledProgram", "BuildStrategy", "ExecutionStrategy",
            "lod_tensor", "create_lod_tensor", "create_random_int_lodtensor",
-           "reader", "metrics", "average", "DataFeeder", "PyReader"]
+           "reader", "metrics", "average", "transpiler", "distributed",
+           "incubate", "DataFeeder", "PyReader"]

@@ -52,10 +52,20 @@ op between compute ops raises JAX's message, and a host-only program
 (a save or load program) runs its host ops and nothing else. Each runs
 under a `host/<type>` span on the executor's device.
 
-Not yet ported: the RPC host ops and `create_ctr_reader` (the parameter
-server, ROADMAP A.9), the dataset trainer loop
-(`train_from_dataset`/`infer_from_dataset`, A.12), the parameter-server
-path (A.9) and `capture_hlo` (A.8).
+A parameter-server trainer program (one that DistributeTranspiler
+rewrote; it carries a `_ps_plan`) runs as in the JAX executor: the plan's
+`ensure_init` and `before_step` (the sparse prefetch) on the host, the
+step itself by a re-entrant `run` that also fetches the plan's gradients
+and learning rates, then `after_step` (the pushes and the dense pull).
+The names in the program's `_sparse_fetch_names` are fetched as raw
+SelectedRows (rows and values go over the wire, not a vocabulary-sized
+dense buffer); every other fetched SelectedRows is densified. The
+re-entry flag is the executor instance's, so trainers on threads, each
+with its own executor, run side by side.
+
+Not yet ported: the dataset trainer loop
+(`train_from_dataset`/`infer_from_dataset`, A.12) and `capture_hlo`
+(A.8).
 """
 
 from __future__ import annotations
@@ -282,19 +292,6 @@ def _as_feed_tensor(value, var: Optional[Variable], device) -> torch.Tensor:
     return t.to(device)
 
 
-# The JAX package's host-boundary op types that the port does not register
-# yet: the RPC ops of ops/io_dist_ops.py and the CTR log reader, which come
-# with the parameter server (ROADMAP A.9). They raise by name.
-_UNPORTED_HOST_OPS = frozenset((
-    "send", "send_barrier", "fetch_barrier", "recv", "prefetch",
-    "checkpoint_notify", "listen_and_serv", "fl_listen_and_serv",
-    "gen_nccl_id", "c_gen_nccl_id", "create_ctr_reader"))
-
-
-def _is_host_op(op_type: str) -> bool:
-    return op_type in _HOST_OPS or op_type in _UNPORTED_HOST_OPS
-
-
 def _split_host_ops(blk):
     """(host prefix, host suffix, any compute op) of a block, as the JAX
     executor splits it (paddle_tpu/framework/executor.py:358-369): host
@@ -303,7 +300,7 @@ def _split_host_ops(blk):
     pre, post = [], []
     compute_seen = False
     for op in blk.ops:
-        if _is_host_op(op.type):
+        if op.type in _HOST_OPS:
             (post if compute_seen else pre).append(op)
         elif op.type not in ("feed", "fetch"):
             compute_seen = True
@@ -313,12 +310,6 @@ def _split_host_ops(blk):
                     f"{[o.type for o in post]} appear between "
                     f"compute ops; split the program (the reference "
                     f"emits separate save/load programs too)")
-    unported = sorted({op.type for op in pre + post
-                       if op.type in _UNPORTED_HOST_OPS})
-    if unported:
-        raise NotImplementedError(
-            f"host-boundary op(s) {unported} are not ported to "
-            "paddle_tpu_torch yet (the parameter server, ROADMAP A.9)")
     return pre, post, compute_seen
 
 
@@ -414,6 +405,7 @@ class Executor:
         self.recompile_log: "deque[Dict[str, Any]]" = deque(maxlen=64)
         self.last_fetch_names: List[str] = []  # incl. telemetry extras
         self._token = object()  # marks the scope tensors this one bound
+        self._ps_reentry = False  # inside _run_ps's run of the step
 
     def _memo(self, cache, key, build):
         """LRU memoize into `cache` bounded by the shared capacity."""
@@ -512,10 +504,13 @@ class Executor:
                        for f in (fetch_list or [])]
         if validate:
             self._validate_preflight(program, feed, fetch_names)
-        if getattr(program, "_ps_plan", None) is not None:
-            raise NotImplementedError(
-                "parameter-server trainer programs are not ported to "
-                "paddle_tpu_torch yet (ROADMAP A.9)")
+        # parameter-server trainer program: the step bracketed by host
+        # push/pull through the pskv service (transpiler/
+        # distribute_transpiler.py)
+        ps_plan = getattr(program, "_ps_plan", None)
+        if ps_plan is not None and not self._ps_reentry:
+            return self._run_ps(program, feed, fetch_names, scope,
+                                return_numpy, ps_plan)
         if getattr(self, "capture_hlo", False):
             raise NotImplementedError(
                 "Executor.capture_hlo (the optimized HLO that "
@@ -652,9 +647,11 @@ class Executor:
             raise KeyError(f"fetch target(s) {missing} are not produced by "
                            "the program, fed, or held in the scope")
         # fetched SelectedRows densify at the boundary, as in the JAX
-        # executor (its `_sparse_fetch_names`, the rows + values the PS
-        # runtime keeps raw, come with the PS path, ROADMAP A.9)
-        fetches = [to_dense(env[n]) for n in all_fetch]
+        # executor, except the names the PS runtime wants raw (rows and
+        # values go over the wire, not a dense vocabulary-sized buffer)
+        sparse_keep = getattr(program, "_sparse_fetch_names", ())
+        fetches = [env[n] if n in sparse_keep else to_dense(env[n])
+                   for n in all_fetch]
         if self._donate and not return_numpy:
             # a fetched persistable is this step's value: a copy, which no
             # later in-place update of the scope's tensor reaches
@@ -683,6 +680,34 @@ class Executor:
         if return_numpy:
             return [_to_numpy(f) for f in fetches]
         return list(fetches)
+
+    def _run_ps(self, program, feed, fetch_names, scope, return_numpy,
+                plan):
+        """The PS trainer step (JAX executor :681-700): ensure_init and the
+        sparse prefetch, the step with the plan's extra fetches, then the
+        pushes and the dense pull. A dense parameter fetched as a tensor is
+        a copy: the pull writes the scope's tensor in place."""
+        plan.ensure_init(scope)
+        plan.before_step(scope, feed)
+        extra = [n for n in plan.extra_fetches()
+                 if n not in set(fetch_names)]
+        self._ps_reentry = True
+        try:
+            with trace_span("ps/step", "ps"):
+                raw = self.run(program, feed=feed,
+                               fetch_list=fetch_names + extra, scope=scope,
+                               return_numpy=False)
+        finally:
+            self._ps_reentry = False
+        outs = raw[:len(fetch_names)]
+        if not return_numpy:
+            dense = {s.name for s in plan.specs if not s.sparse}
+            outs = [o.clone() if n in dense and isinstance(o, torch.Tensor)
+                    else o for n, o in zip(fetch_names, outs)]
+        plan.after_step(scope, dict(zip(fetch_names + extra, raw)))
+        if return_numpy:
+            return [_to_numpy(to_dense(o)) for o in outs]
+        return outs
 
     def _run_host_ops(self, ops, scope, feed):
         for op in ops:
@@ -914,7 +939,7 @@ def as_torch_function(program: Program, fetch_list, is_test: bool = True,
     if is_test:
         program = program.clone(for_test=True)
     host = [op.type for op in program.global_block.ops
-            if _is_host_op(op.type)]
+            if op.type in _HOST_OPS]
     if host:
         raise ValueError(
             f"as_torch_function: program contains host-boundary op(s) "

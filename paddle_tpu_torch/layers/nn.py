@@ -1,9 +1,10 @@
 """NN layers of the GPT, BERT, ResNet, NMT Transformer and book slices: fc
 (one input or a list), embedding, conv2d, pool2d, batch_norm, layer_norm,
 dropout, relu, sigmoid, tanh, gelu, sqrt, softmax,
-softmax_with_cross_entropy, square_error_cost, topk, accuracy, one_hot,
-fused_attention, add_position_encoding; the metric and loss layers auc,
-precision_recall, warpctc, linear_chain_crf, crf_decoding, nce, hsigmoid.
+softmax_with_cross_entropy, square_error_cost, log_loss, topk, accuracy,
+one_hot, fused_attention, add_position_encoding; the metric and loss
+layers auc, precision_recall, warpctc, linear_chain_crf, crf_decoding,
+nce, hsigmoid.
 
 Copied from `paddle_tpu/layers/nn.py`: the same op types, slots, attrs and
 parameter initializers, and the same order of var creation, so programs
@@ -19,7 +20,8 @@ from ..initializer import Constant, Normal, Xavier
 __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
            "dropout", "relu", "sigmoid", "tanh", "gelu", "sqrt", "square",
            "softmax",
-           "softmax_with_cross_entropy", "square_error_cost", "topk",
+           "softmax_with_cross_entropy", "square_error_cost", "log_loss",
+           "topk",
            "accuracy", "one_hot", "fused_attention",
            "add_position_encoding", "auc", "precision_recall", "warpctc",
            "linear_chain_crf", "crf_decoding", "nce", "hsigmoid"]
@@ -323,6 +325,17 @@ def square_error_cost(input, label, name=None):
     helper.append_op("square_error_cost",
                      {"X": [input.name], "Label": [label.name]},
                      {"Out": [out.name]})
+    return out
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    """reference: layers/nn.py log_loss — binary cross-entropy on
+    probabilities."""
+    helper = LayerHelper("log_loss", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("log_loss",
+                     {"Predicted": [input.name], "Labels": [label.name]},
+                     {"Loss": [out.name]}, {"epsilon": epsilon})
     return out
 
 

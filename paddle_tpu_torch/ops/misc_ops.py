@@ -1,9 +1,10 @@
-"""Two ops of `paddle_tpu/ops/misc_ops.py` that the NMT Transformer and
-the beam-search decoders need: add_position_encoding (:118) and
-gather_tree (:322). The rest of that file comes with later slices.
+"""Three ops of `paddle_tpu/ops/misc_ops.py`: add_position_encoding
+(:118) and gather_tree (:322), which the NMT Transformer and the
+beam-search decoders need, and log_loss (:277), DeepFM's loss. The rest of
+that file comes with later slices.
 
-add_position_encoding's grad takes the generic vjp path (alpha times the
-out-grad); gather_tree has none, as in JAX.
+add_position_encoding's and log_loss's grads take the generic vjp path;
+gather_tree has none, as in JAX.
 """
 
 import torch
@@ -50,3 +51,14 @@ def _gather_tree(ctx, ins, attrs):
     if not outs:
         return {"Out": [ids.clone()]}
     return {"Out": [torch.stack(outs)]}
+
+
+@register_op("log_loss", no_grad_inputs={"Labels"})
+def _log_loss(ctx, ins, attrs):
+    """Binary cross-entropy on probabilities (reference log_loss_op.h);
+    the op's default epsilon is 1e-7, the layer's 1e-4."""
+    p = ins["Predicted"][0]
+    y = ins["Labels"][0]
+    eps = attrs.get("epsilon", 1e-7)
+    return {"Loss": [-y * torch.log(p + eps)
+                     - (1 - y) * torch.log(1 - p + eps)]}

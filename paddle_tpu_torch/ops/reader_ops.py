@@ -1,5 +1,6 @@
 """In-program reader ops (reference: operators/reader/): create_py_reader,
-create_double_buffer_reader, create_custom_reader and read.
+create_double_buffer_reader, create_custom_reader, create_ctr_reader and
+read.
 
 Port of `paddle_tpu/ops/reader_ops.py`. The ops are host ops
 (registry.register_host_op): `read` runs before the step and puts the
@@ -23,10 +24,13 @@ with an event that the step's stream waits on before the batch is used
 copies). On the CPU it stages the host arrays, so both places read the
 same batches in the same order.
 
-Not ported: create_ctr_reader (the CTR log reader of the parameter-server
-models, ROADMAP A.9); the executor raises on it by name.
+create_ctr_reader parses CTR log files (svm or csv, plain or gzip) into
+the JAX reader's batches; it keeps its place across runs like the other
+readers, and closes at the end of its files, so the run after an epoch's
+EOFError starts the next epoch.
 """
 
+import gzip
 import queue as _queue
 import threading
 
@@ -245,6 +249,79 @@ def _create_custom_reader(op, scope, feed, device):
 
     scope.set_var(out, _ReaderState(gen(), sinks, root=inner.root,
                                     inner=inner))
+
+
+def _parse_ctr_lines(lines, file_format, slots):
+    """svm: 'label slot:feasign slot:feasign...';
+    csv: 'label,id,id,...' (ids assigned to slots round-robin)."""
+    for ln in lines:
+        ln = ln.strip()
+        if not ln:
+            continue
+        if file_format == "svm":
+            parts = ln.split()
+            label = int(float(parts[0]))
+            per_slot = {s: [] for s in slots}
+            for tok in parts[1:]:
+                s, v = tok.split(":", 1)
+                if s in per_slot:
+                    per_slot[s].append(int(v))
+            yield label, [per_slot[s] for s in slots]
+        else:  # csv
+            parts = ln.split(",")
+            label = int(float(parts[0]))
+            ids = [int(float(p)) for p in parts[1:]]
+            yield label, [ids[i::len(slots)] for i in range(len(slots))]
+
+
+def _ctr_batch(buf, slots):
+    """(labels [b, 1], one [b, max_ids] int64 matrix a slot, 0-padded)."""
+    labels = np.asarray([r[0] for r in buf], np.int64).reshape(-1, 1)
+    outs = [labels]
+    for si in range(len(slots)):
+        width = max(max((len(r[1][si]) for r in buf), default=1), 1)
+        m = np.zeros((len(buf), width), np.int64)
+        for bi, r in enumerate(buf):
+            ids = r[1][si]
+            m[bi, :len(ids)] = ids
+        outs.append(m)
+    return tuple(outs)
+
+
+@register_host_op("create_ctr_reader")
+def _create_ctr_reader(op, scope, feed, device):
+    """reference: reader/create_ctr_reader_op.cc — parse CTR log files
+    (svm/csv, plain or gzip) into (label, per-slot sparse id) batches.
+    Dense form, as JAX's: each slot becomes [batch, max_ids] int64 padded
+    with 0."""
+    out = op.output("Out")[0]
+    if _keep(scope, out, root=op):
+        return
+    files = list(op.attrs.get("file_list", []))
+    slots = [str(s) for s in op.attrs.get("sparse_slots",
+                                          op.attrs.get("slots", []))]
+    batch_size = int(op.attrs.get("batch_size", 32))
+    file_format = op.attrs.get("file_format", "csv")
+    opener = gzip.open if op.attrs.get("file_type", "plain") == "gzip" \
+        else open
+    stop = threading.Event()
+
+    def gen():
+        buf = []
+        for path in files:
+            with opener(path, "rt") as f:
+                for rec in _parse_ctr_lines(f, file_format, slots):
+                    buf.append(rec)
+                    if len(buf) == batch_size:
+                        yield _ctr_batch(buf, slots)
+                        buf = []
+        if buf:
+            yield _ctr_batch(buf, slots)
+        stop.set()   # the epoch's end: the next run's create op starts anew
+
+    names = op.attrs.get("out_names", []) or \
+        ["label"] + [f"slot_{s}" for s in slots]
+    scope.set_var(out, _ReaderState(gen(), names, root=op, stop=stop))
 
 
 @register_host_op("read")
