@@ -1,8 +1,9 @@
-"""Layers DSL of the PyTorch port (the GPT, BERT, ResNet, NMT Transformer,
-book-model and Switch MoE subset), control flow (`layers.control_flow`:
-While, cond, Switch, StaticRNN, DynamicRNN, IfElse), the sequence and RNN
-layers (`layers.sequence`, `layers.rnn`), the LR schedules
-(`layers.learning_rate_scheduler`) and the decoders (`layers.decode`)."""
+"""Layers DSL of the PyTorch port: the core layers of `layers/{nn,tensor,
+math}.py` (every name of the JAX package's three files), control flow
+(`layers.control_flow`: While, cond, Switch, StaticRNN, DynamicRNN,
+IfElse), the sequence and RNN layers (`layers.sequence`, `layers.rnn`),
+the LR schedules (`layers.learning_rate_scheduler`), the decoders
+(`layers.decode`) and `layers.distributions`."""
 
 from .math import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403
@@ -20,3 +21,4 @@ from . import learning_rate_scheduler  # noqa: F401
 from . import control_flow  # noqa: F401
 from . import rnn  # noqa: F401
 from . import decode  # noqa: F401
+from . import distributions  # noqa: F401

@@ -1,8 +1,7 @@
-"""Math layers: elementwise_add, elementwise_sub, elementwise_mul and
-elementwise_mod (and `+`, `-`, `*`, `/` on Variables), matmul, einsum,
-scale, mean, reduce_sum, reduce_mean, reduce_max, clip, cumsum, the
-compares equal, less_than, less_equal and greater_than, logical_or,
-logical_not, tril.
+"""Math layers: the elementwise family (and `+`, `-`, `*`, `/` on
+Variables), matmul, mul, einsum, scale, sum/sums, mean, the reduce
+family, clip, clip_by_norm, l2_normalize, cumsum, the compare and logical
+family, isfinite, tril and triu.
 
 Copied from `paddle_tpu/layers/math.py`: the same op types, slots and
 attrs.
@@ -11,11 +10,15 @@ attrs.
 from ..framework.core import Variable
 from ..framework.layer_helper import LayerHelper
 
-__all__ = ["elementwise_add", "elementwise_sub", "elementwise_mul",
-           "elementwise_mod", "matmul", "einsum", "scale",
-           "mean", "reduce_sum", "reduce_mean", "reduce_max", "clip",
-           "cumsum", "equal", "less_than", "less_equal", "greater_than",
-           "logical_or", "logical_not", "tril"]
+__all__ = ["einsum", "elementwise_add", "elementwise_sub", "elementwise_mul",
+           "elementwise_div", "elementwise_min", "elementwise_max",
+           "elementwise_pow", "elementwise_mod", "elementwise_floordiv",
+           "matmul", "mul", "scale", "sum", "sums", "reduce_sum",
+           "reduce_mean", "reduce_max", "reduce_min", "reduce_prod",
+           "reduce_all", "reduce_any", "clip", "clip_by_norm", "mean",
+           "l2_normalize", "equal", "not_equal", "less_than", "less_equal",
+           "greater_than", "greater_equal", "logical_and", "logical_or",
+           "logical_not", "logical_xor", "isfinite", "cumsum", "tril", "triu"]
 
 
 def _to_variable(x, ref: Variable):
@@ -182,3 +185,111 @@ def tril(x, diagonal=0, name=None):
     helper.append_op("tril_triu", {"X": [x.name]}, {"Out": [out.name]},
                      {"diagonal": diagonal, "lower": True})
     return out
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_min", x, y, axis, act, name)
+
+
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_max", x, y, axis, act, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_pow", x, y, axis, act, name)
+
+
+def elementwise_floordiv(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_floordiv", x, y, axis, act, name)
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("mul", {"X": [x.name], "Y": [y.name]},
+                     {"Out": [out.name]},
+                     {"x_num_col_dims": x_num_col_dims,
+                      "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+def sum(x):
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    helper = LayerHelper("sum")
+    out = helper.create_variable_for_type_inference(xs[0].dtype)
+    helper.append_op("sum", {"X": [v.name for v in xs]}, {"Out": [out.name]})
+    return out
+
+
+def reduce_min(x, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_min", x, dim, keep_dim, name)
+
+
+def reduce_prod(x, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_prod", x, dim, keep_dim, name)
+
+
+def reduce_all(x, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_all", x, dim, keep_dim, name)
+
+
+def reduce_any(x, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_any", x, dim, keep_dim, name)
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("clip_by_norm", {"X": [x.name]}, {"Out": [out.name]},
+                     {"max_norm": float(max_norm)})
+    return out
+
+
+def l2_normalize(x, axis=-1, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    norm = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("l2_normalize", {"X": [x.name]},
+                     {"Out": [out.name], "Norm": [norm.name]},
+                     {"axis": axis, "epsilon": epsilon})
+    return out
+
+
+def not_equal(x, y, name=None):
+    return _compare("not_equal", x, y, name)
+
+
+def greater_equal(x, y, name=None):
+    return _compare("greater_equal", x, y, name)
+
+
+def logical_and(x, y, name=None):
+    return _compare("logical_and", x, y, name)
+
+
+def logical_xor(x, y, name=None):
+    return _compare("logical_xor", x, y, name)
+
+
+def isfinite(x, name=None):
+    helper = LayerHelper("isfinite", name=name)
+    out = helper.create_variable_for_type_inference("bool",
+                                                    stop_gradient=True)
+    helper.append_op("isfinite", {"X": [x.name]}, {"Out": [out.name]})
+    return out
+
+
+def triu(x, diagonal=0, name=None):
+    from ..framework.layer_helper import LayerHelper
+    helper = LayerHelper("triu", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("tril_triu", {"X": [x.name]}, {"Out": [out.name]},
+                     {"diagonal": diagonal, "lower": False})
+    return out
+
+
+sums = sum

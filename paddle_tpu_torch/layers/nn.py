@@ -1,14 +1,19 @@
-"""NN layers of the GPT, BERT, ResNet, NMT Transformer and book slices: fc
-(one input or a list), embedding, conv2d, pool2d, batch_norm, layer_norm,
-dropout, relu, sigmoid, tanh, gelu, sqrt, softmax,
-softmax_with_cross_entropy, square_error_cost, log_loss, topk, accuracy,
-one_hot, fused_attention, add_position_encoding; the metric and loss
-layers auc, precision_recall, warpctc, linear_chain_crf, crf_decoding,
-nce, hsigmoid.
+"""NN layers: fc (one input or a list), embedding, the convolutions
+(conv2d, conv2d_transpose, conv3d, conv3d_transpose), pool2d, pool3d, the
+norms (batch, layer, group, instance, lrn, spectral), dropout, the
+activation wrappers, prelu, the losses (softmax_with_cross_entropy,
+cross_entropy, sigmoid_cross_entropy_with_logits, square_error_cost,
+mse_loss, huber_loss, smooth_l1, kldiv_loss, log_loss), label_smooth,
+cos_sim, resize_bilinear and resize_nearest, topk, accuracy, one_hot,
+fused_attention, add_position_encoding, and the metric and loss layers
+auc, precision_recall, warpctc, linear_chain_crf, crf_decoding, nce,
+hsigmoid.
 
 Copied from `paddle_tpu/layers/nn.py`: the same op types, slots, attrs and
 parameter initializers, and the same order of var creation, so programs
 built by either DSL serialize alike and carry parameters across by name.
+`resize_bilinear`/`resize_nearest` are this file's; the JAX package's
+`layers` namespace exports `layers/nn_extra.py`'s in their place.
 """
 
 import numpy as np
@@ -17,14 +22,20 @@ from ..framework.core import unique_name
 from ..framework.layer_helper import LayerHelper
 from ..initializer import Constant, Normal, Xavier
 
-__all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
-           "dropout", "relu", "sigmoid", "tanh", "gelu", "sqrt", "square",
-           "softmax",
-           "softmax_with_cross_entropy", "square_error_cost", "log_loss",
-           "topk",
-           "accuracy", "one_hot", "fused_attention",
-           "add_position_encoding", "auc", "precision_recall", "warpctc",
-           "linear_chain_crf", "crf_decoding", "nce", "hsigmoid"]
+__all__ = ["conv3d_transpose",
+           "fc", "embedding", "conv2d", "conv2d_transpose", "pool2d",
+           "batch_norm", "layer_norm", "group_norm", "instance_norm",
+           "dropout", "softmax", "log_softmax", "relu", "sigmoid", "tanh",
+           "gelu", "leaky_relu", "elu", "softplus", "swish", "hard_sigmoid",
+           "exp", "log", "sqrt", "square", "abs", "pow", "cross_entropy",
+           "softmax_with_cross_entropy", "sigmoid_cross_entropy_with_logits",
+           "square_error_cost", "huber_loss", "kldiv_loss", "smooth_l1",
+           "accuracy", "auc", "precision_recall", "topk", "one_hot", "lrn",
+           "prelu", "mse_loss",
+           "label_smooth", "fused_attention", "warpctc",
+           "linear_chain_crf", "crf_decoding", "nce", "hsigmoid",
+           "log_loss", "cos_sim", "resize_bilinear", "resize_nearest",
+           "add_position_encoding", "conv3d", "pool3d", "spectral_norm"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -479,3 +490,355 @@ def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
     helper.append_op("hierarchical_sigmoid", ins, {"Cost": [cost.name]},
                      {"num_classes": num_classes})
     return cost
+
+
+def conv2d_transpose(input, num_filters, filter_size, stride=1, padding=0,
+                     dilation=1, groups=1, param_attr=None, bias_attr=None,
+                     act=None, name=None):
+    helper = LayerHelper("conv2d_transpose", name=name)
+    if isinstance(filter_size, int):
+        filter_size = [filter_size, filter_size]
+    if isinstance(stride, int):
+        stride = [stride, stride]
+    if isinstance(padding, int):
+        padding = [padding, padding]
+    if isinstance(dilation, int):
+        dilation = [dilation, dilation]
+    c_in = int(input.shape[1])
+    w_shape = [c_in, num_filters // groups] + list(filter_size)
+    w = helper.create_parameter(param_attr, w_shape, input.dtype,
+                                default_initializer=Xavier())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("conv2d_transpose",
+                     {"Input": [input.name], "Filter": [w.name]},
+                     {"Output": [out.name]},
+                     {"strides": stride, "paddings": padding,
+                      "dilations": dilation, "groups": groups})
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_filters], input.dtype,
+                                    is_bias=True)
+        out = helper.append_bias_op(out, b, dim_start=1)
+    return helper.append_activation(out, act)
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, name=None):
+    helper = LayerHelper("group_norm", name=name)
+    c = int(input.shape[1])
+    ins = {"X": [input.name]}
+    if param_attr is not False:
+        s = helper.create_parameter(param_attr, [c], input.dtype,
+                                    default_initializer=Constant(1.0))
+        ins["Scale"] = [s.name]
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [c], input.dtype, is_bias=True)
+        ins["Bias"] = [b.name]
+    y = helper.create_variable_for_type_inference(input.dtype)
+    m = helper.create_variable_for_type_inference(input.dtype, True)
+    v = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op("group_norm", ins,
+                     {"Y": [y.name], "Mean": [m.name], "Variance": [v.name]},
+                     {"groups": groups, "epsilon": epsilon})
+    return helper.append_activation(y, act)
+
+
+def instance_norm(input, epsilon=1e-5, param_attr=None, bias_attr=None,
+                  name=None):
+    helper = LayerHelper("instance_norm", name=name)
+    c = int(input.shape[1])
+    ins = {"X": [input.name]}
+    if param_attr is not False:
+        s = helper.create_parameter(param_attr, [c], input.dtype,
+                                    default_initializer=Constant(1.0))
+        ins["Scale"] = [s.name]
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [c], input.dtype, is_bias=True)
+        ins["Bias"] = [b.name]
+    y = helper.create_variable_for_type_inference(input.dtype)
+    m = helper.create_variable_for_type_inference(input.dtype, True)
+    v = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op("instance_norm", ins,
+                     {"Y": [y.name], "SavedMean": [m.name],
+                      "SavedVariance": [v.name]}, {"epsilon": epsilon})
+    return y
+
+
+def leaky_relu(x, alpha=0.02, name=None):
+    return _unary("leaky_relu", x, {"alpha": alpha}, name)
+
+
+def elu(x, alpha=1.0, name=None):
+    return _unary("elu", x, {"alpha": alpha}, name)
+
+
+def softplus(x, name=None):
+    return _unary("softplus", x, name=name)
+
+
+def swish(x, beta=1.0, name=None):
+    return _unary("swish", x, {"beta": beta}, name)
+
+
+def hard_sigmoid(x, slope=0.2, offset=0.5, name=None):
+    return _unary("hard_sigmoid", x, {"slope": slope, "offset": offset}, name)
+
+
+def exp(x, name=None):
+    return _unary("exp", x, name=name)
+
+
+def log(x, name=None):
+    return _unary("log", x, name=name)
+
+
+def abs(x, name=None):
+    return _unary("abs", x, name=name)
+
+
+def pow(x, factor=1.0, name=None):
+    return _unary("pow", x, {"factor": factor}, name)
+
+
+def log_softmax(x, axis=-1, name=None):
+    return _unary("log_softmax", x, {"axis": axis}, name)
+
+
+def lrn(x, n=5, k=2.0, alpha=1e-4, beta=0.75, name=None):
+    helper = LayerHelper("lrn", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mid = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op("lrn", {"X": [x.name]},
+                     {"Out": [out.name], "MidOut": [mid.name]},
+                     {"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
+
+
+def prelu(x, mode="all", param_attr=None, name=None):
+    helper = LayerHelper("prelu", name=name)
+    if mode == "all":
+        alpha_shape = [1]
+    elif mode == "channel":
+        alpha_shape = [int(x.shape[1])]
+    else:
+        alpha_shape = [int(d) for d in x.shape[1:]]
+    alpha = helper.create_parameter(param_attr, alpha_shape, x.dtype,
+                                    default_initializer=Constant(0.25))
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("prelu", {"X": [x.name], "Alpha": [alpha.name]},
+                     {"Out": [out.name]}, {"mode": mode})
+    return out
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100,
+                  name=None):
+    helper = LayerHelper("cross_entropy", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("cross_entropy",
+                     {"X": [input.name], "Label": [label.name]},
+                     {"Y": [out.name]},
+                     {"soft_label": soft_label, "ignore_index": ignore_index})
+    return out
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
+                                      normalize=False, name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("sigmoid_cross_entropy_with_logits",
+                     {"X": [x.name], "Label": [label.name]},
+                     {"Out": [out.name]},
+                     {"ignore_index": ignore_index, "normalize": normalize})
+    return out
+
+
+def mse_loss(input, label, name=None):
+    from .math import reduce_mean
+    return reduce_mean(square_error_cost(input, label, name))
+
+
+def huber_loss(input, label, delta=1.0, name=None):
+    helper = LayerHelper("huber_loss", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    res = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op("huber_loss",
+                     {"X": [input.name], "Y": [label.name]},
+                     {"Out": [out.name], "Residual": [res.name]},
+                     {"delta": delta})
+    return out
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=1.0,
+              name=None):
+    helper = LayerHelper("smooth_l1_loss", name=name)
+    ins = {"X": [x.name], "Y": [y.name]}
+    if inside_weight is not None:
+        ins["InsideWeight"] = [inside_weight.name]
+    if outside_weight is not None:
+        ins["OutsideWeight"] = [outside_weight.name]
+    out = helper.create_variable_for_type_inference(x.dtype)
+    diff = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op("smooth_l1_loss", ins,
+                     {"Out": [out.name], "Diff": [diff.name]},
+                     {"sigma": sigma})
+    return out
+
+
+def kldiv_loss(x, target, reduction="mean", name=None):
+    helper = LayerHelper("kldiv_loss", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("kldiv_loss",
+                     {"X": [x.name], "Target": [target.name]},
+                     {"Loss": [out.name]}, {"reduction": reduction})
+    return out
+
+
+def label_smooth(label, epsilon=0.1, name=None):
+    from .math import scale
+    k = int(label.shape[-1])
+    return scale(label, scale=1.0 - epsilon, bias=epsilon / k,
+                 bias_after_scale=True)
+
+
+def cos_sim(X, Y, name=None):
+    """reference: layers/nn.py cos_sim."""
+    helper = LayerHelper("cos_sim", name=name)
+    out = helper.create_variable_for_type_inference(X.dtype)
+    xn = helper.create_variable_for_type_inference(X.dtype)
+    yn = helper.create_variable_for_type_inference(X.dtype)
+    helper.append_op("cos_sim", {"X": [X.name], "Y": [Y.name]},
+                     {"Out": [out.name], "XNorm": [xn.name],
+                      "YNorm": [yn.name]})
+    return out
+
+
+def resize_bilinear(input, out_shape=None, scale=None, align_corners=True,
+                    name=None):
+    """reference: layers/nn.py resize_bilinear."""
+    helper = LayerHelper("resize_bilinear", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    attrs = {"align_corners": align_corners}
+    if out_shape is not None:
+        attrs["out_h"], attrs["out_w"] = int(out_shape[0]), int(out_shape[1])
+    if scale is not None:
+        attrs["scale"] = float(scale)
+    helper.append_op("bilinear_interp", {"X": [input.name]},
+                     {"Out": [out.name]}, attrs)
+    return out
+
+
+def resize_nearest(input, out_shape=None, scale=None, align_corners=True,
+                   name=None):
+    helper = LayerHelper("resize_nearest", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    attrs = {"align_corners": align_corners}
+    if out_shape is not None:
+        attrs["out_h"], attrs["out_w"] = int(out_shape[0]), int(out_shape[1])
+    if scale is not None:
+        attrs["scale"] = float(scale)
+    helper.append_op("nearest_interp", {"X": [input.name]},
+                     {"Out": [out.name]}, attrs)
+    return out
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None, name=None):
+    """reference: layers/nn.py conv3d (NCDHW)."""
+    helper = LayerHelper("conv3d", name=name)
+    def _3(v):
+        return [v, v, v] if isinstance(v, int) else list(v)
+    filter_size = _3(filter_size)
+    c_in = int(input.shape[1])
+    w_shape = [num_filters, c_in // groups] + filter_size
+    fan_in = (c_in // groups) * int(np.prod(filter_size))
+    w = helper.create_parameter(param_attr, w_shape, input.dtype,
+                                default_initializer=Normal(
+                                    0.0, (2.0 / fan_in) ** 0.5))
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("conv3d", {"Input": [input.name], "Filter": [w.name]},
+                     {"Output": [out.name]},
+                     {"strides": _3(stride), "paddings": _3(padding),
+                      "dilations": _3(dilation), "groups": groups})
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_filters], input.dtype,
+                                    is_bias=True)
+        out = helper.append_bias_op(out, b, dim_start=1)
+    return helper.append_activation(out, act)
+
+
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, ceil_mode=False,
+           exclusive=True, name=None):
+    helper = LayerHelper("pool3d", name=name)
+    def _3(v):
+        return [v, v, v] if isinstance(v, int) else list(v)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("pool3d", {"X": [input.name]}, {"Out": [out.name]},
+                     {"pooling_type": pool_type, "ksize": _3(pool_size),
+                      "strides": _3(pool_stride),
+                      "paddings": _3(pool_padding),
+                      "global_pooling": global_pooling,
+                      "ceil_mode": ceil_mode, "exclusive": exclusive})
+    return out
+
+
+def spectral_norm(weight, dim=0, power_iters=1, eps=1e-12, name=None):
+    """reference: layers/nn.py spectral_norm — creates the persistent U/V
+    power-iteration state and returns the normalized weight."""
+    helper = LayerHelper("spectral_norm", name=name)
+    h = int(weight.shape[dim])
+    ww = 1
+    for i, d in enumerate(weight.shape):
+        if i != dim:
+            ww *= int(d)
+    def _state(suffix, size):
+        # the batch_norm running-stat pattern: non-trainable persistent
+        # state created directly on the block + initialized in startup
+        nm = unique_name(f"{weight.name}.{suffix}")
+        p = helper.block.create_parameter(name=nm, shape=[size],
+                                          dtype=weight.dtype,
+                                          trainable=False)
+        sb = helper.startup_program.global_block
+        sb.create_var(name=nm, shape=[size], dtype=weight.dtype,
+                      persistable=True, stop_gradient=True)
+        Normal(0.0, 1.0)(p, sb)
+        return p
+
+    u = _state("sn_u", h)
+    v = _state("sn_v", ww)
+    out = helper.create_variable_for_type_inference(weight.dtype)
+    helper.append_op(
+        "spectral_norm",
+        {"Weight": [weight.name], "U": [u.name], "V": [v.name]},
+        {"Out": [out.name], "UOut": [u.name], "VOut": [v.name]},
+        {"dim": dim, "power_iters": power_iters, "eps": eps})
+    return out
+
+
+def conv3d_transpose(input, num_filters, filter_size, stride=1, padding=0,
+                     dilation=1, groups=1, param_attr=None, bias_attr=None,
+                     act=None, name=None):
+    """reference: layers/nn.py conv3d_transpose (conv3d_transpose op)."""
+    helper = LayerHelper("conv3d_transpose", name=name)
+    if isinstance(filter_size, int):
+        filter_size = [filter_size] * 3
+    if isinstance(stride, int):
+        stride = [stride] * 3
+    if isinstance(padding, int):
+        padding = [padding] * 3
+    if isinstance(dilation, int):
+        dilation = [dilation] * 3
+    c_in = int(input.shape[1])
+    w_shape = [c_in, num_filters // groups] + list(filter_size)
+    w = helper.create_parameter(param_attr, w_shape, input.dtype,
+                                default_initializer=Xavier())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("conv3d_transpose",
+                     {"Input": [input.name], "Filter": [w.name]},
+                     {"Output": [out.name]},
+                     {"strides": stride, "paddings": padding,
+                      "dilations": dilation, "groups": groups})
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_filters], input.dtype,
+                                    is_bias=True)
+        out = helper.append_bias_op(out, b, dim_start=1)
+    return helper.append_activation(out, act)

@@ -5,13 +5,16 @@ isfinite; the ops of the NMT Transformer and the book models:
 elementwise_sub, the reduce family, tril_triu; and those the Switch MoE
 FFN, the LR schedules and ModelAverage append: elementwise_min/pow and the
 compare and logical family; elementwise_mod, which GradientMergeOptimizer's
-step boundary appends.
+step boundary appends; and the rest of the file: elementwise_floordiv, bmm,
+dot, p_norm, l2_normalize and log_sum_exp.
 
 Port of the matching rules in `paddle_tpu/ops/math_ops.py` (_broadcast_y:21,
-the elementwise family :33-55, matmul:64, mul:79, einsum:104, the reduce
-family :122-145, mean:148, sum:153, scale:178, clip:205, clip_by_norm:217,
-squared_l2_norm:236, the compare and logical family :279-297,
-isfinite:301, tril_triu:308).
+the elementwise family :33-55, matmul:64, mul:79, bmm:99, einsum:104,
+dot:112, the reduce family :122-145, mean:148, sum:153, scale:178,
+clip:205, clip_by_norm:217, squared_l2_norm:236, p_norm:247,
+l2_normalize:257, log_sum_exp:267, the compare and logical family
+:279-297, isfinite:301, tril_triu:308). elementwise_floordiv's gradient
+is zero, as jnp.floor_divide's vjp gives.
 Large products go to `torch.matmul` /
 `torch.einsum`, as the JAX package leaves them to XLA. Every grad here
 takes the generic vjp path, as in JAX (isfinite and the compare family
@@ -70,6 +73,10 @@ _register_elementwise("elementwise_max", torch.maximum)
 _register_elementwise("elementwise_pow", torch.pow)
 # floored modulo: jnp.mod's sign rule
 _register_elementwise("elementwise_mod", torch.remainder)
+# floored division; torch has no derivative for it, jnp's vjp is zero
+_register_elementwise("elementwise_floordiv",
+                      lambda x, y: torch.floor_divide(x.detach(),
+                                                      y.detach()))
 
 
 @register_op("matmul")
@@ -97,6 +104,17 @@ def _mul(ctx, ins, attrs):
     y2 = y.reshape((math.prod(y.shape[:yn]), math.prod(y.shape[yn:])))
     out = x2 @ y2
     return {"Out": [out.reshape(tuple(x.shape[:xn]) + tuple(y.shape[yn:]))]}
+
+
+@register_op("bmm")
+def _bmm(ctx, ins, attrs):
+    return {"Out": [torch.matmul(ins["X"][0], ins["Y"][0])]}
+
+
+@register_op("dot")
+def _dot(ctx, ins, attrs):
+    x, y = ins["X"][0], ins["Y"][0]
+    return {"Out": [torch.sum(x * y, dim=-1, keepdim=True)]}
 
 
 @register_op("einsum")
@@ -245,6 +263,31 @@ def _squared_l2_norm(ctx, ins, attrs):
         _, merged, mask = _sparse_merged_and_mask(x)
         x = merged * mask
     return {"Out": [torch.sum(x.float() ** 2).reshape((1,))]}
+
+
+@register_op("p_norm")
+def _p_norm(ctx, ins, attrs):
+    x = ins["X"][0]
+    p = attrs.get("porder", 2.0)
+    out = torch.sum(torch.abs(x) ** p, dim=attrs.get("axis", -1),
+                    keepdim=attrs.get("keepdim", False)) ** (1.0 / p)
+    return {"Out": [out]}
+
+
+@register_op("l2_normalize")
+def _l2_normalize(ctx, ins, attrs):
+    x = ins["X"][0]
+    norm = torch.sqrt(torch.sum(x * x, dim=attrs.get("axis", -1),
+                                keepdim=True))
+    return {"Out": [x / torch.clamp_min(norm, attrs.get("epsilon", 1e-12))],
+            "Norm": [norm]}
+
+
+@register_op("log_sum_exp")
+def _log_sum_exp(ctx, ins, attrs):
+    x = ins["X"][0]
+    dim = tuple(d % max(x.ndim, 1) for d in attrs.get("dim", [-1]))
+    return {"Out": [torch.logsumexp(x, dim, attrs.get("keep_dim", False))]}
 
 
 def _register_cmp(name, fn):

@@ -273,13 +273,16 @@ def test_batch_norm_bf16_matches_jax(layout, shape, is_test):
 
 
 def test_unported_branches_raise():
-    """Adaptive pooling still raises; arch="vgg16" builds since
+    """Adaptive pooling no longer raises: pool2d(adaptive=True) routes to
+    adaptive_pool2d as in JAX (ragged bins here; every case in
+    tests/test_torch_core_ops.py); arch="vgg16" builds since
     models/vgg.py was ported (tests/test_torch_book.py holds its forward
     to JAX's), and an unknown arch raises ValueError as in JAX."""
     x = _f(1, 2, 4, 4)
     attrs = dict(_pool("avg", (2, 3)), adaptive=True)
-    with pytest.raises(Exception, match="not ported"):
-        _both("pool2d", {"X": x}, ["Out"], attrs)
+    (jvals, _), (tvals, _) = _both("pool2d", {"X": x}, ["Out"], attrs)
+    np.testing.assert_allclose(tvals["Out_out"], jvals["Out_out"],
+                               atol=TOL, rtol=TOL)
     with ptt.unique_name_guard(), ptt.program_guard(ptt.Program(),
                                                     ptt.Program()):
         f = tresnet.image_classification_program("vgg16")
