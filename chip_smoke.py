@@ -436,6 +436,39 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 busy ms, kernels and idle share of one traced step, peak
                 memory, FLOPs a step against 67 TFLOP/s. No hand kernel
                 launches. In a child process (--core-only);
+  4n. detection -- the detection stack (ops/detection_ops.py,
+                detection_extra_ops.py, layers/detection.py,
+                metrics.DetectionMAP): (1) SSD300 at the paper's shape
+                (tools/ssd_cases.py: Liu et al. 2016, VGG-16 through
+                conv5_3, pool5 3x3 s1, conv6 dilated 6, conv7, conv8_2 to
+                conv11_2, conv4_3 L2-normalised with a learned scale from
+                20, multi_box_head over the six maps with base 300, ratios
+                20-90, steps 8-300: 8732 priors asserted; 21 classes, fp32,
+                batch 32, Momentum 0.9 at lr 1e-4 from random weights)
+                trains DET_WARMUP + DET_TIMED steps on one seeded batch of
+                up to 8 boxes an image (losses finite and falling; median
+                step ms, device busy ms, kernels and idle share of one
+                traced step, peak bytes, conv FLOPs a step against 67
+                TFLOP/s), then its test clone (detection_output: nms 0.45,
+                top 400, keep 200, score 0.01) runs DetectionMAP over
+                DET_EVAL_BATCHES batches (cur and accumulated mAP in [0, 1];
+                the first batch rerun after a reset for the same bits; an
+                eval batch's ms and kernels; multiclass_nms alone at its
+                shape traced for its launches); (2) SSD300's head card vs
+                CPU port at loc [4, 8732, 4], conf [4, 8732, 21]: ssd_loss
+                within 1e-5 * |loss| + 1e-6, its loc and conf gradients
+                within op_test's 5e-3, the detections' labels, scores,
+                counts and the mAP states exactly, boxes within the output
+                tolerance, the card's second run bitwise; (3) every other
+                detection op type at its model's shape (Faster/Mask R-CNN
+                R-50-FPN at 800x1333: generate_proposals pre 6000 post
+                1000 nms 0.7, roi_align/roi_pool 512 RoIs 7x7 at 1/16;
+                YOLOv3-608; RetinaNet-800; ...), phase 4m's rows: card vs
+                CPU port on a held batch (roi_pool: all 512 RoIs on 8
+                channels), twice bitwise and timed at the full shape, and
+                the rows of DET_FULL_ON_CPU card vs CPU port at the full
+                shape too. No hand kernel launches. In a child process
+                (--detection-only);
   5. train   -- GPT-2 small (dropout 0.1) train programs with Adam through
                 Executor.run on CUDAPlace(0): 3 steps at s=1024 b=2
                 (flash_fwd, flash_bwd_dkv, flash_bwd_dq) and 3 at s=512
@@ -517,6 +550,13 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 the whole tiled backward (_flash_bwd: delta, the layout
                 copies and both kernels) beside SDPA's backward on the same
                 inputs and the kernels that SDPA runs.
+
+Each child phase but quant's is started one phase ahead (_Child: it
+imports the package and opens its CUDA context, then waits for its
+turn), the engine's during the build; quant's starts after the times
+phase, whose window it would otherwise share. Before the card's name and
+the kernels line comes {"phase": "walls", ...}: every phase's wall
+seconds.
 
 The line before the last is the {"kernels": [...]} summary (15 rows), in
 which conv_bn_stats has a row at each of the five spike shapes,
@@ -6816,6 +6856,18 @@ CORE_TIMED = 3          # timed launches of a row, after the two checked
 # the same terms at every batch
 CORE_FULL_ON_CPU = {"gather", "gather_nd", "scatter_add", "scatter_nd_add",
                     "lookup_table_v2", "lookup_table_v2_sparse"}
+# detection rows held card vs CPU port at the full shape too: their
+# gradients sum over the RoIs that overlap a location, which only the full
+# RoI count gives (roi_pool's full shape takes minutes on the CPU: its
+# held run keeps all 512 RoIs on 8 of the 256 channels instead). Each maps
+# to the gradients held at the held shape only: Trans's is the bilinear
+# samples' one-sided slope, which jumps where a sample lies within
+# rounding of a grid line, and 300 RoIs of 49 bins of 16 samples put a
+# few there (the CPU port in float32 against float64: 1 of 29400
+# elements, 0.029 of the max); the full shape's gap and its count of
+# elements past CORE_GRAD_TOL of the max are recorded
+DET_FULL_ON_CPU = {"roi_align": (), "deformable_psroi_pooling": ("Trans",),
+                   "roi_perspective_transform": ()}
 # DCGAN (Radford et al., "Unsupervised Representation Learning with Deep
 # Convolutional GANs", arXiv:1511.06434, section 4 and Fig. 1): z 100, G
 # 4x4x1024 -> 512 -> 256 -> 128 -> 3 at 64x64, D 128 -> 256 -> 512 -> 1024,
@@ -7228,7 +7280,7 @@ def _flat_results(out, grads):
     return [t for s in sorted(out) for t in out[s]] + [t for *_, t in grads]
 
 
-def _core_compare(name, where, dev, cpu):
+def _core_compare(name, where, dev, cpu, tag="core"):
     """The card's _core_eval result `dev` against the CPU port's `cpu`:
     outputs within CORE_OUT_RTOL * max |cpu| + CORE_OUT_ATOL, ints and
     bools exactly, gradients within op_test's max relative error
@@ -7241,31 +7293,31 @@ def _core_compare(name, where, dev, cpu):
         for a, b in zip(dout[s], cout[s]):
             a = a.cpu()
             if tuple(a.shape) != tuple(b.shape) or a.dtype != b.dtype:
-                fail(f"core {name} ({where}): {s} is {tuple(a.shape)} "
+                fail(f"{tag} {name} ({where}): {s} is {tuple(a.shape)} "
                      f"{a.dtype} on the card, {tuple(b.shape)} {b.dtype} "
                      f"on the CPU")
             if not b.is_floating_point():
                 if not torch.equal(a, b):
-                    fail(f"core {name} ({where}): {s} differs from the CPU "
+                    fail(f"{tag} {name} ({where}): {s} differs from the CPU "
                          f"port's")
                 continue
             scale = float(b.abs().max()) if b.numel() else 0.0
             err = float((a - b).abs().max()) if b.numel() else 0.0
             out_err = max(out_err, err / max(scale, 1e-30))
             if err > CORE_OUT_RTOL * scale + CORE_OUT_ATOL:
-                fail(f"core {name} ({where}): {s} lies {err} from the CPU "
+                fail(f"{tag} {name} ({where}): {s} lies {err} from the CPU "
                      f"port's (max |x| {scale})")
     for (s, i, a), (_, _, b) in zip(dgrads, cgrads):
         a, b = a.cpu(), b.cpu()
         if not b.is_floating_point():
             if not torch.equal(a.long(), b.long()):
-                fail(f"core {name} ({where}): grad {s} rows differ from the "
+                fail(f"{tag} {name} ({where}): grad {s} rows differ from the "
                      f"CPU's")
             continue
         rel = _op_test_rel(a, b)
         grad_err = max(grad_err, rel)
         if rel > CORE_GRAD_TOL:
-            fail(f"core {name} ({where}): grad of {s} lies {rel} (op_test's "
+            fail(f"{tag} {name} ({where}): grad of {s} lies {rel} (op_test's "
                  f"max relative error) from the CPU port's")
     return out_err, grad_err
 
@@ -7280,10 +7332,11 @@ def _op_test_rel(a, b):
     return float((a - b).abs().max()) / den
 
 
-def _core_row(case, seed):
+def _core_row(case, seed, tag="core"):
     """One op: held inputs card vs CPU port; the full shape on the card
-    twice (same bits) and timed, and for the rows of CORE_FULL_ON_CPU
-    card vs CPU port at the full shape too."""
+    twice (same bits) and timed, and for the rows of CORE_FULL_ON_CPU and
+    DET_FULL_ON_CPU card vs CPU port at the full shape too. `tag` names
+    the phase in a failure."""
     import torch
     name, op, make, n_full, n_held, flops_fn = case
     ins, attrs = make(_CoreRand("cpu", seed), n_held)
@@ -7291,7 +7344,7 @@ def _core_row(case, seed):
     cots = cres[2]
     dins = {s: [t.to("cuda") for t in v] for s, v in ins.items()}
     dres = _core_eval(op, dins, attrs, "cuda", cots=cots, seed=seed)
-    out_err, grad_err = _core_compare(name, "held", dres, cres)
+    out_err, grad_err = _core_compare(name, "held", dres, cres, tag)
     cgrads, cline, dline = cres[1], cres[3], dres[3]
     if op == "print" and (dline.split(" mean=")[0] != cline.split(
             " mean=")[0] or dline.split(" min=")[1] != cline.split(
@@ -7304,14 +7357,24 @@ def _core_row(case, seed):
     r1, r2 = _flat_results(*first[:2]), _flat_results(*again[:2])
     bitwise = all(torch.equal(a, b) for a, b in zip(r1, r2))
     if not bitwise:
-        fail(f"core {name}: two launches at the full shape differ")
-    full_err = None
-    if name in CORE_FULL_ON_CPU:
+        fail(f"{tag} {name}: two launches at the full shape differ")
+    full_err, unheld = None, {}
+    if name in CORE_FULL_ON_CPU or name in DET_FULL_ON_CPU:
         cfull = _core_eval(op, {s: [t.cpu() for t in v]
                                 for s, v in fins.items()}, attrs, "cpu",
                            cots=[c.cpu() for c in first[2] or []] or None,
                            seed=seed)
-        full_err = _core_compare(name, "full shape", first, cfull)
+        skip = DET_FULL_ON_CPU.get(name, ())
+
+        def held(res):
+            return res[0], [g for g in res[1] if g[0] not in skip]
+        full_err = _core_compare(name, "full shape", held(first),
+                                 held(cfull), tag)
+        for (s, _, a), (_, _, b) in zip(first[1], cfull[1]):
+            if s in skip:
+                a = a.cpu()
+                past = (a - b).abs() > CORE_GRAD_TOL * float(b.abs().max())
+                unheld[s] = [_op_test_rel(a, b), int(past.sum())]
         del cfull
     from paddle_tpu_torch.framework import registry as treg
     od = treg.get_op_def(op)
@@ -7351,6 +7414,7 @@ def _core_row(case, seed):
             "held_batch": n_held, "out_rel_err": out_err,
             "grad_rel_err": grad_err if cgrads else None,
             "full_shape_vs_cpu": full_err,
+            "full_shape_unheld_grads": unheld or None,
             "bitwise": bitwise, "ms": fwd_ms, "fwd_grad_ms": grad_ms,
             "bound_ms": bound[by], "bound_by": by}
 
@@ -7801,6 +7865,565 @@ def phase_core(seed):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 4n: the detection stack: SSD300 at the paper's shape, its head card
+# against the CPU port, and every other detection op type at its model's
+# shape
+# ---------------------------------------------------------------------------
+
+# SSD300 (Liu et al., "SSD: Single Shot MultiBox Detector", ECCV 2016,
+# sections 2.2-3.1 and Fig. 2; paddle_tpu_torch/tools/ssd_cases.py): 21
+# VOC classes, 8732 priors, fp32 with TF32 off, batch 32, Momentum 0.9.
+# The weights are random, not the paper's ImageNet VGG-16, so the
+# learning rate is 1e-4, not its 1e-3 (1e-3 diverges from random weights
+# on the CPU at the narrow width).
+DET_CLASSES, DET_BATCH, DET_MAX_BOXES = 21, 32, 8
+DET_LR, DET_MOMENTUM = 1e-4, 0.9
+DET_WARMUP, DET_TIMED = 2, 5    # steps on one fixed batch; every loss held
+DET_EVAL_BATCHES = 2
+DET_HEAD_BATCH = 4              # SSD300's head, card vs CPU port
+# card vs CPU port: the loss within DET_LOSS_RTOL * max |loss| +
+# DET_LOSS_ATOL, floats within CORE_OUT_RTOL * max |x| + CORE_OUT_ATOL,
+# ints exactly, gradients within op_test's CORE_GRAD_TOL
+DET_LOSS_RTOL, DET_LOSS_ATOL = 1e-5, 1e-6
+# COCO's YOLOv3 anchors (Redmon and Farhadi 2018) and the 19x19 head of
+# YOLOv3-608, which takes the three largest
+YOLO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326]
+# RetinaNet-800 (Lin et al. 2017) on an 800x1333 image: P3-P7 at 9
+# anchors a location
+RETINA_LEVELS = [(100, 167), (50, 84), (25, 42), (13, 21), (7, 11)]
+
+
+def _det_boxes(R, lead, width, height, smin, smax):
+    """Boxes [*lead, 4] (x1, y1, x2, y2) inside width x height, sides in
+    [smin, smax)."""
+    import torch
+    wh = R.uniform(smin, smax, *lead, 2)
+    span = torch.tensor([width, height], device=R.device) - wh
+    xy = R.uniform(0, 1, *lead, 2) * span
+    return torch.cat([xy, xy + wh], -1)
+
+
+def _det_gt(R, n, g, width, height, smin, smax, pad=0.25):
+    """Ground-truth boxes [n, g, 4] with about `pad` of the rows zero."""
+    boxes = _det_boxes(R, (n, g), width, height, smin, smax)
+    return boxes * (R.uniform(0, 1, n, g, 1) > pad).float()
+
+
+def _det_cases():
+    """(name, op type, make(R, n) -> (inputs, attrs), full n, held n, None)
+    for every detection op type that SSD300's head check (_det_head) does
+    not run, each at the shape of a model that runs it: Faster/Mask R-CNN
+    R-50-FPN at 800x1333 (FPN's P2 has 200x334 locations of 3 anchors,
+    all of P2-P6 267069; 512 RoIs on P4 at 1/16; 2 images), YOLOv3-608,
+    RetinaNet-800, SSD300's conv4_3, FaceBoxes (density priors at
+    1024x1024), EAST and FOTS (512x512 text images), Deformable R-FCN
+    (600x1000, 81 classes, 7x7 position-sensitive maps) and a
+    MatchPyramid-style text matcher (64x64 similarity maps)."""
+    import torch
+    img = (1333.0, 800.0)
+    info = [800.0, 1333.0, 1.0]
+
+    def im_info(n):
+        return torch.tensor([info] * n)
+
+    def proposals(R, n):
+        a = 200 * 334 * 3
+        return ({"Scores": [R.uniform(0, 1, n, a, 1)],
+                 "BboxDeltas": [R.randn(n, a, 4) * 0.3],
+                 "ImInfo": [im_info(n).to(R.device)],
+                 "Anchors": [_det_boxes(R, (a,), *img, 16, 256)],
+                 "Variances": [torch.ones(a, 4, device=R.device)]},
+                {"pre_nms_topN": 6000, "post_nms_topN": 1000,
+                 "nms_thresh": 0.7, "min_size": 0.0})
+
+    def rois(R, n, channels=256):
+        x = R.randn(2, channels, 50, 84)
+        r = _det_boxes(R, (n,), *img, 32, 400)
+        num = torch.tensor([n // 2, n - n // 2], device=R.device)
+        return {"X": [x], "ROIs": [r], "RoisNum": [num]}
+
+    def rpn(R, n):
+        a = 267069
+        return ({"Anchor": [_det_boxes(R, (a,), *img, 16, 512)],
+                 "GtBoxes": [_det_gt(R, n, 32, *img, 32, 400)],
+                 "ImInfo": [im_info(n).to(R.device)]},
+                {"rpn_batch_size_per_im": 256, "rpn_straddle_thresh": 0.0,
+                 "rpn_fg_fraction": 0.5, "rpn_positive_overlap": 0.7,
+                 "rpn_negative_overlap": 0.3, "use_random": False})
+
+    def labels(R, n):
+        gt = _det_gt(R, n, 32, *img, 32, 400)
+        near = gt.repeat(1, 16, 1) + R.randn(n, 512, 4) * 8
+        return ({"RpnRois": [torch.cat([near, _det_boxes(
+                    R, (n, 1488), *img, 16, 400)], 1)],
+                 "GtClasses": [R.ints(80, n, 32) + 1], "GtBoxes": [gt],
+                 "ImInfo": [im_info(n).to(R.device)]},
+                {"batch_size_per_im": 512, "fg_fraction": 0.25,
+                 "fg_thresh": 0.5, "bg_thresh_hi": 0.5, "bg_thresh_lo": 0.0,
+                 "class_nums": 81, "use_random": False})
+
+    def masks(R, n):
+        lab = R.ints(82, n, 512) - 1
+        return ({"ImInfo": [im_info(n).to(R.device)],
+                 "GtClasses": [R.ints(80, n, 32) + 1],
+                 "GtSegms": [(R.uniform(0, 1, n, 32, 200, 334) > 0.5)
+                             .float()],
+                 "Rois": [_det_boxes(R, (n, 512), *img, 32, 400)],
+                 "LabelsInt32": [lab.int()],
+                 "MatchedGtInt32": [R.ints(32, n, 512).int()]},
+                {"num_classes": 81, "resolution": 28})
+
+    def yolo_gt(R, n):
+        cxcy = R.uniform(0.05, 0.95, n, 50, 2)
+        wh = R.uniform(0.02, 0.6, n, 50, 2)
+        keep = (R.uniform(0, 1, n, 50, 1) > 0.5).float()
+        return torch.cat([cxcy, wh], -1) * keep
+
+    def yolov3(R, n):
+        return ({"X": [R.randn(n, 255, 19, 19)], "GTBox": [yolo_gt(R, n)],
+                 "GTLabel": [R.ints(80, n, 50)]},
+                {"anchors": YOLO_ANCHORS, "anchor_mask": [6, 7, 8],
+                 "class_num": 80, "ignore_thresh": 0.7,
+                 "downsample_ratio": 32})
+
+    def yolo_box(R, n):
+        return ({"X": [R.randn(n, 255, 19, 19)],
+                 "ImgSize": [torch.full((n, 2), 608, device=R.device)]},
+                {"anchors": YOLO_ANCHORS[12:], "class_num": 80,
+                 "conf_thresh": 0.005, "downsample_ratio": 32})
+
+    def focal(R, n):
+        lab = R.ints(82, n, 1) - 1
+        lab = torch.where(R.uniform(0, 1, n, 1) < 0.9, 0, lab)
+        return ({"X": [R.randn(n, 80)], "Label": [lab],
+                 "FgNum": [torch.full((1,), 100, device=R.device)]},
+                {"gamma": 2.0, "alpha": 0.25})
+
+    retina_a = sum(h * w for h, w in RETINA_LEVELS) * 9
+
+    def retina_assign(R, n):
+        return ({"BBoxPred": [R.randn(n, retina_a, 4)],
+                 "ClsLogits": [R.randn(n, retina_a, 80)],
+                 "Anchor": [_det_boxes(R, (retina_a,), *img, 16, 512)],
+                 "GtBoxes": [_det_gt(R, n, 32, *img, 32, 400)],
+                 "GtLabels": [R.ints(80, n, 32) + 1],
+                 "IsCrowd": [torch.zeros(n, 32, dtype=torch.long,
+                                         device=R.device)],
+                 "ImInfo": [im_info(n).to(R.device)]},
+                {"positive_overlap": 0.5, "negative_overlap": 0.4})
+
+    def retina_out(R, n):
+        levels = [h * w * 9 for h, w in RETINA_LEVELS]
+        return ({"BBoxes": [R.randn(n, a, 4) * 0.2 for a in levels],
+                 "Scores": [R.uniform(0, 1, n, a, 80) ** 8
+                            for a in levels],
+                 "Anchors": [_det_boxes(R, (a,), *img, 16, 512)
+                             for a in levels],
+                 "ImInfo": [im_info(n).to(R.device)]},
+                {"score_threshold": 0.05, "nms_top_k": 1000,
+                 "keep_top_k": 100, "nms_threshold": 0.5})
+
+    def distribute(R, n):
+        return ({"FpnRois": [_det_boxes(R, (n,), *img, 8, 800)],
+                 "RoisNum": [torch.tensor([n // 2, n - n // 2],
+                                          device=R.device)]},
+                {"min_level": 2, "max_level": 5, "refer_level": 4,
+                 "refer_scale": 224})
+
+    def collect(R, n):
+        return ({"MultiLevelRois": [_det_boxes(R, (n,), *img, 8, 800)
+                                    for _ in range(5)],
+                 "MultiLevelScores": [R.uniform(0, 1, n, 1)
+                                      for _ in range(5)]},
+                {"post_nms_topN": n})
+
+    def anchors(R, n):
+        return ({"Input": [torch.zeros(1, 256, n, n * 334 // 200,
+                                       device=R.device)]},
+                {"anchor_sizes": [32.0], "aspect_ratios": [0.5, 1.0, 2.0],
+                 "stride": [4.0, 4.0], "offset": 0.5,
+                 "variances": [1.0, 1.0, 1.0, 1.0]})
+
+    def density(R, n):
+        return ({"Input": [torch.zeros(1, 128, n, n, device=R.device)],
+                 "Image": [torch.zeros(1, 3, 32 * n, 32 * n,
+                                       device=R.device)]},
+                {"fixed_sizes": [32.0, 64.0, 128.0],
+                 "fixed_ratios": [1.0], "densities": [4, 2, 1],
+                 "clip": True, "step_w": 32.0, "step_h": 32.0,
+                 "offset": 0.5})
+
+    def prior(R, n):
+        return ({"Input": [torch.zeros(1, 512, n, n, device=R.device)],
+                 "Image": [torch.zeros(1, 3, 300, 300, device=R.device)]},
+                {"min_sizes": [30.0], "max_sizes": [60.0],
+                 "aspect_ratios": [2.0], "flip": True, "clip": True,
+                 "variances": [0.1, 0.1, 0.2, 0.2], "step_w": 8.0,
+                 "step_h": 8.0, "offset": 0.5})
+
+    def clip(R, n):
+        return ({"Input": [R.uniform(-100, 1500, n, 1000, 4)],
+                 "ImInfo": [im_info(n).to(R.device)]}, {})
+
+    def polygon(R, n):
+        return ({"Input": [R.randn(n, 8, 128, 128) * 16]}, {})
+
+    def decode_assign(R, n):
+        return ({"PriorBox": [_det_boxes(R, (n,), *img, 32, 400)],
+                 "PriorBoxVar": [torch.tensor([[0.1, 0.1, 0.2, 0.2]],
+                                              device=R.device)],
+                 "TargetBox": [R.randn(n, 81 * 4)],
+                 "BoxScore": [R.uniform(0, 1, n, 81)]},
+                {"box_clip": 4.135})
+
+    def perspective(R, n):
+        quad = _det_boxes(R, (n, 16), 512.0, 512.0, 32, 256)
+        x1, y1, x2, y2 = quad.unbind(-1)
+        q = torch.stack([x1, y1, x2, y1, x2, y2, x1, y2], -1)
+        q = q + R.randn(n, 16, 8) * 4
+        return ({"X": [R.randn(n, 32, 128, 128)], "ROIs": [q]},
+                {"transformed_height": 8, "transformed_width": 64,
+                 "spatial_scale": 0.25})
+
+    def psroi(R, n):
+        return ({"Input": [R.randn(1, 81 * 49, 38, 63)],
+                 "ROIs": [_det_boxes(R, (1, n), 1000.0, 600.0, 32, 400)],
+                 "Trans": [R.randn(n, 2, 7, 7)]},
+                {"no_trans": False, "spatial_scale": 1 / 16,
+                 "output_dim": 81, "group_size": [7, 7],
+                 "pooled_height": 7, "pooled_width": 7,
+                 "part_size": [7, 7], "sample_per_part": 4,
+                 "trans_std": 0.1})
+
+    def var_conv(R, n):
+        return ({"X": [R.randn(n, 1, 64, 64)], "W": [R.randn(8, 9) * 0.3],
+                 "ROW": [R.ints(60, n) + 5], "COLUMN": [R.ints(60, n) + 5]},
+                {"InputChannel": 1, "OutputChannel": 8, "KernelH": 3,
+                 "KernelW": 3, "StrideH": 1, "StrideW": 1})
+
+    roi_attrs = {"pooled_height": 7, "pooled_width": 7,
+                 "spatial_scale": 1 / 16}
+    return [
+        ("generate_proposals", "generate_proposals", proposals, 2, 1, None),
+        ("roi_align", "roi_align",
+         lambda R, n: (rois(R, n), {**roi_attrs, "sampling_ratio": 2}),
+         512, 32, None),
+        # roi_pool's n is its channels, at 512 RoIs
+        ("roi_pool", "roi_pool",
+         lambda R, n: (rois(R, 512, channels=n), roi_attrs), 256, 8, None),
+        ("rpn_target_assign", "rpn_target_assign", rpn, 2, 1, None),
+        ("generate_proposal_labels", "generate_proposal_labels", labels,
+         2, 1, None),
+        ("generate_mask_labels", "generate_mask_labels", masks, 2, 1, None),
+        ("yolov3_loss", "yolov3_loss", yolov3, 8, 2, None),
+        ("yolo_box", "yolo_box", yolo_box, 8, 2, None),
+        ("sigmoid_focal_loss", "sigmoid_focal_loss", focal,
+         2 * retina_a, 4096, None),
+        ("retinanet_target_assign", "retinanet_target_assign",
+         retina_assign, 2, 1, None),
+        ("retinanet_detection_output", "retinanet_detection_output",
+         retina_out, 2, 1, None),
+        ("distribute_fpn_proposals", "distribute_fpn_proposals", distribute,
+         2000, 200, None),
+        ("collect_fpn_proposals", "collect_fpn_proposals", collect,
+         2000, 200, None),
+        ("anchor_generator", "anchor_generator", anchors, 200, 50, None),
+        ("density_prior_box", "density_prior_box", density, 32, 8, None),
+        ("prior_box", "prior_box", prior, 38, 38, None),
+        ("box_clip", "box_clip", clip, 2, 1, None),
+        ("polygon_box_transform", "polygon_box_transform", polygon, 8, 2,
+         None),
+        ("box_decoder_and_assign", "box_decoder_and_assign", decode_assign,
+         1000, 64, None),
+        ("roi_perspective_transform", "roi_perspective_transform",
+         perspective, 8, 1, None),
+        ("deformable_psroi_pooling", "deformable_psroi_pooling", psroi,
+         300, 16, None),
+        ("var_conv_2d", "var_conv_2d", var_conv, 256, 16, None),
+    ]
+
+
+def _det_feed(rng, n):
+    """A seeded synthetic SSD batch: images U[0, 1), 1 to DET_MAX_BOXES
+    ground-truth boxes an image (normalized, sides 0.05-0.3, labels
+    1-20), zero rows padding."""
+    import numpy as np
+    gb = np.zeros((n, DET_MAX_BOXES, 4), np.float32)
+    gl = np.zeros((n, DET_MAX_BOXES, 1), np.int64)
+    for i in range(n):
+        for j in range(rng.randint(1, DET_MAX_BOXES + 1)):
+            xy = rng.uniform(0, 0.7, 2)
+            gb[i, j] = [*xy, *(xy + rng.uniform(0.05, 0.3, 2))]
+            gl[i, j, 0] = rng.randint(1, DET_CLASSES)
+    return {"img": rng.rand(n, 3, 300, 300).astype(np.float32),
+            "gt_box": gb, "gt_label": gl}
+
+
+def _ssd_flops(main, batch):
+    """FLOPs of one SSD300 train step's convolutions: each conv2d's
+    forward (2 * its multiply-adds), its filter gradient as much again,
+    and its input gradient as much again except for the first conv's
+    (the image takes no gradient)."""
+    blk = main.global_block
+    fwd = []
+    for op in blk.ops:
+        if op.type == "conv2d":
+            w = blk.var(op.inputs["Filter"][0]).shape
+            o = blk.var(op.outputs["Output"][0]).shape
+            fwd.append(2 * w[0] * w[1] * w[2] * w[3] * o[2] * o[3] * batch)
+    return 3 * sum(fwd) - fwd[0]
+
+
+def _ssd300(seed):
+    """SSD300 at batch 32 on the card: DET_WARMUP + DET_TIMED Momentum
+    steps on one batch and a traced one; the test clone over
+    DET_EVAL_BATCHES batches with DetectionMAP, its first batch rerun
+    after a reset for the same bits; multiclass_nms alone at the eval
+    batch's shape, traced for its launches."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework import registry as treg
+    from paddle_tpu_torch.tools.bench_resnet50 import to_device
+    from paddle_tpu_torch.tools.ssd_cases import NUM_PRIORS, ssd300_programs
+    P = ssd300_programs(ptt, DET_CLASSES, DET_MAX_BOXES, lr=DET_LR,
+                        momentum=DET_MOMENTUM)
+    if tuple(P["priors"].shape) != (NUM_PRIORS, 4):
+        fail(f"detection ssd300: {tuple(P['priors'].shape)} priors")
+    P["startup"].random_seed = seed
+    exe = _card_exe()
+    scope = ptt.Scope()
+    exe.run(P["startup"], scope=scope)
+    rng = np.random.RandomState(seed)
+    feed = to_device(_det_feed(rng, DET_BATCH))
+
+    def step():
+        out, = exe.run(P["main"], feed=feed, fetch_list=[P["loss"]],
+                       scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        return float(out.item())
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(DET_WARMUP + DET_TIMED):
+        t = time.perf_counter()
+        losses.append(step())
+        ms.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    wall, busy, idle, kernels, top = _dcgan_trace(
+        lambda: losses.append(step()))
+    if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"detection ssd300: losses not finite and falling: {losses}")
+    med = float(np.median(ms[DET_WARMUP:]))
+    flops = _ssd_flops(P["main"], DET_BATCH)
+    rec = {"model": "ssd300", "classes": DET_CLASSES, "batch": DET_BATCH,
+           "priors": NUM_PRIORS, "lr": DET_LR, "losses": losses,
+           "step_ms": ms, "median_step_ms": med,
+           "traced_step_wall_ms": wall, "device_busy_ms": busy,
+           "idle_share_traced": idle, "idle_share_median": 1.0 - busy / med,
+           "kernels_a_step": kernels, "top_kernels_ms": top,
+           "peak_bytes": peak, "flops_a_step": flops,
+           "tflops_achieved": flops / (med / 1e3) / 1e12,
+           "fp32_peak_share": flops / (med / 1e3) / PEAK_FP32_FLOPS}
+
+    # the test clone: DetectionMAP over DET_EVAL_BATCHES batches
+    nms = next(op for op in P["test"].global_block.ops
+               if op.type == "multiclass_nms")
+    nms_in = [nms.inputs["BBoxes"][0], nms.inputs["Scores"][0]]
+    fetch = [P["det"], P["cur_map"], P["accum_map"], P["priors"],
+             P["prior_vars"]] + nms_in
+    states = P["metric"]._state_names
+    feeds = [to_device(_det_feed(rng, DET_BATCH))
+             for _ in range(DET_EVAL_BATCHES)]
+
+    def evaluate(k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = exe.run(P["test"], feed=feeds[k], fetch_list=fetch,
+                      scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        return out, [scope.find_var(n).clone() for n in states], \
+            (time.perf_counter() - t) * 1e3
+
+    P["metric"].reset(exe, scope=scope)
+    runs = [evaluate(k) for k in range(DET_EVAL_BATCHES)]
+    P["metric"].reset(exe, scope=scope)
+    again = evaluate(0)
+    first = runs[0][0][:3] + runs[0][1]
+    if not all(torch.equal(a, b) for a, b in zip(first, again[0][:3]
+                                                    + again[1])):
+        fail("detection ssd300: the eval batch's rerun differs")
+    maps = [[float(r[0][1].item()), float(r[0][2].item())] for r in runs]
+    if not all(0.0 <= m <= 1.0 for pair in maps for m in pair):
+        fail(f"detection ssd300: mAP outside [0, 1]: {maps}")
+    det = runs[0][0][0]
+    od = treg.get_op_def("multiclass_nms")
+    nms_ins = {"BBoxes": [runs[0][0][5]], "Scores": [runs[0][0][6]]}
+    ctx = treg.LowerContext(device="cuda")
+    _, nms_busy, _, nms_kernels = _idle_share(
+        lambda: od.lower(ctx, nms_ins, nms.attrs))
+    _, eval_busy, _, eval_kernels = _idle_share(lambda: evaluate(1))
+    rec.update({
+        "eval_ms": [r[2] for r in runs], "eval_rerun_ms": again[2],
+        "eval_kernels": eval_kernels, "eval_busy_ms": eval_busy,
+        "nms_launches": nms_kernels, "nms_busy_ms": nms_busy,
+        "nms_shape": {"BBoxes": list(runs[0][0][5].shape),
+                      "Scores": list(runs[0][0][6].shape)},
+        "detections": int((det[..., 0] >= 0).sum()),
+        "map_cur_accum": maps, "eval_rerun_bitwise": True})
+    return rec, runs[0][0][3].cpu(), runs[0][0][4].cpu()
+
+
+def _det_head(seed, priors, pvars):
+    """SSD300's head card vs CPU port on held loc [4, 8732, 4], conf
+    [4, 8732, 21] and ground truth: ssd_loss (iou_similarity,
+    bipartite_match, mine_hard_examples, box_coder, target_assign),
+    its gradients with respect to loc and conf, detection_output
+    (box_coder's decode and multiclass_nms) over the softmax of conf
+    computed once on the CPU and fed to both, and DetectionMAP; the card
+    run twice for the same bits."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    L = ptt.layers
+    b, p = DET_HEAD_BATCH, priors.shape[0]
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.unique_name_guard(), ptt.program_guard(main, startup):
+        def d(name, shape, dtype="float32", grad=False):
+            return L.data(name, shape, dtype=dtype, append_batch_size=False,
+                          stop_gradient=not grad)
+        loc = d("loc", [b, p, 4], grad=True)
+        conf = d("conf", [b, p, DET_CLASSES], grad=True)
+        scores = d("scores", [b, DET_CLASSES, p])
+        pb, pv = d("priors", [p, 4]), d("prior_vars", [p, 4])
+        gt_box = d("gt_box", [b, DET_MAX_BOXES, 4])
+        gt_label = d("gt_label", [b, DET_MAX_BOXES, 1], "int64")
+        loss = L.reduce_sum(L.detection.ssd_loss(loc, conf, gt_box,
+                                                 gt_label, pb, pv))
+        ptt.append_backward(loss)
+        det, num = L.detection.detection_output(
+            loc, scores, pb, pv, nms_threshold=0.45, nms_top_k=400,
+            keep_top_k=200, score_threshold=0.01)
+        metric = ptt.metrics.DetectionMAP(det, gt_label, gt_box,
+                                          class_num=DET_CLASSES)
+        cur, accum = metric.get_map_var()
+    rng = np.random.RandomState(seed + 7)
+    f = _det_feed(rng, b)
+    conf_v = (rng.randn(b, p, DET_CLASSES) * 2).astype(np.float32)
+    sc = torch.softmax(torch.from_numpy(conf_v), -1).transpose(1, 2)
+    feed = {"loc": (rng.randn(b, p, 4) * 0.5).astype(np.float32),
+            "conf": conf_v, "scores": sc.contiguous().numpy(),
+            "priors": priors.numpy(), "prior_vars": pvars.numpy(),
+            "gt_box": f["gt_box"], "gt_label": f["gt_label"]}
+    fetch = [loss, "loc@GRAD", "conf@GRAD", det, num, cur, accum]
+
+    def run(exe):
+        scope = ptt.Scope()
+        exe.run(startup, scope=scope)
+        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                      return_numpy=False)
+        return [t.cpu() for t in out] + [
+            scope.find_var(n).cpu() for n in metric._state_names]
+
+    cpu = run(ptt.Executor(ptt.CPUPlace()))
+    card = run(_card_exe())
+    again = run(_card_exe())
+    if not all(torch.equal(a, b_) for a, b_ in zip(card, again)):
+        fail("detection head: the card's second run differs")
+    loss_err = abs(float(card[0]) - float(cpu[0]))
+    if loss_err > DET_LOSS_RTOL * abs(float(cpu[0])) + DET_LOSS_ATOL:
+        fail(f"detection head: loss {float(card[0])} on the card, "
+             f"{float(cpu[0])} on the CPU")
+    grad_err = [_op_test_rel(card[k], cpu[k]) for k in (1, 2)]
+    if max(grad_err) > CORE_GRAD_TOL:
+        fail(f"detection head: loc/conf gradients lie {grad_err} (op_test's "
+             f"max relative error) from the CPU port's")
+    rows_d, rows_c = card[3], cpu[3]
+    if not (torch.equal(rows_d[..., :2], rows_c[..., :2])
+            and torch.equal(card[4], cpu[4])):
+        fail("detection head: the detections' labels, scores or counts "
+             "differ from the CPU port's")
+    box_err = float((rows_d - rows_c).abs().max())
+    if box_err > CORE_OUT_RTOL * float(rows_c.abs().max()) + CORE_OUT_ATOL:
+        fail(f"detection head: detection boxes lie {box_err} from the CPU "
+             f"port's")
+    if not all(torch.equal(a, b_) for a, b_ in zip(card[7:], cpu[7:])):
+        fail("detection head: the mAP states differ from the CPU port's")
+    map_err = max(abs(float(card[k]) - float(cpu[k])) for k in (5, 6))
+    if map_err > CORE_OUT_RTOL + CORE_OUT_ATOL:
+        fail(f"detection head: mAP lies {map_err} from the CPU port's")
+    return {"shape": {"loc": [b, p, 4], "conf": [b, p, DET_CLASSES]},
+            "loss": float(card[0]), "cpu_loss": float(cpu[0]),
+            "loss_abs_err": loss_err, "grad_rel_err": grad_err,
+            "box_abs_err": box_err, "detections": int(card[4].sum()),
+            "map": [float(card[5]), float(card[6])], "map_abs_err": map_err,
+            "rerun_bitwise": True}
+
+
+def phase_detection(seed):
+    """Phase 4n: SSD300 at the paper's shape on the card, its head card
+    against the CPU port, every other detection op type card against the
+    CPU port at its model's shape. TF32 off and cuDNN's deterministic
+    algorithms on (var_conv_2d's filter gradient reruns bitwise only
+    so). No hand kernel launches. In a child process
+    (--detection-only)."""
+    import torch
+    from paddle_tpu_torch.framework import registry as treg
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    zero_counts(KERNELS)
+    # ---- the main path: counts zeroed just before, read just after -----
+    ssd, priors, pvars = _ssd300(seed)
+    emit({"phase": "detection", "part": "ssd300", **ssd})
+    _free_card()
+    t = time.perf_counter()
+    head = _det_head(seed, priors, pvars)
+    head["wall_s"] = time.perf_counter() - t
+    emit({"phase": "detection", "part": "head", **head})
+    rows = []
+    for k, case in enumerate(_det_cases()):
+        t = time.perf_counter()
+        row = _core_row(case, seed + k, tag="detection")
+        row["row_s"] = time.perf_counter() - t
+        rows.append(row)
+        emit({"phase": "detection", "part": "op", **row})
+        _free_card()
+    # the 6000-step NMS loop of generate_proposals at its full shape,
+    # traced for its launches
+    name, op, make, n_full, _, _ = _det_cases()[0]
+    fins, attrs = make(_CoreRand("cuda", seed), n_full)
+    od = treg.get_op_def(op)
+    _, gp_busy, _, gp_kernels = _idle_share(
+        lambda: od.lower(treg.LowerContext(device="cuda"), fins, attrs))
+    del fins
+    launches = read_counts(KERNELS)
+    # -------------------------------------------------------------------
+    if any(launches.values()):
+        fail(f"detection: the phase launched hand kernels: {launches}")
+    import paddle_tpu_torch.ops.detection_extra_ops as dx
+    import paddle_tpu_torch.ops.detection_ops as dd
+    ported = {op for op, d in treg._REGISTRY.items() if d.lower is not None
+              and d.lower.__module__ in (dd.__name__, dx.__name__)}
+    held = {r["op"] for r in rows} | {
+        "iou_similarity", "bipartite_match", "mine_hard_examples",
+        "box_coder", "target_assign", "multiclass_nms", "detection_map"}
+    if held != ported:
+        fail(f"detection: op types without a card check: {ported - held}")
+    summary = {"phase": "detection",
+               "device": torch.cuda.get_device_name(0),
+               "op_types": len(held), "registered": len(treg._REGISTRY),
+               "ssd300": {k: v for k, v in ssd.items()
+                          if k not in ("losses", "step_ms")},
+               "head": head, "generate_proposals_launches": gp_kernels,
+               "generate_proposals_busy_ms": gp_busy, "launches": launches,
+               "wall_s": time.perf_counter() - t_phase}
+    emit(summary)
+    return summary
+
+
 # The quant phase runs last, and only when it can start by QUANT_START_BY
 # seconds into the run: it took 111-147 s, and on the slowest host seen
 # the whole script with it took ~1270 s of the 1200 allowed (PERF.md §7).
@@ -7809,37 +8432,58 @@ QUANT_START_BY = 950
 
 def _quant_last(seed, elapsed):
     """Phase 4d in its child when `elapsed` leaves it room, else a
-    summary saying it was cut."""
+    summary saying it was cut. The child starts only now, after the
+    times phase, so that its start-up overlaps no timed window."""
     if elapsed <= QUANT_START_BY:
         _free_card()
-        return in_child(seed, "--quant-only")
+        return _Child(seed, "--quant-only").run()
     summary = {"phase": "quant", "cut": True, "elapsed_s": elapsed,
                "start_by_s": QUANT_START_BY}
     emit(summary)
     return summary
 
 
-def in_child(seed, flag):
-    """Phase 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h, 4i, 4j, 4k, 4l or 4m in a
+class _Child:
+    """Phase 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h, 4i, 4j, 4k, 4l, 4m or 4n in a
     process of its own (this script with --engine-only, --server-only,
     --spec-only, --quant-only, --adapters-only, --bench-only, --nmt-only,
-    --lenet-only, --optim-only, --rnn-only, --io-only, --ps-only or
-    --core-only), its JSON
-    lines passed through, its summary returned. After the engine's run, torch.profiler traces taken
-    later in the same process lost one kernel record a trace (PERF.md §6,
-    the engine's calls 2-7), which the times phase's device-time checks
-    refuse; the child's exit takes that state with it."""
-    r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--seed", str(seed), flag],
-                       cwd=HERE, capture_output=True, text=True,
-                       timeout=900)
-    sys.stderr.write(r.stderr)
-    lines = r.stdout.splitlines()
-    for line in lines:
-        print(line, flush=True)
-    if r.returncode != 0 or not lines:
-        fail(f"{flag} phase: the child process exited {r.returncode}")
-    return json.loads(lines[-1])
+    --lenet-only, --optim-only, --rnn-only, --io-only, --ps-only,
+    --core-only or --detection-only, and --warm). Once started it imports
+    torch and the package and opens its CUDA context, then waits for a
+    line on its stdin; `run` sends it, passes
+    its JSON lines through and returns its summary. After the engine's run,
+    torch.profiler traces taken later in the same process lost one kernel
+    record a trace (PERF.md §6, the engine's calls 2-7), which the times
+    phase's device-time checks refuse; the child's exit takes that state
+    with it."""
+
+    def __init__(self, seed, flag):
+        self.flag = flag
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             flag, "--warm"], cwd=HERE, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def run(self):
+        try:
+            out, err = self.proc.communicate("go\n", timeout=900)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            fail(f"{self.flag} phase: the child process ran past 900 s")
+        sys.stderr.write(err)
+        lines = out.splitlines()
+        for line in lines:
+            print(line, flush=True)
+        if self.proc.returncode != 0 or not lines:
+            fail(f"{self.flag} phase: the child process exited "
+                 f"{self.proc.returncode}")
+        return json.loads(lines[-1])
+
+    def stop(self):
+        """End the process if it still runs (a phase before it failed)."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
 
 
 def main():
@@ -7874,9 +8518,20 @@ def main():
                       help="run phase 4l alone, likewise")
     only.add_argument("--core-only", action="store_true",
                       help="run phase 4m alone, likewise")
+    only.add_argument("--detection-only", action="store_true",
+                      help="run phase 4n alone, likewise")
+    ap.add_argument("--warm", action="store_true",
+                    help="with a --*-only flag: import the package and "
+                         "open the CUDA context, then wait for a line on "
+                         "stdin before the phase (how the full run starts "
+                         "its children ahead)")
     args = ap.parse_args()
     preflight()
     import torch
+    if args.warm:
+        import paddle_tpu_torch  # noqa: F401
+        torch.empty(1, device="cuda")
+        sys.stdin.readline()
 
     alone = (phase_engine if args.engine_only else
              phase_server if args.server_only else
@@ -7890,7 +8545,8 @@ def main():
              phase_rnn if args.rnn_only else
              phase_io if args.io_only else
              phase_ps if args.ps_only else
-             phase_core if args.core_only else None)
+             phase_core if args.core_only else
+             phase_detection if args.detection_only else None)
     if alone is not None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -7914,44 +8570,55 @@ def main():
               .allow_bf16_reduced_precision_reduction})
     os.makedirs(OUT_DIR, exist_ok=True)
     t0 = time.perf_counter()
+    walls = {}      # each phase's wall seconds, the children's included
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        walls[name] = time.perf_counter() - t
+        return out
+
+    names = ("engine", "server", "spec", "adapters", "bench", "nmt",
+             "lenet", "optim", "rnn", "io", "ps", "core", "detection")
+    # each child is started one phase ahead (_Child): its imports and
+    # CUDA context overlap the phase before it (the engine's, the build)
+    pending = _Child(args.seed, "--engine-only")
     try:
-        build = phase_build()
-        kernels = phase_kernels(args.seed)
-        serve = phase_serve(args.seed)
-        engine = in_child(args.seed, "--engine-only")
-        server = in_child(args.seed, "--server-only")
-        spec = in_child(args.seed, "--spec-only")
-        adapters = in_child(args.seed, "--adapters-only")
-        bench = in_child(args.seed, "--bench-only")
-        nmt = in_child(args.seed, "--nmt-only")
-        lenet = in_child(args.seed, "--lenet-only")
-        optim = in_child(args.seed, "--optim-only")
-        rnn = in_child(args.seed, "--rnn-only")
-        io_ = in_child(args.seed, "--io-only")
-        ps = in_child(args.seed, "--ps-only")
-        core = in_child(args.seed, "--core-only")
-        train = phase_train(args.seed)
-        bert = phase_bert(args.seed)
-        resnet = phase_resnet(args.seed)
-        spike = phase_spike(args.seed)
-        rows = phase_times(serve, train, bert, optim, spike, args.seed)
-        quant = _quant_last(args.seed, time.perf_counter() - t0)
+        build = timed("build", phase_build)
+        kernels = timed("kernels", phase_kernels, args.seed)
+        serve = timed("serve", phase_serve, args.seed)
+        children = {}
+        for k, name in enumerate(names):
+            current, pending = pending, None
+            if k + 1 < len(names):
+                pending = _Child(args.seed, f"--{names[k + 1]}-only")
+            children[name] = timed(name, current.run)
+        train = timed("train", phase_train, args.seed)
+        bert = timed("bert", phase_bert, args.seed)
+        resnet = timed("resnet", phase_resnet, args.seed)
+        spike = timed("spike", phase_spike, args.seed)
+        rows = timed("times", phase_times, serve, train, bert,
+                     children["optim"], spike, args.seed)
+        walls["quant_start"] = time.perf_counter() - t0
+        quant = timed("quant", _quant_last, args.seed,
+                      walls["quant_start"])
     finally:
+        if pending is not None:
+            pending.stop()
         shutil.rmtree(WORK_DIR, ignore_errors=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "seed": args.seed,
                    "wall_s": time.perf_counter() - t0, "build": build,
                    "kernel_cases": kernels, "serve": serve["summary"],
-                   "engine": engine, "server": server, "spec": spec,
-                   "quant": quant, "adapters": adapters, "bench": bench,
-                   "nmt": nmt, "lenet": lenet, "optim": optim,
-                   "rnn": rnn, "io": io_, "ps": ps, "core": core,
+                   **children, "quant": quant, "walls_s": walls,
                    "train": train["summaries"],
                    "bert": bert["runs"],
                    "resnet": resnet, "spike": spike["rows"],
                    "spike_conv_bn": spike["conv_bn_rows"],
                    "requests": serve["requests"], "kernels": rows}, f,
                   indent=1)
+    emit({"phase": "walls", "walls_s": walls,
+          "total_s": time.perf_counter() - t0})
     print(card, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -3,7 +3,8 @@ math}.py` (every name of the JAX package's three files), control flow
 (`layers.control_flow`: While, cond, Switch, StaticRNN, DynamicRNN,
 IfElse), the sequence and RNN layers (`layers.sequence`, `layers.rnn`),
 the LR schedules (`layers.learning_rate_scheduler`), the decoders
-(`layers.decode`) and `layers.distributions`."""
+(`layers.decode`), `layers.distributions` and the detection layers
+(`layers.detection`)."""
 
 from .math import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403
@@ -12,6 +13,7 @@ from .sequence import *  # noqa: F401,F403
 from .learning_rate_scheduler import *  # noqa: F401,F403
 from .control_flow import *  # noqa: F401,F403
 from .rnn import *  # noqa: F401,F403
+from .detection import *  # noqa: F401,F403
 
 from . import math  # noqa: F401
 from . import nn  # noqa: F401
@@ -22,3 +24,4 @@ from . import control_flow  # noqa: F401
 from . import rnn  # noqa: F401
 from . import decode  # noqa: F401
 from . import distributions  # noqa: F401
+from . import detection  # noqa: F401

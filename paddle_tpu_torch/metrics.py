@@ -3,9 +3,8 @@
 These accumulate numpy fetches across batches; in-graph per-batch metrics
 come from the metric ops (accuracy op, ops/nn_ops.py; auc and
 precision_recall, ops/metrics_ops.py). A copy of `paddle_tpu/metrics.py`
-(numpy only); `DetectionMAP` builds over the detection_map op, which comes
-with the detection ops (ROADMAP A.7, the long tail), and raises until
-then."""
+(numpy only); `DetectionMAP` builds over the detection_map op
+(ops/detection_extra_ops.py)."""
 
 from __future__ import annotations
 
@@ -221,10 +220,27 @@ class DetectionMAP:
                  class_num=None, background_label=0,
                  overlap_threshold=0.5, evaluate_difficult=True,
                  ap_version="integral"):
-        raise NotImplementedError(
-            "DetectionMAP builds over the detection_map op, which is not "
-            "ported to paddle_tpu_torch yet (ROADMAP A.7, the detection "
-            "ops)")
+        from . import layers
+
+        if class_num is None:
+            raise ValueError("DetectionMAP requires class_num")
+        parts = [layers.cast(gt_label, "float32"),
+                 layers.cast(gt_box, "float32")]
+        if gt_difficult is not None:
+            parts.append(layers.cast(gt_difficult, "float32"))
+        label6 = layers.concat(parts, axis=2)
+
+        kw = dict(background_label=background_label,
+                  overlap_threshold=overlap_threshold,
+                  evaluate_difficult=evaluate_difficult,
+                  ap_version=ap_version)
+        # current-batch mAP: stateless (fresh zero state every step)
+        self.cur_map = layers.detection.detection_map(
+            input, label6, class_num, has_state=False, **kw)
+        # accumulated mAP: persistable bucketized state
+        self.accum_map, states = layers.detection.detection_map(
+            input, label6, class_num, return_states=True, **kw)
+        self._state_names = [v.name for v in states]
 
     def get_map_var(self):
         return self.cur_map, self.accum_map

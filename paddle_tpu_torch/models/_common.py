@@ -23,14 +23,17 @@ def layer_norm(x, name):
         bias_attr=ParamAttr(name=f"{name}.bias"))
 
 
-def ffn(x, cfg, prefix, names):
-    """Two-matmul feed-forward: hidden -> cfg.ffn (gelu) -> hidden. gelu is
-    the tanh approximation (GPT-2's gelu_new)."""
+def ffn(x, cfg, prefix, names=("ffn1", "ffn2"), act="gelu"):
+    """Two-matmul feed-forward: hidden -> cfg.ffn (act) -> hidden. gelu is
+    the tanh approximation (GPT-2's gelu_new, BERT's TF modeling.py); any
+    other `act` is the first fc's activation."""
     n1, n2 = names
     h1 = pt.layers.fc(x, cfg.ffn, num_flatten_dims=2,
+                      act=None if act == "gelu" else act,
                       param_attr=attr(f"{prefix}/{n1}.w", cfg),
                       bias_attr=ParamAttr(name=f"{prefix}/{n1}.b"))
-    h1 = pt.layers.gelu(h1, approximate=True)
+    if act == "gelu":
+        h1 = pt.layers.gelu(h1, approximate=True)
     return pt.layers.fc(h1, cfg.hidden, num_flatten_dims=2,
                         param_attr=attr(f"{prefix}/{n2}.w", cfg),
                         bias_attr=ParamAttr(name=f"{prefix}/{n2}.b"))

@@ -132,17 +132,20 @@ def _jax_family(cases):
                 return _jd.lower(jreg.LowerContext(
                     rng_key=jax.random.PRNGKey(0)), a, _attrs)
 
-            grads = ()
-            if wrt:
-                def f(*flat, _ins=ins, _wrt=wrt, _outs=outs, _lower=lower):
-                    b = {s: list(v) for s, v in _ins.items()}
-                    for (s, i), a in zip(_wrt, flat):
-                        b[s][i] = a
-                    r = _lower(b)
-                    return tuple(r[s][i] for s, i, _ in _outs)
-                _, vjp = jax.vjp(f, *[ins[s][i] for s, i in wrt])
-                grads = vjp(tuple(cots))
-            res.append((lower(ins), grads))
+            if not wrt:
+                res.append((lower(ins), ()))
+                continue
+
+            # the vjp's aux output is the whole forward: one trace a rule
+            def f(*flat, _ins=ins, _wrt=wrt, _outs=outs, _lower=lower):
+                b = {s: list(v) for s, v in _ins.items()}
+                for (s, i), a in zip(_wrt, flat):
+                    b[s][i] = a
+                r = _lower(b)
+                return tuple(r[s][i] for s, i, _ in _outs), r
+            _, vjp, fwd = jax.vjp(f, *[ins[s][i] for s, i in wrt],
+                                  has_aux=True)
+            res.append((fwd, vjp(tuple(cots))))
         return res
 
     all_ins = [{s: [jnp.asarray(a) for a in v]

@@ -409,8 +409,15 @@ def test_metric_classes_and_weighted_average_match_jax():
     for j, t in zip(*res):
         np.testing.assert_allclose(np.asarray(t, np.float64),
                                    np.asarray(j, np.float64), rtol=1e-12)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        ptt.metrics.DetectionMAP(None, None, None, class_num=3)
+    # DetectionMAP builds over the detection_map op since the detection
+    # slice (its values: tests/test_torch_detection_models.py)
+    with ptt.program_guard(ptt.Program(), ptt.Program()):
+        L = ptt.layers
+        dm = ptt.metrics.DetectionMAP(
+            L.data("det", [2, 3, 6], append_batch_size=False),
+            L.data("gl", [2, 1, 1], dtype="int64", append_batch_size=False),
+            L.data("gb", [2, 1, 4], append_batch_size=False), class_num=3)
+        assert [v.dtype for v in dm.get_map_var()] == ["float32"] * 2
 
 
 def test_loss_and_metric_slice_imports_neither_jax_nor_paddle_tpu():
