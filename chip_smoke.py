@@ -469,6 +469,39 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 the rows of DET_FULL_ON_CPU card vs CPU port at the full
                 shape too. No hand kernel launches. In a child process
                 (--detection-only);
+  4o. nn_extra -- the op library's long tail (ops/nn_extra_ops.py, the
+                rest of misc_ops.py and extra_ops.py, layers/nn_extra.py):
+                (1) ResNet-50 with DCNv2's modulated deformable 3x3 units
+                in conv3-conv5 (tools/dcn_cases.py: Zhu et al. 2019; 13
+                units asserted, each fed by a zero-initialised 27-channel
+                offset/mask conv; 224x224, 1000 classes, fp32, batch 32,
+                Momentum 0.9 at lr 1e-3 from random weights): from the
+                startup values each unit's output is 0.5 x cuDNN conv2d
+                of its input (within 1e-5 * max + 1e-6); one step from the
+                same state twice for the same bits (loss and every
+                persistable); DCN_WARMUP + DCN_TIMED steps on one seeded
+                batch (losses finite and falling; median step ms of the
+                timed steps, device busy ms, kernels and idle share of one
+                traced step, peak bytes, FLOPs a step with each unit's
+                sampling and GEMM, _dcn_flops, against 67 TFLOP/s); (2)
+                two of its bottlenecks (conv3's first two, [4, 256, 28,
+                28], offset convs drawn non-zero) card vs CPU port: the
+                loss within 1e-5 * |loss| + 1e-6, the card twice bitwise,
+                each unit's rule at the card run's own tensors and
+                output gradient (output 1e-5 * max + 1e-6; Input, Offset
+                and Filter gradients op_test's 5e-3); the program's
+                gradients recorded beside the count of ReLU inputs whose
+                sign differs (kinks, _dcn_held); (3) every other new op
+                type at its model's shape
+                (R-FCN's psroi_pool, the spatial transformer, SegNet,
+                TSM, ShuffleNet, the CTR ops at bench_deepfm_ps's width,
+                the 1B-Word sampled softmax, the speech recurrences, ...),
+                phase 4m's rows, NN_EXTRA_FULL_ON_CPU's at the full shape
+                too; the random ops on invariants, sample_logits' explicit
+                grad and the SelectedRows helpers card vs CPU port and
+                twice bitwise; the phase fails if an op type of the three
+                rule files has no card check. No hand kernel launches. In
+                a child process (--nn-extra-only);
   5. train   -- GPT-2 small (dropout 0.1) train programs with Adam through
                 Executor.run on CUDAPlace(0): 3 steps at s=1024 b=2
                 (flash_fwd, flash_bwd_dkv, flash_bwd_dq) and 3 at s=512
@@ -7334,9 +7367,9 @@ def _op_test_rel(a, b):
 
 def _core_row(case, seed, tag="core"):
     """One op: held inputs card vs CPU port; the full shape on the card
-    twice (same bits) and timed, and for the rows of CORE_FULL_ON_CPU and
-    DET_FULL_ON_CPU card vs CPU port at the full shape too. `tag` names
-    the phase in a failure."""
+    twice (same bits) and timed, and for the rows of CORE_FULL_ON_CPU,
+    DET_FULL_ON_CPU and NN_EXTRA_FULL_ON_CPU card vs CPU port at the full
+    shape too. `tag` names the phase in a failure."""
     import torch
     name, op, make, n_full, n_held, flops_fn = case
     ins, attrs = make(_CoreRand("cpu", seed), n_held)
@@ -7359,12 +7392,13 @@ def _core_row(case, seed, tag="core"):
     if not bitwise:
         fail(f"{tag} {name}: two launches at the full shape differ")
     full_err, unheld = None, {}
-    if name in CORE_FULL_ON_CPU or name in DET_FULL_ON_CPU:
+    unheld_at_full = {**DET_FULL_ON_CPU, **NN_EXTRA_FULL_ON_CPU}
+    if name in CORE_FULL_ON_CPU or name in unheld_at_full:
         cfull = _core_eval(op, {s: [t.cpu() for t in v]
                                 for s, v in fins.items()}, attrs, "cpu",
                            cots=[c.cpu() for c in first[2] or []] or None,
                            seed=seed)
-        skip = DET_FULL_ON_CPU.get(name, ())
+        skip = unheld_at_full.get(name, ())
 
         def held(res):
             return res[0], [g for g in res[1] if g[0] not in skip]
@@ -8424,6 +8458,775 @@ def phase_detection(seed):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 4o: the op library's long tail: a DCNv2 ResNet-50 trained at batch
+# 32, two of its bottlenecks card against the CPU port, and every other new
+# op type at its model's shape
+# ---------------------------------------------------------------------------
+
+# DCNv2 ResNet-50 (Zhu et al., "Deformable ConvNets v2", CVPR 2019,
+# sections 3-4; paddle_tpu_torch/tools/dcn_cases.py): 13 modulated
+# deformable 3x3 units in conv3-conv5, ImageNet's 224x224 and 1000
+# classes, fp32 with TF32 off, batch 32, Momentum 0.9, on one seeded batch
+# fed every step. The weights are random and the batch is one, so the
+# learning rate is 1e-3, not Goyal et al.'s linear-scaled 0.1 * 32 / 256:
+# on one batch from random weights 0.0125 made the loss fall and climb
+# again within 8 steps (a CPU rehearsal at batch 8, 64x64), 1e-3 fell
+# every step
+DCN_CLASSES, DCN_IMAGE, DCN_BATCH = 1000, 224, 32
+DCN_LR, DCN_MOMENTUM = 1e-3, 0.9
+DCN_WARMUP, DCN_TIMED = 3, 5     # steps; the first is the bitwise pair's
+# the two held bottlenecks: conv3's first two blocks (stride 2, then 1) on
+# a [4, 256, 28, 28] input, each offset conv drawn N(0, 0.05^2) so that
+# the samples lie about a pixel off the grid
+DCN_HELD_SHAPE = (4, 256, 28, 28)
+DCN_HELD_OFFSET_STD = 0.05
+# the zero-offset identity: each unit's output against 0.5 x cuDNN conv2d
+# of its input with its filter, within DCN_ID_RTOL * max + DCN_ID_ATOL
+DCN_ID_RTOL, DCN_ID_ATOL = 1e-5, 1e-6
+# rows held card vs CPU port at the full shape too: their gradients or
+# forwards sum over repeated indices (the samplers' corners, the RoIs over
+# a location, the repeated labels and classes, the windows' positions).
+# Each maps to the gradients held at the held shape only: deformable_conv's
+# Offset gradient is the bilinear samples' one-sided slope, which jumps
+# where a sample lies within rounding of a grid line (DET_FULL_ON_CPU's
+# Trans); its full-shape gap and count past CORE_GRAD_TOL are recorded
+NN_EXTRA_FULL_ON_CPU = {"grid_sampler": (), "unpool": (), "psroi_pool": (),
+                        "center_loss": (), "mean_iou": (),
+                        "unique_with_counts": (),
+                        "deformable_conv": ("Offset",)}
+
+
+def _nn_extra_cases():
+    """(name, op type, make(R, n) -> (inputs, attrs), full n, held n,
+    flops(inputs, attrs, outputs) or None) for every op type of the slice
+    but the random ones and the SelectedRows helpers (_nn_extra_special),
+    each at the shape of a model that runs it: DCNv2's conv4 unit, the
+    spatial transformer (448x448 in, 224x224 sampled), SegNet on VGG-16's
+    first maps, SPP-net's conv5, R-FCN (21 classes, 7x7 bins, 300 RoIs of
+    two 600x1000 images at 1/16), TSM (8 segments), ShuffleNet (g = 3),
+    the CTR ops at bench_deepfm_ps's width (batch 512, 26 fields, 16-wide
+    embeddings, a 1e5 vocabulary), the 1B-Word sampled softmax (793471
+    classes, 8192 samples), the speech recurrences (DeepSpeech2-style
+    row_conv with 20 frames of lookahead, LSTMP 1024 cells projected to
+    256, 50 frames), CASIA-WebFace's center loss (10575 identities, 512-d),
+    VOC segmentation's mean IoU (21 classes, 512x512), NTN, NTM and the
+    rest at the layer they serve."""
+    import torch
+
+    def shaped(op, make, n_full, n_held, flops=None):
+        return (op, op, make, n_full, n_held, flops)
+
+    def deform(R, n):
+        return ({"Input": [R.randn(n, 256, 28, 28)],
+                 "Offset": [R.randn(n, 18, 14, 14) * 2.0],
+                 "Mask": [R.uniform(0, 1, n, 9, 14, 14)],
+                 "Filter": [R.randn(256, 256, 3, 3) * 0.03]},
+                {"strides": [2, 2], "paddings": [1, 1], "dilations": [1, 1]})
+
+    def deform_flops(ins, attrs, out):
+        n, c = ins["Input"][0].shape[:2]
+        oc, l = out["Output"][0].shape[1], out["Output"][0][0, 0].numel()
+        return 2 * n * oc * c * 9 * l + 8 * n * c * 9 * l
+
+    def stn(R, n):
+        return ({"X": [R.randn(n, 3, 448, 448)],
+                 "Grid": [R.uniform(-1.1, 1.1, n, 224, 224, 2)]}, {})
+
+    def unpool(R, n):
+        dy, dx = R.ints(2, n, 64, 112, 112), R.ints(2, n, 64, 112, 112)
+        iy = torch.arange(112, device=R.device)[:, None] * 2 + dy
+        ix = torch.arange(112, device=R.device)[None, :] * 2 + dx
+        return ({"X": [R.randn(n, 64, 112, 112)],
+                 "Indices": [(iy * 224 + ix).int()]},
+                {"unpooled_size": [224, 224]})
+
+    def psroi(R, n):
+        # n is the class count, at 300 RoIs of two images
+        xy = R.uniform(0, 1, 300, 2) * torch.tensor([900.0, 500.0],
+                                                    device=R.device)
+        wh = R.uniform(16, 400, 300, 2)
+        rois = torch.cat([xy, torch.minimum(
+            xy + wh, torch.tensor([999.0, 599.0], device=R.device))], 1)
+        return ({"X": [R.randn(2, n * 49, 38, 63)], "ROIs": [rois],
+                 "RoisNum": [torch.tensor([150, 150], dtype=torch.int32,
+                                          device=R.device)]},
+                {"pooled_height": 7, "pooled_width": 7,
+                 "output_channels": n, "spatial_scale": 1 / 16})
+
+    def ctr_x(R, n):
+        return torch.cat([R.pos(n, 2) * 10.0, R.randn(n, 16)], 1)
+
+    def tree(R, n):
+        k = torch.arange(1, 64, device=R.device)
+        parent = (R.uniform(0, 1, n, 63) * k).floor().long() + 1
+        edges = torch.stack([parent, (k + 1).expand(n, 63)], -1)
+        return ({"EdgeSet": [edges], "NodesVector": [R.randn(n, 64, 100)],
+                 "Filter": [R.randn(100, 3, 64, 1) * 0.1]}, {"max_depth": 2})
+
+    def sample_logits(R, n):
+        k = 793471
+        labels = R.ints(k, n, 1)
+        return ({"Logits": [R.randn(n, k)], "Labels": [labels],
+                 "CustomizedSamples": [torch.cat([labels,
+                                                  R.ints(k, n, 8192)], 1)],
+                 "CustomizedProbabilities": [R.uniform(1e-6, 1e-2, n,
+                                                       8193)]},
+                {"num_samples": 8192, "use_customized_samples": True,
+                 "remove_accidental_hits": True})
+
+    def rnn(op, ins_fn):
+        return shaped(op, lambda R, n: (ins_fn(R, n), {}), 32, 2)
+
+    def labels(R, n):
+        return [R.ints(2, n, 1).float()]
+
+    def matmul_flops(ins, attrs, out):
+        x, w = ins["Input"][0], ins["W"][0]
+        return 2 * x.shape[0] * w.shape[0] * w.shape[1]
+
+    return [
+        # spatial transforms, samplers and pools
+        shaped("affine_channel", lambda R, n: (
+            {"X": [R.randn(n, 256, 56, 56)], "Scale": [R.pos(256)],
+             "Bias": [R.randn(256)]}, {}), 32, 2),
+        shaped("affine_grid", lambda R, n: (
+            {"Theta": [R.randn(n, 2, 3) * 0.5]},
+            {"output_shape": [n, 3, 224, 224]}), 32, 2),
+        shaped("grid_sampler", stn, 32, 2),
+        shaped("max_pool2d_with_index", lambda R, n: (
+            {"X": [(R.randn(n, 64, 224, 224) * 4).round() / 4]},
+            {"ksize": [2, 2], "strides": [2, 2]}), 8, 1),
+        shaped("unpool", unpool, 8, 1),
+        shaped("spp", lambda R, n: (
+            {"X": [R.randn(n, 256, 13, 13)]},
+            {"pyramid_height": 3, "pooling_type": "max"}), 64, 2),
+        shaped("psroi_pool", psroi, 21, 4),
+        shaped("deformable_conv", deform, 32, 2, deform_flops),
+        # CTR, ranking and distillation
+        shaped("cvm", lambda R, n: ({"X": [ctr_x(R, n)],
+                                     "CVM": [R.pos(n, 2)]}, {}), 13312, 64),
+        shaped("data_norm", lambda R, n: (
+            {"X": [R.randn(n, 416)], "BatchSize": [R.pos(416) * 1e4],
+             "BatchSum": [R.randn(416) * 100],
+             "BatchSquareSum": [R.pos(416) * 1e4]}, {}), 512, 8),
+        shaped("filter_by_instag", lambda R, n: (
+            {"Ins": [R.randn(n, 416)], "Ins_tag": [R.ints(16, n, 4)],
+             "Filter_tag": [R.ints(16, 8)]}, {}), 512, 16),
+        shaped("hash", lambda R, n: (
+            {"X": [R.ints(1 << 40, n, 1) - (1 << 39)]},
+            {"num_hash": 2, "mod_by": 100000}), 13312, 64),
+        shaped("unique", lambda R, n: ({"X": [R.ints(1000, n)]}, {}),
+               13312, 256),
+        shaped("unique_with_counts", lambda R, n: (
+            {"X": [R.ints(1000, n)]}, {}), 13312, 256),
+        shaped("positive_negative_pair", lambda R, n: (
+            {"Score": [(R.randn(n, 1) * 4).round()],
+             "Label": [R.ints(3, n, 1).float()],
+             "QueryID": [torch.arange(n, device=R.device)[:, None]
+                         // 32]}, {}), 4096, 64),
+        shaped("similarity_focus", lambda R, n: (
+            {"X": [(R.randn(n, 3, 48, 48) * 4).round()]},
+            {"axis": 1, "indexes": [0, 2]}), 64, 2),
+        shaped("match_matrix_tensor", lambda R, n: (
+            {"X": [R.randn(n, 40, 128)], "Y": [R.randn(n, 40, 128)],
+             "W": [R.randn(128, 4, 128) * 0.1]}, {}), 64, 2,
+            lambda ins, a, o: 2 * ins["X"][0].shape[0] * 40 * 128 * 4
+            * (128 + 40)),
+        shaped("fsp", lambda R, n: (
+            {"X": [R.randn(n, 256, 28, 28)], "Y": [R.randn(n, 256, 28, 28)]},
+            {}), 32, 1,
+            lambda ins, a, o: 2 * ins["X"][0].shape[0] * 256 * 256 * 784),
+        # losses with state, the samplers' gathers, the recurrences
+        shaped("center_loss", lambda R, n: (
+            {"X": [R.randn(n, 512)], "Label": [R.ints(1000, n, 1)],
+             "Centers": [R.randn(10575, 512)],
+             "CenterUpdateRate": [torch.full((1,), 0.5, device=R.device)]},
+            {}), 512, 64),
+        shaped("sample_logits", sample_logits, 128, 2),
+        shaped("lstm_unit", lambda R, n: (
+            {"X": [R.randn(n, 2048)], "C_prev": [R.randn(n, 512)]},
+            {"forget_bias": 1.0}), 256, 8),
+        rnn("lstmp", lambda R, n: {
+            "Input": [R.randn(n, 50, 4096)],
+            "Weight": [R.randn(256, 4096) * 0.05],
+            "ProjWeight": [R.randn(1024, 256) * 0.05],
+            "Bias": [R.randn(1, 4096)]}),
+        rnn("lstm", lambda R, n: {
+            "Input": [R.randn(n, 50, 2048)],
+            "Weight": [R.randn(512, 2048) * 0.05],
+            "Bias": [R.randn(1, 2048)]}),
+        rnn("gru", lambda R, n: {
+            "Input": [R.randn(n, 50, 1536)],
+            "Weight": [R.randn(512, 1536) * 0.05],
+            "Bias": [R.randn(1, 1536)]}),
+        rnn("attention_lstm", lambda R, n: {
+            "X": [R.randn(n, 30, 128)], "SeqLen": [R.ints(30, n) + 1],
+            "C0": [R.randn(n, 128)], "H0": [R.randn(n, 128)],
+            "AttentionWeight": [R.randn(256, 1) * 0.1],
+            "AttentionBias": [R.randn(1, 1)],
+            "LSTMWeight": [R.randn(256, 512) * 0.05],
+            "LSTMBias": [R.randn(1, 512)]}),
+        shaped("row_conv", lambda R, n: (
+            {"X": [R.randn(n, 100, 512)], "Filter": [R.randn(20, 512)]},
+            {}), 32, 2),
+        shaped("fc", lambda R, n: (
+            {"Input": [R.randn(n, 1024)], "W": [R.randn(1024, 1024) * 0.03],
+             "Bias": [R.randn(1024)]}, {}), 256, 8, matmul_flops),
+        shaped("sync_batch_norm", lambda R, n: (
+            {"X": [R.randn(n, 256, 56, 56)], "Scale": [R.pos(256)],
+             "Bias": [R.randn(256)], "Mean": [R.randn(256)],
+             "Variance": [R.pos(256)]}, {"momentum": 0.9}), 32, 2),
+        shaped("tree_conv", tree, 32, 2),
+        # misc: rearrangements, linalg helpers, ranking losses
+        shaped("pixel_shuffle", lambda R, n: (
+            {"X": [R.randn(n, 256, 64, 64)]}, {"upscale_factor": 2}), 16, 1),
+        shaped("shuffle_channel", lambda R, n: (
+            {"X": [R.randn(n, 240, 28, 28)]}, {"group": 3}), 64, 2),
+        shaped("space_to_depth", lambda R, n: (
+            {"X": [R.randn(n, 64, 26, 26)]}, {"blocksize": 2}), 64, 2),
+        shaped("temporal_shift", lambda R, n: (
+            {"X": [R.randn(n * 8, 256, 56, 56)]},
+            {"seg_num": 8, "shift_ratio": 0.125}), 8, 1),
+        shaped("unfold", lambda R, n: (
+            {"X": [R.randn(n, 64, 56, 56)]},
+            {"kernel_sizes": [3, 3], "strides": [1, 1], "paddings": [1, 1],
+             "dilations": [1, 1]}), 32, 1),
+        shaped("im2sequence", lambda R, n: (
+            {"X": [R.randn(n, 128, 8, 32)]},
+            {"kernels": [8, 1], "strides": [1, 1],
+             "paddings": [0, 0, 0, 0]}), 64, 2),
+        shaped("norm", lambda R, n: ({"X": [R.randn(n, 512, 38, 38)]},
+                                     {"axis": 1}), 32, 1),
+        shaped("dist", lambda R, n: ({"X": [R.randn(n, 4096)],
+                                      "Y": [R.randn(n, 4096)]}, {"p": 2.0}),
+               256, 8),
+        shaped("cross", lambda R, n: ({"X": [R.randn(n, 3)],
+                                       "Y": [R.randn(n, 3)]}, {}),
+               1 << 20, 64),
+        shaped("kron", lambda R, n: ({"X": [R.randn(64, 64)],
+                                      "Y": [R.randn(n, 16)]}, {}), 16, 2),
+        shaped("trace", lambda R, n: ({"Input": [R.randn(n, 512, 512)]},
+                                      {}), 64, 2),
+        shaped("meshgrid", lambda R, n: ({"X": [R.randn(n), R.randn(n)]},
+                                         {}), 1024, 8),
+        shaped("bilinear_tensor_product", lambda R, n: (
+            {"X": [R.randn(n, 100)], "Y": [R.randn(n, 100)],
+             "Weight": [R.randn(4, 100, 100) * 0.1],
+             "Bias": [R.randn(1, 4)]}, {}), 4096, 8,
+            lambda ins, a, o: 2 * ins["X"][0].shape[0] * 4 * 100 * 101),
+        shaped("rank_loss", lambda R, n: (
+            {"Label": labels(R, n), "Left": [R.randn(n, 1)],
+             "Right": [R.randn(n, 1)]}, {}), 16384, 64),
+        shaped("margin_rank_loss", lambda R, n: (
+            {"Label": [R.ints(2, n, 1).float() * 2 - 1],
+             "X1": [R.randn(n, 1)], "X2": [R.randn(n, 1)]},
+            {"margin": 0.1}), 16384, 64),
+        shaped("bpr_loss", lambda R, n: (
+            {"X": [R.randn(n, 100)], "Label": [R.ints(100, n, 1)]}, {}),
+            4096, 8),
+        shaped("hinge_loss", lambda R, n: (
+            {"Logits": [R.randn(n, 1) * 2], "Labels": labels(R, n)},
+            {}), 16384, 64),
+        shaped("modified_huber_loss", lambda R, n: (
+            {"X": [R.randn(n, 1) * 2], "Y": labels(R, n)}, {}),
+            16384, 64),
+        shaped("teacher_student_sigmoid_loss", lambda R, n: (
+            {"X": [R.randn(n, 1) * 10], "Label": [R.uniform(0, 1, n, 1)]},
+            {}), 16384, 64),
+        shaped("add_position_encoding", lambda R, n: (
+            {"X": [R.randn(n, 256, 512)]}, {"alpha": 1.0, "beta": 1.0}),
+            32, 2),
+        shaped("gather_tree", lambda R, n: (
+            {"Ids": [R.ints(37000, 50, n, 4)],
+             "Parents": [R.ints(4, 50, n, 4)]}, {}), 64, 2),
+        shaped("log_loss", lambda R, n: (
+            {"Predicted": [R.uniform(0.01, 0.99, n, 1)],
+             "Labels": labels(R, n)}, {"epsilon": 1e-4}),
+            16384, 64),
+        # extra: tensor helpers, metrics, accumulators, the int8 trio
+        shaped("fill", lambda R, n: (
+            {}, {"value": [float(i) / 7 for i in range(n)], "shape": [n],
+                 "dtype": "float32"}), 1024, 8),
+        shaped("minus", lambda R, n: ({"X": [R.randn(n, 1024)],
+                                       "Y": [R.randn(n, 1024)]}, {}),
+               1024, 8),
+        shaped("l1_norm", lambda R, n: ({"X": [R.randn(n, 1000)]}, {}),
+               2048, 8),
+        shaped("squared_l2_distance", lambda R, n: (
+            {"X": [R.randn(n, 128)], "Y": [R.randn(n, 128)]}, {}), 4096, 8),
+        shaped("crop", lambda R, n: (
+            {"X": [R.randn(n, 21, 500, 500)]},
+            {"shape": [n, 21, 480, 480], "offsets": [0, 0, 10, 10]}), 8, 1),
+        shaped("flatten", lambda R, n: ({"X": [R.randn(n, 2048, 7, 7)]},
+                                        {"axis": 1}), 32, 2),
+        shaped("squeeze", lambda R, n: ({"X": [R.randn(n, 2048, 1, 1)]},
+                                        {"axes": [2, 3]}), 32, 2),
+        shaped("unsqueeze", lambda R, n: ({"X": [R.randn(n, 768)]},
+                                          {"axes": [1, 2]}), 256, 8),
+        shaped("pad_constant_like", lambda R, n: (
+            {"X": [R.randn(n, 21, 500, 500)],
+             "Y": [R.randn(n, 21, 480, 480)]}, {"pad_value": 0.0}), 8, 1),
+        shaped("multiplex", lambda R, n: (
+            {"X": [R.randn(n, 512) for _ in range(4)],
+             "Ids": [R.ints(4, n, 1).int()]}, {}), 4096, 8),
+        shaped("mean_iou", lambda R, n: (
+            {"Predictions": [R.ints(21, n, 512, 512).int()],
+             "Labels": [R.ints(21, n, 512, 512).int()]},
+            {"num_classes": 21}), 8, 1),
+        shaped("conv_shift", lambda R, n: (
+            {"X": [R.randn(n, 128)], "Y": [R.randn(n, 3)]}, {}), 4096, 8),
+        shaped("edit_distance", lambda R, n: (
+            {"Hyps": [R.ints(30, n, 50)], "Refs": [R.ints(30, n, 60)],
+             "HypsLength": [R.ints(51, n)], "RefsLength": [R.ints(61, n)]},
+            {"normalized": True}), 256, 8),
+        shaped("coalesce_tensor", lambda R, n: (
+            {"Input": [R.randn(n, 1024), R.randn(1000),
+                       R.randn(64, 3, 7, 7)]}, {}), 1024, 8),
+        shaped("delete_var", lambda R, n: ({"X": [R.randn(n)]}, {}), 1024,
+               8),
+        shaped("average_accumulates", lambda R, n: (
+            {"param": [R.randn(n, 1000)], "in_sum_1": [R.randn(n, 1000)],
+             "in_sum_2": [R.randn(n, 1000)], "in_sum_3": [R.randn(n, 1000)],
+             "in_num_accumulates": [torch.full((1,), 9, device=R.device)],
+             "in_old_num_accumulates": [torch.full((1,), 3,
+                                                   device=R.device)],
+             "in_num_updates": [torch.full((1,), 20, device=R.device)]},
+            {"average_window": 0.15, "max_average_window": 10,
+             "min_average_window": 2}), 2048, 8),
+        shaped("dgc_clip_by_norm", lambda R, n: (
+            {"X": [R.randn(n, 1000)],
+             "current_step": [torch.full((1,), 10.0, device=R.device)]},
+            {"rampup_begin_step": 5.0, "max_norm": 1.0}), 2048, 8),
+        shaped("quantize", lambda R, n: (
+            {"Input": [(R.randn(n, 4096) * 3 * 64).round() / 64]},
+            {"Scale": 32.0}), 1024, 8),
+        shaped("dequantize", lambda R, n: (
+            {"Input": [(R.ints(256, n, 4096) - 128).to(torch.int8)]},
+            {"Scale": 32.0, "Shift": 0.5}), 1024, 8),
+        shaped("requantize", lambda R, n: (
+            {"Input": [(R.ints(256, n, 4096) - 128).to(torch.int8)]},
+            {"Scale_in": 32.0, "Scale_out": 16.0}), 1024, 8),
+        shaped("is_empty", lambda R, n: ({"X": [R.randn(n)]}, {}), 1024, 8),
+    ]
+
+
+def _nn_extra_special(seed):
+    """The rows _core_row cannot take: the random rules on shape, range,
+    bounds and equal draws for equal seeds (their streams are not JAX's,
+    nor the CPU generator's); sample_logits' explicit grad card vs CPU
+    port and twice bitwise; the SelectedRows helpers on bench_deepfm_ps's
+    13312 sparse rows of a 1e5 x 16 table, card vs CPU port and twice
+    bitwise."""
+    import torch
+    from paddle_tpu_torch.framework import registry as treg
+    from paddle_tpu_torch.framework.selected_rows import SelectedRows
+    rows = []
+
+    def lower(op, ins, attrs, device=CARD, s=seed):
+        return treg.get_op_def(op).lower(
+            treg.LowerContext(device=device, seed=s), ins, attrs)
+
+    def twice(op, ins, attrs):
+        a, b = lower(op, ins, attrs), lower(op, ins, attrs)
+        if not all(torch.equal(x, y) for s in a for x, y in zip(a[s],
+                                                                b[s])):
+            fail(f"nn_extra {op}: equal seeds drew other values")
+        return a
+
+    # random_crop: ImageNet's 224 crops of 256x256 images
+    x = torch.arange(32 * 3 * 256 * 256, dtype=torch.float32,
+                     device=CARD).reshape(32, 3, 256, 256)
+    crop = twice("random_crop", {"X": [x]}, {"shape": [224, 224]})["Out"][0]
+    r0, c0 = divmod(int(crop[0, 0, 0, 0].item()) % (256 * 256), 256)
+    if tuple(crop.shape) != (32, 3, 224, 224) or not (
+            0 <= r0 <= 32 and 0 <= c0 <= 32) or not torch.equal(
+                crop, x[:, :, r0:r0 + 224, c0:c0 + 224]):
+        fail(f"nn_extra random_crop: not a window inside the image "
+             f"({tuple(crop.shape)}, at {r0}, {c0})")
+    other = lower("random_crop", {"X": [x]}, {"shape": [224, 224]},
+                  s=seed + 1)["Out"][0]
+    rows.append({"name": "random_crop", "op": "random_crop",
+                 "offset": [r0, c0], "other_seed_differs":
+                 not torch.equal(other, crop)})
+    # sampling_id over a 1000-way softmax with dead columns
+    p = torch.softmax(torch.randn(4096, 1000, device=CARD), -1)
+    p[:, 500:] = 0.0
+    ids = twice("sampling_id", {"X": [p]}, {})["Out"][0]
+    if ids.dtype != torch.int64 or ids.shape != (4096,) or \
+            int(ids.min()) < 0 or int(ids.max()) >= 500:
+        fail(f"nn_extra sampling_id: ids {ids.dtype} {tuple(ids.shape)} "
+             f"in [{int(ids.min())}, {int(ids.max())}]")
+    rows.append({"name": "sampling_id", "op": "sampling_id",
+                 "max_id": int(ids.max())})
+    # the batch-size-like random ops at 2^22 draws
+    inp = torch.zeros(4096, 3, device=CARD)
+    for op, attrs, mom in (
+            ("uniform_random_batch_size_like",
+             {"shape": [-1, 1024], "min": -2.0, "max": 3.0}, (0.5, 1.4434)),
+            ("gaussian_random_batch_size_like",
+             {"shape": [-1, 1024], "mean": 1.0, "std": 2.0}, (1.0, 2.0))):
+        out = twice(op, {"Input": [inp]}, attrs)["Out"][0].double()
+        stats = {"mean": float(out.mean()), "std": float(out.std()),
+                 "min": float(out.min()), "max": float(out.max())}
+        if tuple(out.shape) != (4096, 1024) or \
+                abs(stats["mean"] - mom[0]) > 5e-3 or \
+                abs(stats["std"] - mom[1]) > 5e-3 or (
+                    op.startswith("uniform") and (
+                        stats["min"] < -2.0 or stats["max"] >= 3.0)):
+            fail(f"nn_extra {op}: {tuple(out.shape)} {stats}")
+        rows.append({"name": op, "op": op, **stats})
+    # sample_logits' own sampler at the 1B-Word vocabulary
+    k, n, s = 793471, 64, 8192
+    logits = torch.randn(n, k, device=CARD)
+    labels = torch.randint(0, k, (n, 1), device=CARD)
+    out = twice("sample_logits", {"Logits": [logits], "Labels": [labels]},
+                {"num_samples": s})
+    sm = out["Samples"][0]
+    q = torch.log((sm + 2.0) / (sm + 1.0)) / torch.log(
+        torch.tensor(k + 1.0, device=CARD))
+    if tuple(sm.shape) != (n, 1 + s) or not torch.equal(sm[:, :1], labels) \
+            or int(sm.min()) < 0 or int(sm.max()) >= k or not torch.equal(
+                out["Probabilities"][0], q):
+        fail("nn_extra sample_logits: the sampler's support or q is off")
+    rows.append({"name": "sample_logits_sampler", "op": "sample_logits",
+                 "distinct_negatives": int(sm[:, 1:].unique().numel())})
+    # sample_logits' explicit grad: the cotangent added back at repeats
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    samples = torch.randint(0, 4096, (128, 8193), generator=g)
+    cot = torch.randn(128, 8193, generator=g)
+    cl = torch.randn(128, k, generator=g)
+    gins = {"Logits": [cl], "__out__Samples": [samples],
+            "SampledLogits@GRAD": [cot]}
+    gl = treg.get_op_def("sample_logits").grad_lower
+    cpu = gl(treg.LowerContext(), gins, {})["Logits@GRAD"][0]
+    dins = {s_: [t.to(CARD) for t in v] for s_, v in gins.items()}
+    dev = [gl(treg.LowerContext(device=CARD), dins, {})["Logits@GRAD"][0]
+           for _ in range(2)]
+    if not torch.equal(dev[0], dev[1]):
+        fail("nn_extra sample_logits grad: two launches differ")
+    err = float((dev[0].cpu() - cpu).abs().max())
+    if err > CORE_OUT_RTOL * float(cpu.abs().max()) + CORE_OUT_ATOL:
+        fail(f"nn_extra sample_logits grad: {err} from the CPU port's")
+    rows.append({"name": "sample_logits_grad", "op": "sample_logits",
+                 "shape": [128, k], "abs_err": err, "bitwise": True})
+    # the SelectedRows helpers
+    vals = torch.randn(13312, 16, generator=g)
+    ids = torch.randint(0, 1000, (13312,), generator=g) * 97
+    for op, attrs in (("merge_selected_rows", {}),
+                      ("get_tensor_from_selected_rows", {}),
+                      ("split_selected_rows",
+                       {"height_sections": [25000] * 4})):
+        res = []
+        for device in ("cpu", CARD, CARD):
+            sr = SelectedRows(ids.to(device), vals.to(device), 100000)
+            outs = lower(op, {"X": [sr]}, attrs, device=device)["Out"]
+            res.append([t for o in outs for t in (
+                (o.rows.cpu(), o.values.cpu()) if isinstance(o, SelectedRows)
+                else (o.cpu(),))])
+        if not all(torch.equal(a, b) for a, b in zip(res[1], res[2])):
+            fail(f"nn_extra {op}: two launches differ")
+        err = 0.0
+        for a, b in zip(res[1], res[0]):
+            if not b.is_floating_point():
+                if not torch.equal(a, b):
+                    fail(f"nn_extra {op}: rows differ from the CPU port's")
+                continue
+            e = float((a - b).abs().max())
+            err = max(err, e)
+            if e > CORE_OUT_RTOL * float(b.abs().max()) + CORE_OUT_ATOL:
+                fail(f"nn_extra {op}: {e} from the CPU port's")
+        rows.append({"name": op, "op": op, "rows": 13312, "abs_err": err,
+                     "bitwise": True})
+    return rows
+
+
+def _dcn_flops(main, batch):
+    """FLOPs of one DCNv2 ResNet-50 train step: each conv2d's forward (2
+    a multiply-add), its filter gradient as much again and its input
+    gradient as much again but for the first conv's (the image takes no
+    gradient); each deformable unit's GEMM likewise, and its bilinear
+    sampling counted 8 a sampled value (4 corner weights multiplied and
+    added, the mask) forward and 16 backward (the input's and the
+    offsets' gradients)."""
+    blk = main.global_block
+    convs, gemm, samp = [], 0, 0
+    for op in blk.ops:
+        if op.type not in ("conv2d", "deformable_conv"):
+            continue
+        w = blk.var(op.inputs["Filter"][0]).shape
+        o = blk.var(op.outputs["Output"][0]).shape
+        macs = w[0] * w[1] * w[2] * w[3] * o[2] * o[3] * batch
+        if op.type == "conv2d":
+            convs.append(2 * macs)
+        else:
+            gemm += 2 * macs
+            samp += w[1] * w[2] * w[3] * o[2] * o[3] * batch
+    return 3 * sum(convs) - convs[0] + 3 * gemm + 24 * samp
+
+
+def _dcn_resnet50(seed):
+    """The DCNv2 ResNet-50 at batch 32 on the card: the zero-offset
+    identity of its 13 units from the startup values (each output 0.5 x
+    cuDNN conv2d of its input: the offset convs start at zero, the masks
+    at sigmoid(0)); one Momentum step twice from the same state for the
+    same bits; DCN_WARMUP + DCN_TIMED steps in all on one batch, then one
+    traced."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.tools.bench_resnet50 import to_device
+    from paddle_tpu_torch.tools.dcn_cases import (NUM_DEFORMABLE,
+                                                  dcn_resnet50_programs)
+    t = time.perf_counter()
+    P = dcn_resnet50_programs(ptt, DCN_CLASSES, DCN_IMAGE, lr=DCN_LR,
+                              momentum=DCN_MOMENTUM)
+    build_s = time.perf_counter() - t
+    rec = P["deformable"]
+    if len(rec) != NUM_DEFORMABLE:
+        fail(f"nn_extra dcn: {len(rec)} deformable units")
+    P["startup"].random_seed = seed
+    exe = _card_exe()
+    scope = ptt.Scope()
+    exe.run(P["startup"], scope=scope)
+    rng = np.random.RandomState(seed)
+    feed = to_device({
+        "img": rng.rand(DCN_BATCH, 3, DCN_IMAGE, DCN_IMAGE)
+        .astype(np.float32),
+        "label": rng.randint(0, DCN_CLASSES, (DCN_BATCH, 1))
+        .astype(np.int64)}, CARD)
+    # the zero-offset identity, unit by unit
+    fetch = [v for r in rec for v in (r["input"], r["offset_mask"],
+                                      r["output"])]
+    out = exe.run(P["test"], feed=feed, fetch_list=fetch, scope=scope,
+                  return_numpy=False)
+    id_err = []
+    for k, r in enumerate(rec):
+        x, om, y = out[3 * k:3 * k + 3]
+        if bool(om.abs().max() != 0):
+            fail(f"nn_extra dcn: unit {k}'s offset conv is not zero at "
+                 f"the start")
+        ref = 0.5 * F.conv2d(x, scope.find_var(r["filter"]),
+                             stride=r["stride"], padding=1)
+        err = float((y - ref).abs().max())
+        scale = float(ref.abs().max())
+        id_err.append(err / scale)
+        if err > DCN_ID_RTOL * scale + DCN_ID_ATOL:
+            fail(f"nn_extra dcn: unit {k} lies {err} from 0.5 x conv2d "
+                 f"(max {scale})")
+    del out, x, om, y, ref
+    _free_card()
+
+    def step():
+        loss, = exe.run(P["main"], feed=feed, fetch_list=[P["loss"]],
+                        scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        return loss
+
+    # one step twice from the same state: the same bits
+    names = [n for n in scope.var_names()
+             if isinstance(scope.find_var(n), torch.Tensor)]
+    start = {n: scope.find_var(n).clone() for n in names}
+    first = step()
+    after = {n: scope.find_var(n).clone() for n in names}
+    for n in names:
+        scope.set_var(n, start[n].clone())
+    del start
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    again = step()
+    ms = [(time.perf_counter() - t) * 1e3]
+    same = torch.equal(first, again) and all(
+        torch.equal(after[n], scope.find_var(n)) for n in names)
+    del after
+    if not same:
+        fail("nn_extra dcn: one step from the same state gave other bits")
+    losses = [float(again.item())]
+    for _ in range(DCN_WARMUP + DCN_TIMED - 1):
+        t = time.perf_counter()
+        losses.append(float(step().item()))
+        ms.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    wall, busy, idle, kernels, top = _dcgan_trace(
+        lambda: losses.append(float(step().item())))
+    if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"nn_extra dcn: losses not finite and falling: {losses}")
+    med = float(np.median(ms[DCN_WARMUP:]))
+    flops = _dcn_flops(P["main"], DCN_BATCH)
+    return {"model": "dcnv2_resnet50", "batch": DCN_BATCH,
+            "image": DCN_IMAGE, "classes": DCN_CLASSES,
+            "deformable_units": len(rec), "lr": DCN_LR,
+            "build_s": build_s, "zero_offset_rel_err": max(id_err),
+            "step_rerun_bitwise": True, "losses": losses, "step_ms": ms,
+            "median_step_ms": med, "traced_step_wall_ms": wall,
+            "device_busy_ms": busy, "idle_share_traced": idle,
+            "idle_share_median": 1.0 - busy / med,
+            "kernels_a_step": kernels, "top_kernels_ms": top,
+            "peak_bytes": peak, "flops_a_step": flops,
+            "tflops_achieved": flops / (med / 1e3) / 1e12,
+            "fp32_peak_share": flops / (med / 1e3) / PEAK_FP32_FLOPS}
+
+
+def _dcn_held(seed):
+    """Two DCNv2 bottlenecks (conv3's first two blocks) on a held
+    [4, 256, 28, 28] input, the offset convs drawn non-zero, card vs CPU
+    port from the same values: the loss (their outputs' mean) within
+    DET_LOSS_RTOL * |loss| + DET_LOSS_ATOL, the card twice for the same
+    bits; then each deformable unit's rule at the card run's own Input,
+    Offset, Mask, Filter and Output@GRAD, card vs CPU port: the output
+    within CORE_OUT_RTOL * max + CORE_OUT_ATOL, the Input, Offset and
+    Filter gradients within op_test's CORE_GRAD_TOL. The whole program's
+    gradients are recorded, not held: a ReLU input within rounding of 0
+    takes the other side on one device, and through BN over 784 values
+    its channel's gradients move by a few percent (PR 22's calls 1-2:
+    1-3 % in float32, 0.6-1.8 % in float64, whose batch_norm computes in
+    float32; ROADMAP §C, kinks with batch_norm); the ReLU inputs whose
+    sign differs are counted beside them."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.tools.dcn_cases import bottleneck
+    L = ptt.layers
+    main, startup = ptt.Program(), ptt.Program()
+    rec = []
+    with ptt.unique_name_guard(), ptt.program_guard(main, startup):
+        x = L.data("x", list(DCN_HELD_SHAPE), append_batch_size=False,
+                   stop_gradient=False)
+        h = bottleneck(ptt, x, 256, 128, 2, True, rec)
+        h = bottleneck(ptt, h, 512, 128, 1, True, rec)
+        loss = L.mean(h)
+        ptt.append_backward(loss)
+    startup.random_seed = seed
+    cpu_exe = ptt.Executor(ptt.CPUPlace())
+    scope = ptt.Scope()
+    cpu_exe.run(startup, scope=scope)
+    values = _host_copy(scope)
+    g = torch.Generator().manual_seed(seed)
+    blk = main.global_block
+    offset_w = [op.inputs["Filter"][0] for op in blk.ops
+                if op.type == "conv2d" and blk.var(
+                    op.inputs["Filter"][0]).shape[0] == 27]
+    for n in offset_w:
+        values[n] = torch.randn(values[n].shape, generator=g) \
+            * DCN_HELD_OFFSET_STD
+    feed = torch.randn(DCN_HELD_SHAPE, generator=g)
+    grads = ["x@GRAD"] + [r["filter"] + "@GRAD" for r in rec] + \
+        [n + "@GRAD" for n in offset_w] + ["conv2d_0.w_0@GRAD"]
+    units = [op for op in blk.ops if op.type == "deformable_conv"]
+    unit_vars = [[op.inputs[s][0] for s in ("Input", "Offset", "Mask",
+                                            "Filter")]
+                 + [op.outputs["Output"][0] + "@GRAD"] for op in units]
+    relu_in = [op.inputs["X"][0] for op in blk.ops if op.type == "relu"]
+    fetch = [loss.name] + grads + relu_in + [n for u in unit_vars
+                                             for n in u]
+
+    def run(exe, device):
+        sc = ptt.Scope()
+        ptt.io.set_params_from_numpy(
+            sc, {n: v.numpy() for n, v in values.items()}, device)
+        out = exe.run(main, feed={"x": feed.to(device)}, fetch_list=fetch,
+                      scope=sc, return_numpy=False)
+        return [t.cpu() for t in out]
+
+    cpu = run(cpu_exe, "cpu")
+    card = run(_card_exe(), CARD)
+    if not all(torch.equal(a, b) for a, b in zip(card, run(_card_exe(),
+                                                           CARD))):
+        fail("nn_extra dcn held: the card's second run differs")
+    loss_err = abs(float(card[0]) - float(cpu[0]))
+    if loss_err > DET_LOSS_RTOL * abs(float(cpu[0])) + DET_LOSS_ATOL:
+        fail(f"nn_extra dcn held: loss {float(card[0])} on the card, "
+             f"{float(cpu[0])} on the CPU")
+    k = 1 + len(grads)
+    program_grads = {n: _op_test_rel(a, b) for n, a, b in zip(
+        grads, card[1:k], cpu[1:k])}
+    flips = sum(int(((a > 0) != (b > 0)).sum()) for a, b in zip(
+        card[k:k + len(relu_in)], cpu[k:k + len(relu_in)]))
+    # each unit's rule at the card run's own tensors, card vs CPU port
+    unit_err = []
+    at = k + len(relu_in)
+    for u, op in enumerate(units):
+        t = card[at + 5 * u:at + 5 * u + 5]
+        ins = {"Input": [t[0]], "Offset": [t[1]], "Mask": [t[2]],
+               "Filter": [t[3]]}
+        cres = _core_eval("deformable_conv", ins, op.attrs, "cpu",
+                          cots=[t[4]])
+        dres = _core_eval("deformable_conv",
+                          {s_: [v.to(CARD) for v in vs]
+                           for s_, vs in ins.items()}, op.attrs, CARD,
+                          cots=[t[4].to(CARD)])
+        unit_err.append(_core_compare(f"unit {u}", "held model", dres,
+                                      cres, "nn_extra dcn held"))
+    return {"shape": list(DCN_HELD_SHAPE), "units": len(rec),
+            "offset_std": DCN_HELD_OFFSET_STD, "loss": float(card[0]),
+            "loss_abs_err": loss_err, "unit_out_grad_rel_err": unit_err,
+            "program_grad_rel_err_unheld": program_grads,
+            "relu_sign_changes": flips,
+            "relu_inputs": sum(t.numel() for t in cpu[k:k + len(relu_in)]),
+            "rerun_bitwise": True}
+
+
+def phase_nn_extra(seed):
+    """Phase 4o: the DCNv2 ResNet-50 at batch 32 on the card, two of its
+    bottlenecks against the CPU port, every other new op type card
+    against the CPU port at its model's shape. TF32 off and cuDNN's
+    deterministic algorithms on (a step reruns bitwise only so). No hand
+    kernel launches. In a child process (--nn-extra-only)."""
+    import torch
+    from paddle_tpu_torch.framework import registry as treg
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    zero_counts(KERNELS)
+    # ---- the main path: counts zeroed just before, read just after -----
+    dcn = _dcn_resnet50(seed)
+    emit({"phase": "nn_extra", "part": "dcn_resnet50", **dcn})
+    _free_card()
+    t = time.perf_counter()
+    held = _dcn_held(seed)
+    held["wall_s"] = time.perf_counter() - t
+    emit({"phase": "nn_extra", "part": "dcn_held", **held})
+    rows = []
+    for k, case in enumerate(_nn_extra_cases()):
+        t = time.perf_counter()
+        row = _core_row(case, seed + k, tag="nn_extra")
+        row["row_s"] = time.perf_counter() - t
+        rows.append(row)
+        emit({"phase": "nn_extra", "part": "op", **row})
+        _free_card()
+    t = time.perf_counter()
+    special = _nn_extra_special(seed)
+    for row in special:
+        emit({"phase": "nn_extra", "part": "special", **row})
+    special_s = time.perf_counter() - t
+    launches = read_counts(KERNELS)
+    # -------------------------------------------------------------------
+    if any(launches.values()):
+        fail(f"nn_extra: the phase launched hand kernels: {launches}")
+    import paddle_tpu_torch.ops.extra_ops as ex
+    import paddle_tpu_torch.ops.misc_ops as mi
+    import paddle_tpu_torch.ops.nn_extra_ops as nx
+    ported = {op for op, d in treg._REGISTRY.items() if d.lower is not None
+              and d.lower.__module__ in (nx.__name__, mi.__name__,
+                                         ex.__name__)} | {"lstm", "gru"}
+    held_ops = {r["op"] for r in rows + special} | {c[1] for c in
+                                                   _core_cases()}
+    if not ported <= held_ops:
+        fail(f"nn_extra: op types without a card check: "
+             f"{sorted(ported - held_ops)}")
+    summary = {"phase": "nn_extra",
+               "device": torch.cuda.get_device_name(0),
+               "op_types": len(ported), "registered": len(treg._REGISTRY),
+               "rows": len(rows), "special_rows": len(special),
+               "special_s": special_s,
+               "dcn_resnet50": {k: v for k, v in dcn.items()
+                                if k not in ("losses", "step_ms")},
+               "dcn_held": held, "launches": launches,
+               "wall_s": time.perf_counter() - t_phase}
+    emit(summary)
+    return summary
+
+
 # The quant phase runs last, and only when it can start by QUANT_START_BY
 # seconds into the run: it took 111-147 s, and on the slowest host seen
 # the whole script with it took ~1270 s of the 1200 allowed (PERF.md §7).
@@ -8444,11 +9247,12 @@ def _quant_last(seed, elapsed):
 
 
 class _Child:
-    """Phase 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h, 4i, 4j, 4k, 4l, 4m or 4n in a
-    process of its own (this script with --engine-only, --server-only,
-    --spec-only, --quant-only, --adapters-only, --bench-only, --nmt-only,
-    --lenet-only, --optim-only, --rnn-only, --io-only, --ps-only,
-    --core-only or --detection-only, and --warm). Once started it imports
+    """Phase 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h, 4i, 4j, 4k, 4l, 4m, 4n or 4o
+    in a process of its own (this script with --engine-only,
+    --server-only, --spec-only, --quant-only, --adapters-only,
+    --bench-only, --nmt-only, --lenet-only, --optim-only, --rnn-only,
+    --io-only, --ps-only, --core-only, --detection-only or
+    --nn-extra-only, and --warm). Once started it imports
     torch and the package and opens its CUDA context, then waits for a
     line on its stdin; `run` sends it, passes
     its JSON lines through and returns its summary. After the engine's run,
@@ -8520,6 +9324,8 @@ def main():
                       help="run phase 4m alone, likewise")
     only.add_argument("--detection-only", action="store_true",
                       help="run phase 4n alone, likewise")
+    only.add_argument("--nn-extra-only", action="store_true",
+                      help="run phase 4o alone, likewise")
     ap.add_argument("--warm", action="store_true",
                     help="with a --*-only flag: import the package and "
                          "open the CUDA context, then wait for a line on "
@@ -8546,7 +9352,8 @@ def main():
              phase_io if args.io_only else
              phase_ps if args.ps_only else
              phase_core if args.core_only else
-             phase_detection if args.detection_only else None)
+             phase_detection if args.detection_only else
+             phase_nn_extra if args.nn_extra_only else None)
     if alone is not None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -8579,7 +9386,8 @@ def main():
         return out
 
     names = ("engine", "server", "spec", "adapters", "bench", "nmt",
-             "lenet", "optim", "rnn", "io", "ps", "core", "detection")
+             "lenet", "optim", "rnn", "io", "ps", "core", "detection",
+             "nn_extra")
     # each child is started one phase ahead (_Child): its imports and
     # CUDA context overlap the phase before it (the engine's, the build)
     pending = _Child(args.seed, "--engine-only")
@@ -8591,7 +9399,8 @@ def main():
         for k, name in enumerate(names):
             current, pending = pending, None
             if k + 1 < len(names):
-                pending = _Child(args.seed, f"--{names[k + 1]}-only")
+                pending = _Child(args.seed,
+                                 f"--{names[k + 1].replace('_', '-')}-only")
             children[name] = timed(name, current.run)
         train = timed("train", phase_train, args.seed)
         bert = timed("bert", phase_bert, args.seed)

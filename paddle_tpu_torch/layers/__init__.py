@@ -4,7 +4,9 @@ math}.py` (every name of the JAX package's three files), control flow
 IfElse), the sequence and RNN layers (`layers.sequence`, `layers.rnn`),
 the LR schedules (`layers.learning_rate_scheduler`), the decoders
 (`layers.decode`), `layers.distributions` and the detection layers
-(`layers.detection`)."""
+(`layers.detection`) and the long-tail layers of `layers.nn_extra`,
+star-exported last as JAX's are (so `layers.resize_bilinear` and the
+other names it shares with `layers.nn` are nn_extra's)."""
 
 from .math import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403
@@ -14,6 +16,7 @@ from .learning_rate_scheduler import *  # noqa: F401,F403
 from .control_flow import *  # noqa: F401,F403
 from .rnn import *  # noqa: F401,F403
 from .detection import *  # noqa: F401,F403
+from .nn_extra import *  # noqa: F401,F403
 
 from . import math  # noqa: F401
 from . import nn  # noqa: F401
@@ -25,3 +28,4 @@ from . import rnn  # noqa: F401
 from . import decode  # noqa: F401
 from . import distributions  # noqa: F401
 from . import detection  # noqa: F401
+from . import nn_extra  # noqa: F401

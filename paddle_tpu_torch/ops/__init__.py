@@ -16,5 +16,6 @@ from . import io_dist_ops  # noqa: F401
 from . import reader_ops  # noqa: F401
 from . import loss_ops  # noqa: F401
 from . import metrics_ops  # noqa: F401
+from . import nn_extra_ops  # noqa: F401
 from . import detection_ops  # noqa: F401
 from . import detection_extra_ops  # noqa: F401

@@ -523,7 +523,7 @@ def _own_ops(reg, package):
 
 def test_registries_mark_ops_alike():
     """Every op type both packages register is marked alike, so backward
-    builds the same grad ops; the port registers 317 of the 427."""
+    builds the same grad ops; the port registers 392 of the 427."""
     def marks(d):
         return (d.not_differentiable, d.grad_free, set(d.no_grad_inputs),
                 set(d.non_diff_outputs), d.stateful, d.is_optimizer_op,
@@ -531,7 +531,7 @@ def test_registries_mark_ops_alike():
 
     jown = _own_ops(jreg, "paddle_tpu")
     town = _own_ops(treg, "paddle_tpu_torch")
-    assert town <= jown and len(town) == 317 and len(jown) == 427
+    assert town <= jown and len(town) == 392 and len(jown) == 427
     shared = jown & town
     diff = {n for n in shared
             if marks(jreg._REGISTRY[n]) != marks(treg._REGISTRY[n])}
