@@ -362,13 +362,13 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 at the SRL chapter's 106 labels (b64 x 64, lengths
                 8-64), nce at word2vec's width (2073 classes, hidden 256,
                 b1024, 25 negatives fed), hierarchical_sigmoid at the
-                same width, warpctc at 5000 frames x b32 over 100 classes
+                same width, warpctc at 2000 frames x b32 over 100 classes
                 (blank 0), auc (4095 thresholds) and ctr_metric_bundle
                 over 1M predictions in 8 batches: losses within LOSS_RTOL
                 * max, gradients within LOSS_GRAD_L2 relative L2, Viterbi
                 paths exactly, metric states within METRIC_RTOL; each
                 op's device ms (busy time in a trace of the device;
-                warpctc's ~8e5 kernels the span between two CUDA events,
+                warpctc's ~3e5 kernels the span between two CUDA events,
                 its CPU reference in a process of its own, started with
                 the phase). No hand kernel launches. In a child process
                 (--io-only);
@@ -502,6 +502,44 @@ failure and goes on, nothing falls back to the CPU or to a plain version):
                 twice bitwise; the phase fails if an op type of the three
                 rule files has no card check. No hand kernel launches. In
                 a child process (--nn-extra-only);
+  4p. slim   -- the fused and quant ops (ops/fused_ops.py, quant_ops.py),
+                the passes and contrib/slim: (1) ResNet-50 quantization-
+                aware training (tools/slim_cases.py: models/resnet.py's
+                ResNet-50, 224x224, 1000 classes, fuse_elewise_add_act's
+                16 fused add + ReLU ops asserted, QuantizationTransformPass
+                with channel-wise abs-max weights and moving-average
+                abs-max activations, fp32, batch 32, Momentum 0.9 at lr
+                1e-3 from random weights) trains SLIM_STEPS steps on one
+                seeded batch, then one traced (losses finite and falling,
+                every moving scale finite and positive; median step ms of
+                steps 4-8, device busy ms, kernels and idle share of the
+                traced step, peak bytes), and the fp32 program without the
+                passes likewise beside it; (2) one step from the same state
+                and feed through the fused and the unfused QAT program:
+                loss and every parameter gradient bitwise (else within
+                1e-6 relative); (3) QuantizationFreezePass on the trained
+                test clone: every frozen conv and fc weight on its int8
+                grid (round(w * 127 / s) within [-127, 127] and back to w
+                bitwise), the frozen logits on an eval batch of 32 within
+                1e-5 * max |logit| of the QAT test clone's, bitwise on a
+                rerun; (4) PostTrainingQuantization on the fp32 program,
+                abs_max over 4 batches of 32 and KL over 2 of 8, each run
+                twice for the same thresholds and logits (calibration
+                seconds, the activations' host copies, top-1 agreement
+                with fp32); (5) the QAT step at batch 2 card vs CPU port
+                with the card's activation codes carried into the CPU run:
+                loss within 1e-4 relative (the codes the CPU's own rule
+                would move are counted, the gradients recorded); the
+                three fake quantize-dequantize rules on the card run's own
+                tensors card vs CPU port (codes equal but within one ulp
+                of a .5 boundary, OutScale bitwise, STE gradients op_test's
+                5e-3, reruns bitwise); every other new op type at a
+                model's shape as phase 4m's rows (SRL's recurrences, PTB
+                medium's cudnn_lstm, bench_deepfm_ps's CTR fusions,
+                SSD300's head maps, a ResNet conv, GoogLeNet's inception
+                3a); the phase fails if an op type of the two rule files
+                has no card check. No hand kernel launches. In a child
+                process (--slim-only);
   5. train   -- GPT-2 small (dropout 0.1) train programs with Adam through
                 Executor.run on CUDAPlace(0): 3 steps at s=1024 b=2
                 (flash_fwd, flash_bwd_dkv, flash_bwd_dq) and 3 at s=512
@@ -5034,12 +5072,14 @@ def _io_hsigmoid(seed):
             **_io_loss_holds("hierarchical_sigmoid", got, want, grads)}
 
 
-IO_CTC = (32, 5000, 100, 200)   # batch, frames, classes, longest label
+# batch, frames, classes, longest label (the card's loop and the CPU
+# reference both grow with the frames)
+IO_CTC = (32, 2000, 100, 200)
 
 
 def _io_ctc_case(seed):
-    """warpctc at 5000 frames x b32 over 100 classes, blank 0 (labels of
-    50-200 tokens, frames 4000-5000 a row), mean loss, its gradient: (the
+    """warpctc at 2000 frames x b32 over 100 classes, blank 0 (labels of
+    50-200 tokens, frames 1600-2000 a row), mean loss, its gradient: (the
     program, its feed, the fetch names)."""
     import numpy as np
     import paddle_tpu_torch as ptt
@@ -5047,7 +5087,7 @@ def _io_ctc_case(seed):
     b, t, c, lmax = IO_CTC
     feed = {"logits": rng.randn(b, t, c).astype(np.float32),
             "label": rng.randint(1, c, (b, lmax)).astype(np.int64),
-            "logit_len": _lengths(rng, 4000, 5000, b),
+            "logit_len": _lengths(rng, 1600, 2000, b),
             "label_len": _lengths(rng, 50, 200, b)}
     main = ptt.Program()
     with ptt.unique_name_guard(), ptt.program_guard(main, ptt.Program()):
@@ -5063,7 +5103,7 @@ def _io_ctc_case(seed):
 def _io_ctc_reference(seed, path):
     """The CPU port's CTC (loss rows, gradient) saved to `path`: run in a
     process of its own while the card does the phase's other parts (its
-    5000-frame loop and vjp take ~30 s on the host)."""
+    2000-frame loop and vjp take ~13 s on the host)."""
     import numpy as np
     import torch
     sys.path.insert(0, HERE)
@@ -5079,7 +5119,7 @@ def _io_ctc_reference(seed, path):
 def _io_ctc(seed, reference):
     """warpctc on the card against the CPU port's reference process
     (`reference`: (process, path)). JAX's log-space recursion, its
-    gradient the vjp through the loop; ~8e5 kernels, so its device time
+    gradient the vjp through the loop; ~3e5 kernels, so its device time
     is the span between two CUDA events (a trace of it costs minutes)."""
     import numpy as np
     import torch
@@ -9227,6 +9267,807 @@ def phase_nn_extra(seed):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 4p: the fused and quant ops, the passes and contrib/slim: ResNet-50
+# quantization-aware training (tools/slim_cases.py: models/resnet.py's
+# ResNet-50, the fuse_elewise_add_act pass, QuantizationTransformPass with
+# channel-wise abs-max weights and moving-average abs-max activations,
+# Paddle 1.5 slim's QAT setting), fp32 at batch 32, Momentum 0.9 at lr 1e-3
+# from random weights on one seeded batch
+# ---------------------------------------------------------------------------
+
+SLIM_CLASSES, SLIM_IMAGE, SLIM_BATCH = 1000, 224, 32
+SLIM_LR, SLIM_MOMENTUM = 1e-3, 0.9
+SLIM_STEPS, SLIM_TIMED_FROM = 8, 3      # steps 4-8 timed, then one traced
+SLIM_ROUNDS, SLIM_ROUND_STEPS = 4, 5    # QAT and fp32 timed in turns
+SLIM_HELD_BATCH = 2                     # card vs CPU port, step 1
+SLIM_LOSS_RTOL = 1e-4                   # the ResNet held run's rule
+# each quantized activation, CPU vs card: x * (qmax / scale) within the
+# loss rule's 1e-4 of the layer's range, in codes
+SLIM_CODE_BAND = SLIM_LOSS_RTOL * 127.0
+SLIM_FREEZE_RTOL = 1e-5                 # frozen vs QAT logits, of max |logit|
+SLIM_FUSED_RTOL = 1e-6                  # fused vs unfused, where not bitwise
+SLIM_PTQ = (("abs_max", 4, 32), ("KL", 2, 8))   # algo, batches, batch
+SLIM_QMAX = 127.0
+
+
+def _slim_cases():
+    """(name, op type, make(R, n) -> (inputs, attrs), full n, held n,
+    flops(inputs, attrs, outputs) or None) for every new op type but the
+    three fake quantize-dequantize rules (_slim_quant_rules), each at the
+    shape of a model that runs it: ResNet-50's residual add + ReLU and a
+    3x3 conv of conv2 (32, 64, 56, 56); GoogLeNet's inception 3a input
+    (192 channels, 28x28, batch 32; branches 32 | 64 | 128 | 32); the SRL
+    chapter's recurrences (hidden 512, b64 x 64, lengths U[8, 64], its
+    44068-word dictionary); PTB "medium" (Zaremba et al. 2014: 2 layers,
+    hidden 650, 35 steps, batch 20); bench_deepfm_ps's CTR width (26
+    fields, embedding 16, fc 400, batch 512, a 1e5 vocabulary); SSD300's
+    six loc maps (38..1, 4 or 6 priors, batch 32); the int8 codes and
+    scales of ResNet-50's (32, 256, 56, 56) activations and its conv5
+    filter (512, 512, 3, 3)."""
+    import torch
+
+    def gemm(*mnk):
+        return lambda ins, attrs, out: sum(2 * m * n * k for m, n, k in mnk)
+
+    def lens(R, n, lo, hi):
+        return torch.randint(lo, hi + 1, (n,), generator=R.g,
+                             device=R.device)
+
+    def fea(R, n):
+        return ({"X": [R.randn(n, 256, 56, 56)],
+                 "Y": [R.randn(n, 256, 56, 56)]},
+                {"functor_list": ["relu", "elementwise_add"], "axis": -1})
+
+    def emb_pool(R, n):
+        return ({"W": [R.randn(100000, 16)],
+                 "Ids": [R.ints(100000, n, 26)]}, {})
+
+    def srl_x(R, n):
+        return R.randn(n, 64, 512) * 0.5, lens(R, n, 8, 64)
+
+    def gru(R, n):
+        x, ln = srl_x(R, n)
+        return ({"X": [x], "WeightX": [R.randn(512, 1536) * 0.04],
+                 "WeightH": [R.randn(512, 1536) * 0.04],
+                 "Bias": [R.randn(1, 1536) * 0.1], "SequenceLength": [ln]},
+                {})
+
+    def lstm(R, n):
+        x, ln = srl_x(R, n)
+        return ({"X": [x], "WeightX": [R.randn(512, 2048) * 0.04],
+                 "WeightH": [R.randn(512, 2048) * 0.04],
+                 "Bias": [R.randn(1, 2048) * 0.1], "SequenceLength": [ln]},
+                {})
+
+    def emb_lstm(R, n):
+        return ({"Ids": [R.ints(44068, n, 64)],
+                 "Embeddings": [R.randn(44068, 2048) * 0.5],
+                 "WeightH": [R.randn(512, 2048) * 0.04],
+                 "Bias": [R.randn(1, 2048) * 0.1],
+                 "SequenceLength": [lens(R, n, 8, 64)]}, {})
+
+    def ptb(R, n):
+        h, w = 650, []
+        for _ in range(2):      # layers
+            w += [R.randn(h * 4 * h) * 0.04, R.randn(h * 4 * h) * 0.04,
+                  R.randn(4 * h) * 0.1]
+        return ({"Input": [R.randn(n, 35, h)], "W": [torch.cat(w)],
+                 "InitH": [R.randn(2, n, h) * 0.1],
+                 "InitC": [R.randn(2, n, h) * 0.1]},
+                {"hidden_size": h, "num_layers": 2})
+
+    def fields(R, n, pos=False):
+        xs = [(R.pos if pos else R.randn)(n, 8, 16) for _ in range(26)]
+        return xs, [lens(R, n, 1, 8) for _ in range(26)]
+
+    def seqpool(R, n):
+        xs, ln = fields(R, n)
+        return {"X": xs, "XLength": ln}, {"pooltype": "SUM"}
+
+    def seqpool_cvm(R, n):
+        xs, ln = fields(R, n, pos=True)
+        return ({"X": xs, "XLength": ln, "CVM": [R.pos(n, 2)]},
+                {"pooltype": "SUM", "use_cvm": True})
+
+    def sq_mat_sub(R, n):
+        return ({"X": [R.randn(n, 416)], "Y": [R.randn(416, 400) * 0.05]},
+                {"scalar": 0.5})
+
+    def rep_fc(R, n):
+        return ({"X": [R.randn(n, 416)],
+                 "W": [R.randn(416, 400) * 0.05, R.randn(400, 400) * 0.05,
+                       R.randn(400, 400) * 0.05],
+                 "Bias": [R.randn(1, 400) * 0.1 for _ in range(3)]}, {})
+
+    def seqconv(R, n):
+        x, ln = srl_x(R, n)
+        return ({"X": [x], "Filter": [R.randn(1536, 512) * 0.03],
+                 "Bias": [R.randn(512) * 0.1], "XLength": [ln]},
+                {"contextLength": 3, "contextStart": -1})
+
+    def seqexpand(R, n):
+        x, _ = srl_x(R, n)
+        return ({"X": [x, R.randn(n, 512)],
+                 "FCWeight": [R.randn(1024, 512) * 0.03],
+                 "FCBias": [R.randn(1, 512) * 0.1]},
+                {"fc_activation": "tanh"})
+
+    def tfc(R, n):
+        maps = ((16, 38), (24, 19), (24, 10), (24, 5), (16, 3), (16, 1))
+        return ({"X": [R.randn(n, c, s, s) for c, s in maps]},
+                {"trans_axis": [0, 2, 3, 1], "flatten_axis": 1,
+                 "concat_axis": 1})
+
+    def conv_fusion(R, n):
+        return ({"Input": [R.randn(n, 64, 56, 56)],
+                 "Filter": [R.randn(64, 64, 3, 3) * 0.05],
+                 "Bias": [R.randn(64) * 0.1],
+                 "ResidualData": [R.randn(n, 64, 56, 56)]},
+                {"paddings": [1, 1], "activation": "relu"})
+
+    def inception(R, n):
+        return ({"Input": [R.randn(n, 192, 28, 28)],
+                 "Filter": [R.randn(32, 192, 1, 1) * 0.07,
+                            R.randn(64 + 2 * 48, 192, 1, 1) * 0.07,
+                            R.randn(256, 48, 3, 3) * 0.05,
+                            R.randn(32, 128, 3, 3) * 0.03],
+                 "Bias": [R.randn(c) * 0.1 for c in (32, 160, 256, 32)]},
+                {"pooling_type": "max", "activation": "relu"})
+
+    def codes(R, *shape):
+        return torch.clamp(torch.round(R.randn(*shape) * 40), -127, 127)
+
+    def quantize(R, n):
+        return {"X": [R.randn(n, 256, 56, 56)]}, {"bit_length": 8}
+
+    def dequantize(R, n):
+        return ({"X": [codes(R, n, 256, 56, 56).to(torch.int8)],
+                 "Scale": [R.pos(1)]}, {"bit_length": 8})
+
+    def fake_deq(R, n):
+        return ({"X": [codes(R, n, 256, 56, 56)], "Scale": [R.pos(1)]},
+                {"max_range": SLIM_QMAX})
+
+    def fake_deq_channel(R, n):
+        return ({"X": [codes(R, 512, 512, 3, 3)], "Scales": [R.pos(512)]},
+                {"quant_bits": [8]})
+
+    return [
+        ("fused_elemwise_activation", "fused_elemwise_activation", fea,
+         32, 2, None),
+        ("fused_embedding_seq_pool", "fused_embedding_seq_pool", emb_pool,
+         512, 8, None),
+        ("fusion_gru", "fusion_gru", gru, 64, 2,
+         gemm((64 * 64, 1536, 512), (64 * 64, 1536, 512))),
+        ("fusion_lstm", "fusion_lstm", lstm, 64, 2,
+         gemm((64 * 64, 2048, 512), (64 * 64, 2048, 512))),
+        ("fused_embedding_fc_lstm", "fused_embedding_fc_lstm", emb_lstm,
+         64, 2, gemm((64 * 64, 2048, 512))),
+        ("cudnn_lstm", "cudnn_lstm", ptb, 20, 2,
+         gemm(*[(20 * 35, 2600, 650)] * 4)),
+        ("fusion_seqpool_concat", "fusion_seqpool_concat", seqpool, 512,
+         8, None),
+        ("fusion_seqpool_cvm_concat", "fusion_seqpool_cvm_concat",
+         seqpool_cvm, 512, 8, None),
+        ("fusion_squared_mat_sub", "fusion_squared_mat_sub", sq_mat_sub,
+         512, 8, gemm((512, 400, 416), (512, 400, 416))),
+        ("fusion_repeated_fc_relu", "fusion_repeated_fc_relu", rep_fc,
+         512, 8, gemm((512, 400, 416), (512, 400, 400), (512, 400, 400))),
+        ("fusion_seqconv_eltadd_relu", "fusion_seqconv_eltadd_relu",
+         seqconv, 64, 2, gemm((64 * 64, 512, 1536))),
+        ("fusion_seqexpand_concat_fc", "fusion_seqexpand_concat_fc",
+         seqexpand, 64, 2, gemm((64 * 64, 512, 1024))),
+        ("fusion_transpose_flatten_concat",
+         "fusion_transpose_flatten_concat", tfc, 32, 2, None),
+        ("conv2d_fusion", "conv2d_fusion", conv_fusion, 32, 2,
+         gemm((32 * 56 * 56, 64, 64 * 9))),
+        ("conv2d_inception_fusion", "conv2d_inception_fusion", inception,
+         32, 2, gemm((32 * 784, 32, 192), (32 * 784, 160, 192),
+                     (32 * 784, 256, 48 * 9), (32 * 784, 32, 128 * 9))),
+        ("quantize_abs_max", "quantize_abs_max", quantize, 32, 2, None),
+        ("dequantize_abs_max", "dequantize_abs_max", dequantize, 32, 2,
+         None),
+        ("fake_dequantize_max_abs", "fake_dequantize_max_abs", fake_deq,
+         32, 2, None),
+        ("fake_channel_wise_dequantize_max_abs",
+         "fake_channel_wise_dequantize_max_abs", fake_deq_channel, 1, 1,
+         None),
+    ]
+
+
+def _slim_programs(fuse=True, quant=True):
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.tools.slim_cases import slim_resnet50_programs
+    return slim_resnet50_programs(ptt, SLIM_CLASSES, SLIM_IMAGE,
+                                  fuse=fuse, quant=quant, lr=SLIM_LR,
+                                  momentum=SLIM_MOMENTUM)
+
+
+def _slim_feed(rng, n):
+    import numpy as np
+    return {"img": rng.rand(n, 3, SLIM_IMAGE, SLIM_IMAGE).astype(np.float32),
+            "label": rng.randint(0, SLIM_CLASSES, (n, 1)).astype(np.int64)}
+
+
+def _slim_train(exe, P, scope, feed):
+    """SLIM_STEPS Momentum steps on one batch, then one traced: losses,
+    step ms, the median of steps 4-8, device busy ms, kernels and idle
+    share of the traced step, its top kernels, peak bytes."""
+    import numpy as np
+    import torch
+
+    def step():
+        loss, = exe.run(P["main"], feed=feed, fetch_list=[P["loss"]],
+                        scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        return float(loss.item())
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(SLIM_STEPS):
+        t = time.perf_counter()
+        losses.append(step())
+        ms.append((time.perf_counter() - t) * 1e3)
+    wall, busy, idle, kernels, top = _dcgan_trace(
+        lambda: losses.append(step()))
+    med = float(np.median(ms[SLIM_TIMED_FROM:]))
+    return {"losses": losses, "step_ms": ms, "median_step_ms": med,
+            "traced_step_wall_ms": wall, "device_busy_ms": busy,
+            "idle_share_traced": idle, "idle_share_median": 1.0 - busy / med,
+            "kernels_a_step": kernels, "top_kernels_ms": top,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "img_per_s": SLIM_BATCH / (med / 1e3)}
+
+
+def _slim_turns(exe, runs, feed):
+    """The step times of the QAT and the fp32 program in turns:
+    SLIM_ROUNDS rounds, each SLIM_ROUND_STEPS steps of one program then
+    of the other, the first program alternating by round. Per round each
+    program's median step ms and their ratio (a host-bound step's time
+    drifts with the host's load, so the ratio is taken within a round)."""
+    import numpy as np
+    import torch
+    med = {k: [] for k in runs}
+    for r in range(SLIM_ROUNDS):
+        for k in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            P, scope = runs[k]
+            ms = []
+            for _ in range(SLIM_ROUND_STEPS):
+                t = time.perf_counter()
+                exe.run(P["main"], feed=feed, fetch_list=[P["loss"]],
+                        scope=scope, return_numpy=False)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+            med[k].append(float(np.median(ms)))
+    ratio = [q / f for q, f in zip(med["qat"], med["fp32"])]
+    return {"rounds": SLIM_ROUNDS, "steps_a_round": SLIM_ROUND_STEPS,
+            "qat_median_ms": med["qat"], "fp32_median_ms": med["fp32"],
+            "qat_over_fp32": ratio,
+            "qat_over_fp32_median": float(np.median(ratio)),
+            "qat_over_fp32_min_max": [min(ratio), max(ratio)]}
+
+
+def _slim_grads_step(exe, P, scope, feed, extra=()):
+    """One step fetching the loss, every parameter's gradient and `extra`
+    (card tensors)."""
+    params = [p.name for p in P["main"].global_block.all_parameters()
+              if p.trainable]
+    out = exe.run(P["main"], feed=feed,
+                  fetch_list=[P["loss"]] + [p + "@GRAD" for p in params]
+                  + list(extra), scope=scope, return_numpy=False)
+    return out[0], dict(zip(params, out[1:1 + len(params)])), \
+        out[1 + len(params):]
+
+
+def _slim_tie_dist(x, scale):
+    """t = x * (qmax / scale) (float32, the rule's order) on the host, and
+    each element's distance from the nearest .5 boundary."""
+    import numpy as np
+    x = x.detach().cpu().numpy()
+    s = np.asarray(scale.detach().cpu().numpy(), np.float32)
+    safe = np.where(s > 0, s, np.float32(1)).astype(np.float32)
+    t = x * (np.float32(SLIM_QMAX) / safe)
+    return t, np.abs(t - (np.floor(t) + np.float32(0.5)))
+
+
+def _slim_near_tie(x, scale):
+    """Elements whose x * (qmax / scale) lies within one ulp of a .5
+    boundary."""
+    import numpy as np
+    t, dist = _slim_tie_dist(x, scale)
+    return dist <= np.spacing(np.abs(t).astype(np.float32))
+
+
+def _slim_rule(op, ins, attrs, cot):
+    """A fake quantize-dequantize rule's forward and its X gradient, the
+    STE grad rule on the forward's OutScale, as registry.lower_op calls
+    it (the moving scale's state var takes no gradient in a program)."""
+    from paddle_tpu_torch.framework import registry as treg
+    od = treg.get_op_def(op)
+    dev = ins["X"][0].device
+    ctx = treg.LowerContext(device=dev)
+    out = od.lower(ctx, ins, attrs)
+    grad = od.grad_lower(ctx, {"X": ins["X"], "Out@GRAD": [cot.to(dev)],
+                               "__out__OutScale": out["OutScale"]},
+                         attrs)["X@GRAD"][0]
+    return out["Out"][0], out["OutScale"][0], grad
+
+
+def _slim_quant_rules(act, act_state, weight, seed):
+    """The three fake quantize-dequantize rules on the card run's own
+    tensors (a ResNet-50 activation, its trained moving-scale state, a
+    conv filter) card vs CPU port: codes equal but where
+    x * (qmax / scale) lies within one ulp of a .5 boundary (counted),
+    OutScale bitwise, the STE gradients within op_test's 5e-3, and the
+    card's second launch bitwise its first."""
+    import torch
+    rows = []
+    cases = (
+        ("fake_quantize_dequantize_abs_max", {"X": [act]}, {}),
+        ("fake_quantize_dequantize_moving_average_abs_max",
+         {"X": [act], "InScale": [act_state]}, {"moving_rate": 0.9}),
+        ("fake_channel_wise_quantize_dequantize_abs_max", {"X": [weight]},
+         {"quant_axis": 0}))
+    for op, ins, attrs in cases:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        cot = torch.randn(ins["X"][0].shape, generator=g, device="cuda")
+        dout, dscale, dgrad = _slim_rule(op, ins, attrs, cot)
+        again = _slim_rule(op, ins, attrs, cot)
+        if not all(torch.equal(a, b) for a, b in zip(
+                (dout, dscale, dgrad), again)):
+            fail(f"slim {op}: two launches on the card differ")
+        cins = {s: [t.cpu() for t in v] for s, v in ins.items()}
+        cout, scale, cgrad = _slim_rule(op, cins, attrs, cot.cpu())
+        if not torch.equal(dscale.cpu(), scale):
+            fail(f"slim {op}: OutScale differs card vs CPU")
+        x = cins["X"][0]
+        if op.startswith("fake_quantize_dequantize_moving"):
+            safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+            x = torch.minimum(torch.maximum(x, -safe), safe)
+        if scale.ndim == 1:
+            scale = scale.reshape((-1,) + (1,) * (x.ndim - 1))
+        near = _slim_near_tie(x, scale)
+        moved = (dout.cpu() != cout).numpy()
+        if (moved & ~near).any():
+            fail(f"slim {op}: {int((moved & ~near).sum())} codes differ "
+                 f"card vs CPU away from a .5 boundary")
+        grad = _op_test_rel(dgrad.cpu(), cgrad)
+        if grad > CORE_GRAD_TOL:
+            fail(f"slim {op}: the STE gradient lies {grad} from the CPU's")
+        rows.append({"op": op, "shape": list(x.shape),
+                     "near_ties": int(near.sum()),
+                     "codes_moved": int(moved.sum()),
+                     "scale_first": [float(v) for v in scale.reshape(-1)[:4]],
+                     "grad_rel_err": grad,
+                     "grad_masked": int((dgrad == 0).sum()),
+                     "rerun_bitwise": True})
+    return rows
+
+
+def _slim_on_grid(w, scale, axis):
+    """The frozen weight w on its int8 grid: with s its channel's scale
+    and q = round(w * (127 / s)) in float32, |q| <= 127 and q * (s / 127)
+    is w bitwise (a zero channel is zero). Returns (q's max |code|, the
+    largest |w * 127 / s - q| in float64)."""
+    import numpy as np
+    shape = [1] * w.ndim
+    shape[axis] = -1
+    s = np.asarray(scale, np.float32).reshape(shape)
+    safe = np.where(s > 0, s, np.float32(1)).astype(np.float32)
+    q = np.round(w * (np.float32(SLIM_QMAX) / safe))
+    back = np.where(s > 0, q * (safe / np.float32(SLIM_QMAX)), 0)
+    if np.abs(q).max() > SLIM_QMAX or not np.array_equal(
+            back.astype(np.float32), w):
+        return None
+    exact = w.astype(np.float64) * SLIM_QMAX / safe.astype(np.float64)
+    return float(np.abs(q).max()), float(np.abs(exact - q).max())
+
+
+def _slim_freeze(exe, P, scope, rng):
+    """QuantizationFreezePass on a clone of the QAT test program after the
+    training: every frozen conv and fc weight on its int8 grid; the frozen
+    logits on an eval batch within SLIM_FREEZE_RTOL of the QAT test
+    clone's max |logit|, and bitwise on a rerun."""
+    import paddle_tpu_torch as ptt
+    import torch
+    feed = _slim_feed(rng, SLIM_BATCH)
+    ref, = exe.run(P["test"], feed=feed, fetch_list=[P["logits"]],
+                   scope=scope, return_numpy=False)
+    infer = P["test"].clone(for_test=True)
+    axes = {op.inputs["X"][0]: op.attrs.get("quant_axis", 0)
+            for op in infer.global_block.ops
+            if op.type == "fake_channel_wise_quantize_dequantize_abs_max"}
+    t = time.perf_counter()
+    scales = ptt.contrib.slim.QuantizationFreezePass().apply(infer, scope)
+    freeze_s = time.perf_counter() - t
+    if sorted(scales) != sorted(axes):
+        fail(f"slim freeze: {len(scales)} weights frozen, "
+             f"{len(axes)} quantized")
+    worst_code, worst_off = 0.0, 0.0
+    for name, sc in scales.items():
+        got = _slim_on_grid(scope.find_var(name).cpu().numpy(), sc,
+                            axes[name])
+        if got is None:
+            fail(f"slim freeze: {name} is not on its int8 grid")
+        worst_code, worst_off = max(worst_code, got[0]), max(worst_off,
+                                                              got[1])
+    if any(op.type.startswith("fake_channel") for op in
+           infer.global_block.ops):
+        fail("slim freeze: a weight fake-quant op is left")
+    frozen = [exe.run(infer, feed=feed, fetch_list=[P["logits"]],
+                      scope=scope, return_numpy=False)[0]
+              for _ in range(2)]
+    err = float((frozen[0] - ref).abs().max())
+    top = float(ref.abs().max())
+    if err > SLIM_FREEZE_RTOL * top:
+        fail(f"slim freeze: frozen logits lie {err} from the QAT test "
+             f"clone's (max {top})")
+    if not torch.equal(frozen[0], frozen[1]):
+        fail("slim freeze: the frozen program's rerun gave other bits")
+    return {"weights": len(scales), "freeze_s": freeze_s,
+            "max_abs_code": worst_code,
+            "max_w127_over_s_minus_code_f64": worst_off,
+            "logits_abs_err": err, "logits_max": top,
+            "logits_bitwise_vs_qat": bool(torch.equal(frozen[0], ref)),
+            "rerun_bitwise": True}
+
+
+def _slim_ptq(exe, P, scope, rng):
+    """PostTrainingQuantization on the fp32 program, each algorithm twice
+    from the same fp32 weights (the pass snaps them in place): the
+    thresholds and the quantized program's logits bitwise on the rerun;
+    calibration seconds, what the activations' copies to the host cost
+    (bytes, and a forward fetching them against one fetching the logits
+    only), and top-1 agreement with fp32 on an eval batch."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    names = [n for n in scope.var_names()
+             if isinstance(scope.find_var(n), torch.Tensor)]
+    start = {n: scope.find_var(n).clone() for n in names}
+    test = P["main"].clone(for_test=True)
+    feed = _slim_feed(rng, SLIM_BATCH)
+    ref, = exe.run(test, feed=feed, fetch_list=[P["logits"]], scope=scope,
+                   return_numpy=False)
+    ref_top1 = ref.argmax(1)
+    out = {}
+    for algo, batches, batch in SLIM_PTQ:
+        calib = [_slim_feed(rng, batch) for _ in range(batches)]
+        runs = []
+        for _ in range(2):
+            for n in names:
+                scope.set_var(n, start[n].clone())
+            ptq = ptt.contrib.slim.PostTrainingQuantization(
+                exe, P["main"], ["img"], [P["logits"]], scope=scope,
+                algo=algo)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with ptt.unique_name_guard():
+                q = ptq.quantize(calib)
+            torch.cuda.synchronize()
+            cal_s = time.perf_counter() - t
+            logits, = exe.run(q, feed=feed, fetch_list=[P["logits"]],
+                              scope=scope, return_numpy=False)
+            runs.append((cal_s, q, logits))
+        (s1, q1, l1), (s2, q2, l2) = runs
+        if q1._quant_act_thresholds != q2._quant_act_thresholds or \
+                not torch.equal(l1, l2):
+            fail(f"slim ptq {algo}: the rerun gave other thresholds or "
+                 f"logits")
+        acts = sorted(q1._quant_act_thresholds)
+        agree = float((l1.argmax(1) == ref_top1).float().mean())
+        th = np.array([q1._quant_act_thresholds[n] for n in acts])
+        if not np.all(np.isfinite(th)) or not np.all(th > 0):
+            fail(f"slim ptq {algo}: thresholds {th}")
+        out[algo] = {"calibration_batches": batches, "batch": batch,
+                     "activations": len(acts), "calibration_s": [s1, s2],
+                     "top1_agreement_fp32": agree,
+                     "threshold_min_max": [float(th.min()),
+                                           float(th.max())],
+                     "rerun_bitwise": True}
+    # what calibration's host copies cost: a forward of a calibration
+    # batch of 32 fetching every calibrated activation as numpy, against
+    # one fetching the logits only
+    calib = _slim_feed(rng, SLIM_BATCH)
+    for key, fetch, as_np in (("logits_only_s", [P["logits"]], False),
+                              ("with_activations_s", acts, True)):
+        for _ in range(2):      # the second run is timed
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            vals = exe.run(test, feed=calib, fetch_list=fetch,
+                           scope=scope, return_numpy=as_np)
+            torch.cuda.synchronize()
+        out[key] = time.perf_counter() - t
+    out["host_copy_bytes_a_batch_of_32"] = sum(v.nbytes for v in vals)
+    for n in names:
+        scope.set_var(n, start[n])
+    return out
+
+
+def _slim_act_codes(x, out, scale):
+    """A moving-average rule's call on the host: t = clip(x) * (qmax /
+    scale) in float32 and the codes its Out holds (Out * qmax / scale in
+    float64, rounded: Out is code * (scale / qmax))."""
+    import numpy as np
+    import torch
+    scale = scale.detach().cpu()
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    x = x.detach().cpu()
+    t, dist = _slim_tie_dist(torch.minimum(torch.maximum(x, -safe), safe),
+                             scale)
+    codes = np.round(out.detach().cpu().numpy().astype(np.float64)
+                     * SLIM_QMAX / float(safe))
+    return t, dist, codes
+
+
+@contextlib.contextmanager
+def _slim_codes(record=None, forced=None):
+    """Wrap the moving-average fake quantize-dequantize rule for one run:
+    with `record` (a list), append each call's (X, Out, OutScale), in the
+    forward's op order; with `forced` (such a list from the card's run),
+    compare each call with the card's and yield one row a call: the
+    largest |t - t_card| over the layer (t = x * (qmax / scale), in
+    codes), the codes that differ, how many of them lie further than
+    SLIM_CODE_BAND from a .5 boundary of the CPU's own t, and the scales'
+    relative difference. Where a code differs, the call returns the
+    card's value (cutting the cascade a code one step apart starts);
+    everywhere else, and for OutScale, the CPU rule's own."""
+    import torch
+    from paddle_tpu_torch.framework import registry as treg
+    od = treg.get_op_def("fake_quantize_dequantize_moving_average_abs_max")
+    rule = od.lower
+    rows = []
+
+    def wrapped(ctx, ins, attrs):
+        out = rule(ctx, ins, attrs)
+        if record is not None:
+            record.append((ins["X"][0].detach(), out["Out"][0],
+                           out["OutScale"][0]))
+        if forced is None:
+            return out
+        dev_x, dev_out, dev_scale = forced[len(rows)]
+        cpu_out, cpu_scale = out["Out"][0], out["OutScale"][0]
+        t, dist, codes = _slim_act_codes(ins["X"][0], cpu_out, cpu_scale)
+        dt, _, dev_codes = _slim_act_codes(dev_x, dev_out, dev_scale)
+        moved = codes != dev_codes
+        card = float(dev_scale.cpu())
+        rows.append({
+            "max_dt": float(abs(t.astype("float64") - dt).max()),
+            "moved": int(moved.sum()),
+            "moved_off_tie": int((moved & (dist > SLIM_CODE_BAND)).sum()),
+            "moved_max_tie_dist": float(dist[moved].max())
+            if moved.any() else 0.0,
+            "scale_rel": abs(float(cpu_scale) - card) / card})
+        use_card = torch.from_numpy(moved).to(cpu_out.device)
+        return {"Out": [torch.where(use_card, dev_out.to(cpu_out.device),
+                                    cpu_out)],
+                "OutScale": [cpu_scale]}
+
+    od.lower = wrapped
+    try:
+        yield rows
+    finally:
+        od.lower = rule
+
+
+def _slim_held(P, init, seed):
+    """ResNet-50 QAT at batch 2, step 1, card vs CPU port from the same
+    values and feed. The QAT loss is chaotic in its inputs: an activation
+    x * (127 / scale) one rounding step across a .5 boundary moves a code
+    by one, and the code's step (scale / 127) then moves every value
+    below it by far more than rounding, so more codes move. So every
+    moving-average rule's call is compared with the card's
+    (_slim_codes): each layer's t = x * (qmax / scale) within
+    SLIM_CODE_BAND codes of the card's over every element (the loss
+    rule's 1e-4 of the layer's range), and a code that differs only
+    within SLIM_CODE_BAND of a .5 boundary; there the CPU takes the
+    card's code, which cuts the cascade, and the loss is held within
+    SLIM_LOSS_RTOL relative (the ResNet held run's rule) of the card's.
+    The card's own loss under a 1e-7 input change is printed beside it,
+    and every gradient's relative L2 is recorded, not held (ReLU kinks
+    with batch_norm, ROADMAP §C). Each rule is held at the card run's own
+    tensors by _slim_quant_rules."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    rng = np.random.RandomState(seed + 7)
+    feed = _slim_feed(rng, SLIM_HELD_BATCH)
+    blk = P["main"].global_block
+
+    def largest(op_type):
+        return max((op for op in blk.ops if op.type == op_type),
+                   key=lambda op: int(np.prod(blk.var(op.inputs["X"][0])
+                                              .shape[1:])))
+
+    act_op = largest("fake_quantize_dequantize_moving_average_abs_max")
+    w_op = largest("fake_channel_wise_quantize_dequantize_abs_max")
+    extra = [act_op.inputs["X"][0], w_op.inputs["X"][0]]
+    card = _card_exe()
+    codes = []
+    t = time.perf_counter()
+    with _slim_codes(record=codes):
+        dl, dg, dx = _slim_grads_step(card, P, _scope_from(init, "cuda"),
+                                      feed, extra)
+    card_s = time.perf_counter() - t
+    pfeed = dict(feed)
+    pfeed["img"] = (pfeed["img"] * (1 + 1e-7)).astype(np.float32)
+    pl = float(_slim_grads_step(card, P, _scope_from(init, "cuda"),
+                                pfeed)[0].item())
+    t = time.perf_counter()
+    with _slim_codes(forced=codes) as layers:
+        cl, cg, _ = _slim_grads_step(ptt.Executor(ptt.CPUPlace()), P,
+                                     _scope_from(init, "cpu"), feed)
+    cpu_s = time.perf_counter() - t
+    del codes
+    dl, cl = float(dl.item()), float(cl.item())
+    rel = abs(dl - cl) / abs(cl)
+    worst_dt = max((r["max_dt"], k) for k, r in enumerate(layers))
+    summary = {
+        "batch": SLIM_HELD_BATCH, "loss": dl, "loss_cpu": cl,
+        "loss_rel_diff": rel, "loss_rtol": SLIM_LOSS_RTOL,
+        "card_loss_input_1e-7_rel_move": abs(pl - dl) / abs(dl),
+        "code_band": SLIM_CODE_BAND,
+        "layers": len(layers),
+        "max_dt_codes": {"layer": worst_dt[1], "dt": worst_dt[0]},
+        "max_dt_codes_per_layer": [r["max_dt"] for r in layers],
+        "codes_substituted": sum(r["moved"] for r in layers),
+        "layers_with_substitutions": sum(r["moved"] > 0 for r in layers),
+        "substituted_max_tie_dist": max(r["moved_max_tie_dist"]
+                                        for r in layers),
+        "codes_off_tie": sum(r["moved_off_tie"] for r in layers),
+        "scale_rel_max": max(r["scale_rel"] for r in layers),
+        "card_s": card_s, "cpu_s": cpu_s}
+    emit({"phase": "slim", "part": "held_layers", **summary})
+    if len(layers) != len(P["states"]) or not np.isfinite(dl):
+        fail(f"slim held: {len(layers)} moving-average calls, loss {dl}")
+    off = [k for k, r in enumerate(layers)
+           if r["moved_off_tie"] or r["max_dt"] > SLIM_CODE_BAND]
+    if off:
+        fail(f"slim held: layers {off} differ card vs CPU by more than "
+             f"{SLIM_CODE_BAND} codes (worst {worst_dt[0]} at layer "
+             f"{worst_dt[1]}), or in codes away from a .5 boundary")
+    if rel > SLIM_LOSS_RTOL:
+        fail(f"slim held: loss {dl} on the card, {cl} on the CPU")
+    gl2 = {n: _rel_l2(dg[n].cpu(), cg[n]) for n in cg}
+    worst = max((v, n) for n, v in gl2.items())
+    summary.update({
+        "grad_worst_rel_l2_unheld": {"var": worst[1], "rel_l2": worst[0]},
+        "grad_median_rel_l2_unheld": float(np.median(list(gl2.values())))})
+    return summary, dx, act_op
+
+
+def phase_slim(seed):
+    """Phase 4p: ResNet-50 quantization-aware training at batch 32 on the
+    card (fused and quantized; the fp32 program beside it), fused against
+    unfused, the freeze pass, post-training quantization, and the new op
+    types card vs CPU port. TF32 off and cuDNN's deterministic algorithms
+    on (a step reruns bitwise only so). No hand kernel launches. In a
+    child process (--slim-only)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework import registry as treg
+    from paddle_tpu_torch.tools.bench_resnet50 import to_device
+    from paddle_tpu_torch.tools.slim_cases import NUM_BOTTLENECKS
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    t = time.perf_counter()
+    P = _slim_programs()
+    U = _slim_programs(fuse=False)
+    F32 = _slim_programs(fuse=False, quant=False)
+    build_s = time.perf_counter() - t
+    types = [op.type for op in P["main"].global_block.ops]
+    if types.count("fused_elemwise_activation") != NUM_BOTTLENECKS:
+        fail(f"slim: {types.count('fused_elemwise_activation')} fused ops")
+    exe = _card_exe()
+    rng = np.random.RandomState(seed)
+    feed = to_device(_slim_feed(rng, SLIM_BATCH), CARD)
+    zero_counts(KERNELS)
+    # ---- the main path: counts zeroed just before, read just after -----
+    P["startup"].random_seed = seed
+    scope = ptt.Scope()
+    exe.run(P["startup"], scope=scope)
+    init = _host_copy(scope)
+    qat = _slim_train(exe, P, scope, feed)
+    states = {n: float(scope.find_var(n).item()) for n in P["states"]}
+    bad = [n for n, v in states.items() if not (np.isfinite(v) and v > 0)]
+    if not np.all(np.isfinite(qat["losses"])) or \
+            not qat["losses"][-1] < qat["losses"][0] or bad:
+        fail(f"slim qat: losses {qat['losses']}, scales not finite and "
+             f"positive: {bad[:4]}")
+    qat["moving_scales"] = len(states)
+    qat["moving_scale_min_max"] = [min(states.values()),
+                                   max(states.values())]
+    emit({"phase": "slim", "part": "qat", **qat})
+    _free_card()
+    # fp32 without the passes, from its own startup: what fake-quant costs
+    F32["startup"].random_seed = seed
+    fscope = ptt.Scope()
+    exe.run(F32["startup"], scope=fscope)
+    fp32 = _slim_train(exe, F32, fscope, feed)
+    emit({"phase": "slim", "part": "fp32", **fp32})
+    turns = _slim_turns(exe, {"qat": (P, scope), "fp32": (F32, fscope)},
+                        feed)
+    emit({"phase": "slim", "part": "turns", **turns})
+    _free_card()
+    # fused against unfused: one step from the same state and feed
+    fl, fg, _ = _slim_grads_step(exe, P, _scope_from(init, "cuda"), feed)
+    ul, ug, _ = _slim_grads_step(exe, U, _scope_from(init, "cuda"), feed)
+    bitwise = torch.equal(fl, ul) and all(torch.equal(fg[n], ug[n])
+                                          for n in ug)
+    fused_err = max([float((fg[n] - ug[n]).abs().max()
+                           / max(float(ug[n].abs().max()), 1e-30))
+                     for n in ug] + [abs(float(fl) - float(ul))
+                                     / abs(float(ul))])
+    if sorted(fg) != sorted(ug) or (not bitwise
+                                    and fused_err > SLIM_FUSED_RTOL):
+        fail(f"slim fused vs unfused: {fused_err} relative")
+    fused = {"loss": float(fl), "bitwise": bitwise, "max_rel": fused_err,
+             "grads": len(ug)}
+    emit({"phase": "slim", "part": "fused_vs_unfused", **fused})
+    del fg, ug
+    _free_card()
+    frozen = _slim_freeze(exe, P, scope, rng)
+    emit({"phase": "slim", "part": "freeze", **frozen})
+    del scope
+    _free_card()
+    ptq = _slim_ptq(exe, F32, fscope, rng)
+    emit({"phase": "slim", "part": "ptq", **ptq})
+    del fscope
+    _free_card()
+    held, (act, weight), act_op = _slim_held(P, init, seed)
+    emit({"phase": "slim", "part": "held", **{
+        k: v for k, v in held.items() if k != "max_dt_codes_per_layer"}})
+    # the moving rule from the state the QAT run trained
+    state = torch.tensor([states[act_op.inputs["InScale"][0]]],
+                         device="cuda")
+    t = time.perf_counter()
+    rules = _slim_quant_rules(act, state, weight, seed)
+    for row in rules:
+        emit({"phase": "slim", "part": "quant_rule", **row})
+    rules_s = time.perf_counter() - t
+    del act, weight
+    rows = []
+    for k, case in enumerate(_slim_cases()):
+        t = time.perf_counter()
+        row = _core_row(case, seed + k, tag="slim")
+        row["row_s"] = time.perf_counter() - t
+        rows.append(row)
+        emit({"phase": "slim", "part": "op", **row})
+        _free_card()
+    launches = read_counts(KERNELS)
+    # -------------------------------------------------------------------
+    if any(launches.values()):
+        fail(f"slim: the phase launched hand kernels: {launches}")
+    import paddle_tpu_torch.ops.fused_ops as fo
+    import paddle_tpu_torch.ops.quant_ops as qo
+    ported = {op for op, d in treg._REGISTRY.items() if d.lower is not None
+              and d.lower.__module__ in (fo.__name__, qo.__name__)}
+    checked = {r["op"] for r in rows + rules}
+    if ported != checked or len(ported) != 22:
+        fail(f"slim: op types without a card check: "
+             f"{sorted(ported - checked)}")
+    summary = {"phase": "slim",
+               "device": torch.cuda.get_device_name(0),
+               "op_types": len(ported), "registered": len(treg._REGISTRY),
+               "build_s": build_s, "fused_ops": NUM_BOTTLENECKS,
+               "qat": {k: v for k, v in qat.items()
+                       if k not in ("losses", "step_ms")},
+               "fp32": {k: v for k, v in fp32.items()
+                        if k not in ("losses", "step_ms")},
+               "qat_over_fp32_step": turns["qat_over_fp32_median"],
+               "qat_over_fp32_step_min_max": turns["qat_over_fp32_min_max"],
+               "fused_vs_unfused": fused, "freeze": frozen, "ptq": ptq,
+               "held": {k: v for k, v in held.items()
+                        if k != "max_dt_codes_per_layer"},
+               "quant_rules": rules, "quant_rules_s": rules_s,
+               "rows": len(rows), "launches": launches,
+               "wall_s": time.perf_counter() - t_phase}
+    emit(summary)
+    return summary
+
+
 # The quant phase runs last, and only when it can start by QUANT_START_BY
 # seconds into the run: it took 111-147 s, and on the slowest host seen
 # the whole script with it took ~1270 s of the 1200 allowed (PERF.md §7).
@@ -9247,12 +10088,12 @@ def _quant_last(seed, elapsed):
 
 
 class _Child:
-    """Phase 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h, 4i, 4j, 4k, 4l, 4m, 4n or 4o
-    in a process of its own (this script with --engine-only,
+    """Phase 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h, 4i, 4j, 4k, 4l, 4m, 4n, 4o or
+    4p in a process of its own (this script with --engine-only,
     --server-only, --spec-only, --quant-only, --adapters-only,
     --bench-only, --nmt-only, --lenet-only, --optim-only, --rnn-only,
-    --io-only, --ps-only, --core-only, --detection-only or
-    --nn-extra-only, and --warm). Once started it imports
+    --io-only, --ps-only, --core-only, --detection-only, --nn-extra-only
+    or --slim-only, and --warm). Once started it imports
     torch and the package and opens its CUDA context, then waits for a
     line on its stdin; `run` sends it, passes
     its JSON lines through and returns its summary. After the engine's run,
@@ -9326,6 +10167,8 @@ def main():
                       help="run phase 4n alone, likewise")
     only.add_argument("--nn-extra-only", action="store_true",
                       help="run phase 4o alone, likewise")
+    only.add_argument("--slim-only", action="store_true",
+                      help="run phase 4p alone, likewise")
     ap.add_argument("--warm", action="store_true",
                     help="with a --*-only flag: import the package and "
                          "open the CUDA context, then wait for a line on "
@@ -9353,7 +10196,8 @@ def main():
              phase_ps if args.ps_only else
              phase_core if args.core_only else
              phase_detection if args.detection_only else
-             phase_nn_extra if args.nn_extra_only else None)
+             phase_nn_extra if args.nn_extra_only else
+             phase_slim if args.slim_only else None)
     if alone is not None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -9387,7 +10231,7 @@ def main():
 
     names = ("engine", "server", "spec", "adapters", "bench", "nmt",
              "lenet", "optim", "rnn", "io", "ps", "core", "detection",
-             "nn_extra")
+             "nn_extra", "slim")
     # each child is started one phase ahead (_Child): its imports and
     # CUDA context overlap the phase before it (the engine's, the build)
     pending = _Child(args.seed, "--engine-only")

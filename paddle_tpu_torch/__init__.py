@@ -31,7 +31,10 @@ the parameter server: the pskv service (`distributed.pskv`, a C++ server
 built with g++ at first use), `transpiler.DistributeTranspiler` and its
 trainer runtime, the RPC and PS ops, the async `distributed.Communicator`,
 elastic membership, `distributed.launch`, the PS fleet (`incubate`) and
-DeepFM (`models.deepfm`).
+DeepFM (`models.deepfm`), and the pass framework
+(`framework.apply_pass`, the builtin fuse, AMP and quantization passes)
+with model compression (`contrib.slim`: quantization-aware training,
+freezing, post-training quantization, pruning, distillation, light-NAS).
 
 Places are real: `Executor()` runs on `CUDAPlace(0)` and raises when no GPU
 is present; `Executor(CPUPlace())` runs on the CPU.
@@ -44,7 +47,8 @@ from .framework import (Program, Block, Operator, Variable, Parameter,
                         unique_name_guard, name_scope,
                         Executor, Scope, global_scope, scope_guard,
                         CPUPlace, CUDAPlace, append_backward, gradients,
-                        LayerHelper, ParamAttr, as_torch_function)
+                        LayerHelper, ParamAttr, WeightNormParamAttr,
+                        as_torch_function)
 from . import layers
 from . import nets
 from . import optimizer
@@ -79,7 +83,8 @@ __all__ = ["Program", "Block", "Operator", "Variable", "Parameter",
            "default_startup_program", "unique_name", "unique_name_guard",
            "name_scope", "Executor", "Scope", "global_scope", "scope_guard",
            "CPUPlace", "CUDAPlace", "append_backward", "gradients",
-           "as_torch_function", "LayerHelper", "ParamAttr", "layers",
+           "as_torch_function", "LayerHelper", "ParamAttr",
+           "WeightNormParamAttr", "layers",
            "nets", "optimizer", "regularizer", "initializer", "io",
            "observability", "inference", "contrib", "profiler",
            "serving", "server", "analysis", "clip", "compiler",

@@ -67,7 +67,10 @@ def set_params_from_numpy(scope: Scope, arrays: Dict[str, np.ndarray],
                           device) -> None:
     """Put `{name: ndarray}` into `scope` as tensors on `device`, under the
     same names, dtypes and layouts (a `mul` weight is (in, out) in both
-    packages). Carries the JAX package's parameters into the port."""
+    packages). Carries the JAX package's parameters and its other
+    persistables (optimizer state, batch-norm statistics, the moving
+    scales of quantization-aware training, 0-d where a step wrote them)
+    into the port."""
     device = torch.device(device)
     for name, arr in arrays.items():
         scope.set_var(name, torch.from_numpy(np.array(arr, order="C"))

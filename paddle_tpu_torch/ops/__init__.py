@@ -19,3 +19,5 @@ from . import metrics_ops  # noqa: F401
 from . import nn_extra_ops  # noqa: F401
 from . import detection_ops  # noqa: F401
 from . import detection_extra_ops  # noqa: F401
+from . import quant_ops  # noqa: F401
+from . import fused_ops  # noqa: F401

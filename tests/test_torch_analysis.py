@@ -19,6 +19,7 @@ import paddle_tpu_torch as ptt
 from paddle_tpu.analysis import verify_program as jax_verify
 from paddle_tpu_torch.analysis import (ProgramVerificationError,
                                        verify_program)
+from torch_port_common import one_torch_thread  # noqa: F401
 
 
 def _relu_on(pkg, x_data, out="o", role=None):

@@ -19,6 +19,8 @@ from paddle_tpu_torch.models.bert import BertConfig
 from paddle_tpu_torch.models.gpt import GPTConfig
 from paddle_tpu_torch.observability import get_registry
 from paddle_tpu_torch.tools import bench_bert, bench_gpt, bench_serving
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "extra"}
 

@@ -21,12 +21,15 @@ layers, 4 heads, ffn 512) with dropout 0, s=128, batch 4, and a padding
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as pt
 import paddle_tpu_torch as ptt
 from paddle_tpu.models import bert as jbert
 from paddle_tpu_torch.models import bert as tbert
 from test_torch_gpt_inference import _program_dict
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 SEQ, BATCH, LR, STEPS = 128, 4, 1e-3, 3
 LOSS_RTOL = 1e-5

@@ -38,6 +38,8 @@ from paddle_tpu_torch.models import lenet as tlenet
 from paddle_tpu_torch.models import resnet as tresnet
 from test_torch_gpt_inference import _program_dict
 from test_torch_ops import _both, _run_grad
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 TOL = 1e-5          # op_test's output tolerance
 GRAD_TOL = 5e-3     # op_test's gradient tolerance

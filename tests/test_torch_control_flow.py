@@ -27,6 +27,8 @@ import paddle_tpu_torch as ptt
 from paddle_tpu_torch.tools.control_flow_cases import (
     PROGRAMS, doubling, dynamic_rnn, f32, nested_whiles,
     static_rnn_trains, while_sums_to_ten)
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 TOL = 1e-5          # op_test's output tolerance
 GRAD_TOL = 5e-3     # op_test's gradient tolerance

@@ -25,6 +25,8 @@ import torch
 import jax.numpy as jnp
 
 from paddle_tpu_torch.tools import spike_conv_bn as scb
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 BF16_ULP = 2.0 ** -7
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

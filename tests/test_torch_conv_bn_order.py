@@ -38,6 +38,8 @@ import torch
 import jax.numpy as jnp
 
 from paddle_tpu_torch.tools import spike_conv_bn as scb
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 CBN_SUM_RTOL = 1e-4     # chip_smoke.py: s and q against the plain version
 H100_SMS = 132

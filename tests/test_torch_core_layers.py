@@ -41,6 +41,7 @@ from paddle_tpu.framework import registry as jreg
 from paddle_tpu_torch.framework import registry as treg
 from paddle_tpu_torch.tools.dcgan_cases import dcgan_programs
 from test_torch_gpt_inference import _program_dict
+from torch_port_common import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT_TOL = 1e-5
@@ -156,16 +157,6 @@ def _fast_jax_compile(monkeypatch):
         return jit(fn, **kw)
 
     monkeypatch.setattr(jax, "jit", fast_jit)
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """The tensors here are small: torch's intra-op threads only spin
-    against the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _f(*shape):
@@ -523,7 +514,7 @@ def _own_ops(reg, package):
 
 def test_registries_mark_ops_alike():
     """Every op type both packages register is marked alike, so backward
-    builds the same grad ops; the port registers 392 of the 427."""
+    builds the same grad ops; the port registers 414 of the 427."""
     def marks(d):
         return (d.not_differentiable, d.grad_free, set(d.no_grad_inputs),
                 set(d.non_diff_outputs), d.stateful, d.is_optimizer_op,
@@ -531,7 +522,7 @@ def test_registries_mark_ops_alike():
 
     jown = _own_ops(jreg, "paddle_tpu")
     town = _own_ops(treg, "paddle_tpu_torch")
-    assert town <= jown and len(town) == 392 and len(jown) == 427
+    assert town <= jown and len(town) == 414 and len(jown) == 427
     shared = jown & town
     diff = {n for n in shared
             if marks(jreg._REGISTRY[n]) != marks(treg._REGISTRY[n])}

@@ -32,6 +32,7 @@ import paddle_tpu_torch  # noqa: F401  (registers the port's rules)
 from paddle_tpu.framework import registry as jreg
 from paddle_tpu.framework.selected_rows import SelectedRows as JSR
 from paddle_tpu_torch.framework import registry as treg
+from torch_port_common import one_torch_thread  # noqa: F401
 
 OUT_TOL = 1e-5
 GRAD_TOL = 5e-3
@@ -103,7 +104,7 @@ def _grad_spec(op, ins, attrs):
 
 def _cotangents(outs):
     rng = np.random.RandomState(7)
-    return [rng.randn(*shape).astype(np.float32) for _, _, shape in outs]
+    return [np.asarray(rng.randn(*shape), np.float32) for _, _, shape in outs]
 
 
 _JAX_FAMILIES = {}
@@ -204,16 +205,6 @@ def _op_test_rel(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     denom = max(np.abs(a).max(initial=0), np.abs(b).max(initial=0), 1e-3)
     return np.abs(a - b).max(initial=0) / denom
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """The tensors here are small: torch's intra-op threads only spin
-    against the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _case(cid, op, ins, attrs=None):

@@ -29,6 +29,8 @@ from paddle_tpu_torch.transpiler import (DistributeTranspiler,
 from test_dist_ps import _free_port
 from test_torch_gpt_inference import _program_dict
 from test_torch_loss_metrics import _rel_l2, _run_both
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 FIELDS, VOCAB, EMB, LAYERS = 4, 200, 4, (16, 16)
 OUT_TOL, GRAD_L2 = 1e-5, 5e-3

@@ -36,18 +36,9 @@ from paddle_tpu.framework import registry as jreg
 from paddle_tpu_torch.framework import registry as treg
 from test_torch_core_ops import (_case, _check, _family, _jax_family,
                                  _slots, _torch_run)
+from torch_port_common import one_torch_thread  # noqa: F401
 
 _R = np.random.RandomState(21)
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """The tensors here are small: torch's intra-op threads only spin
-    against the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _f(*shape):

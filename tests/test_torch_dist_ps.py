@@ -43,6 +43,8 @@ from paddle_tpu_torch.transpiler import (DistributeTranspiler,
                                          start_pserver)
 from test_dist_ps import _feeds, _free_port
 from test_dist_ps import _run_ps as _jax_run_ps
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL, ATOL = 2e-3, 1e-4      # PS vs local (tests/test_dist_ps.py)

@@ -16,12 +16,14 @@ of the JAX package's), on the CPU (mirrors tests/test_elastic.py):
 import time
 
 import numpy as np
+import pytest
 
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch.distributed.elastic import (ElasticAgent,
                                                   ElasticController,
                                                   SyncElasticTrainer)
 from paddle_tpu_torch.distributed.pskv import KVClient, KVServer
+from torch_port_common import one_torch_thread  # noqa: F401
 
 
 def _wait_for(pred, timeout=5.0):
@@ -167,10 +169,14 @@ def test_async_communicator_survives_drops(monkeypatch):
         exe.run(startup, scope=scope)
         comm = plan.start_communicator(scope, send_wait_ms=2,
                                        recv_interval_ms=5)
-        for _ in range(6):
+        for step in range(6):
             xv = rng.randn(8, 4).astype(np.float32)
             exe.run(main, feed={"fx": xv, "fy": xv.sum(1, keepdims=True)},
                     fetch_list=[loss], scope=scope)
+            # each step's batch through the send thread's retry loop (a
+            # fast step would otherwise leave every batch to stop()'s
+            # flush, whose retries record no error)
+            assert _wait_for(lambda: comm.sent_batches > step)
         comm.stop()             # flushes what is still queued
         assert comm.sent_batches > 0 and comm.last_error is not None
         probe = KVClient("127.0.0.1", srv.port)

@@ -22,6 +22,8 @@ import paddle_tpu as pt
 import paddle_tpu_torch as ptt
 from paddle_tpu import observability as jobs
 from paddle_tpu_torch import observability as tobs
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 R = np.random.RandomState(0)
 X0 = R.randn(8, 4).astype("f")

@@ -15,6 +15,8 @@ import torch
 
 from paddle_tpu.ops import flash_attention as jfa
 from paddle_tpu_torch.ops import flash_attention as tfa
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 TOL = 2e-5
 

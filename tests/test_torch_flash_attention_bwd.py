@@ -19,6 +19,8 @@ import torch
 
 from paddle_tpu.ops import flash_attention as jfa
 from paddle_tpu_torch.ops import flash_attention as tfa
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 TOL = 1e-4
 

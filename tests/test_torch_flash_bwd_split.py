@@ -25,6 +25,8 @@ import torch
 
 from chip_smoke import BWD_TOL
 from paddle_tpu_torch.ops import flash_attention as tfa
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 LT = 64                  # rows of a looped tile (csrc tf32::LT)
 LOG2E = 1.4426950408889634

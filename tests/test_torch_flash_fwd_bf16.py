@@ -23,6 +23,8 @@ import torch
 from chip_smoke import FP32_TOL, tie_slack_tiled
 from paddle_tpu.ops import flash_attention as jfa
 from paddle_tpu_torch.ops import flash_attention as tfa
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 BF16 = torch.bfloat16
 

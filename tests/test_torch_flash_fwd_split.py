@@ -28,6 +28,8 @@ import torch
 from chip_smoke import BF16_ULP, FP32_TOL, tie_slack_tiled
 from paddle_tpu_torch.ops import flash_attention as tfa
 from test_torch_flash_bwd_split import mm1, mm3
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 KT = 64                  # keys of a tile or chunk (csrc fwd_tc)
 LOG2E = 1.4426950408889634

@@ -26,6 +26,8 @@ from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.ops import flash_attention as tfa
 from test_torch_gpt_inference import _program_dict
 from test_torch_gpt_train import LR, STEPS, _cfg, _tokens
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 SEQ = 640
 

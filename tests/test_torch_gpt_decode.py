@@ -34,6 +34,8 @@ from paddle_tpu.models.gpt import GPTConfig, gpt_lm_program
 from paddle_tpu.serving.scheduler import ContinuousBatchingScheduler
 from paddle_tpu_torch.models import gpt_decode as tgd
 from paddle_tpu_torch.models.gpt import GPTConfig as TGPTConfig
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 TOL = 1e-5
 

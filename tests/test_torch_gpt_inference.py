@@ -18,11 +18,14 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as pt
 import paddle_tpu_torch as ptt
 from paddle_tpu.models.gpt import GPTConfig, gpt_lm_program
 from paddle_tpu_torch.models import gpt as tgpt
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-4   # logits: f32 end to end, summation order differs

@@ -26,6 +26,8 @@ from paddle_tpu.models import gpt as jgpt
 from paddle_tpu.models.gpt import GPTConfig, gpt_lm_program
 from paddle_tpu_torch.models import gpt as tgpt
 from test_torch_gpt_inference import _program_dict
+from torch_port_common import executor, one_torch_thread  # noqa: F401
+
 
 LR = 1e-4
 STEPS = 3
@@ -71,7 +73,7 @@ def _trajectories(seq, impl, optimizer="adam", steps=STEPS):
     persistables) and the names of the parameters."""
     (jmain, jstart, jf), (tmain, _, tf) = _build(seq, impl, optimizer)
     jscope = pt.Scope()
-    jexe = pt.Executor()
+    jexe = executor(pt)
     jexe.run(jstart, scope=jscope)
     persist = [v.name for v in jmain.list_vars() if v.persistable
                and jscope.find_var(v.name) is not None]
@@ -240,14 +242,14 @@ def test_regularized_adam_step_matches_jax():
         if any("@CLIP" in n and "@REG" not in n
                for n in op.output_names()))
     jscope = pt.Scope()
-    pt.Executor().run(jstart, scope=jscope)
+    executor(pt).run(jstart, scope=jscope)
     persist = [v.name for v in jmain.list_vars() if v.persistable
                and jscope.find_var(v.name) is not None]
     tscope = ptt.Scope()
     ptt.io.set_params_from_numpy(
         tscope, {n: np.asarray(jscope.find_var(n)) for n in persist}, "cpu")
     feed = {"tokens": _tokens(256, 0)}
-    jl, = pt.Executor().run(jmain, feed=feed, fetch_list=[jf["loss"]],
+    jl, = executor(pt).run(jmain, feed=feed, fetch_list=[jf["loss"]],
                             scope=jscope)
     tl, = ptt.Executor(ptt.CPUPlace()).run(tmain, feed=feed,
                                            fetch_list=[tf["loss"]],
@@ -264,7 +266,7 @@ def test_gradients_seeded_with_ones_matches_jax():
     x = np.random.RandomState(3).randn(4, 6).astype(np.float32)
     w = np.random.RandomState(4).randn(6, 5).astype(np.float32)
     res = []
-    for pkg, exe in ((pt, pt.Executor()),
+    for pkg, exe in ((pt, executor(pt)),
                      (ptt, ptt.Executor(ptt.CPUPlace()))):
         main = pkg.Program()
         blk = main.global_block

@@ -32,6 +32,8 @@ from jax.experimental import pallas as pl
 
 from chip_smoke import GRAM_CASES, gram_input
 from paddle_tpu_torch.tools import mosaic_repro_headslice as mrh
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

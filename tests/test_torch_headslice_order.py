@@ -26,6 +26,8 @@ import torch
 from chip_smoke import GRAM_TOL
 from paddle_tpu_torch.tools import mosaic_repro_headslice as mrh
 from test_torch_flash_bwd_split import split, tf32
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 KSTEP = 8               # depth of a TF32 wgmma (m64n64k8)
 

@@ -35,6 +35,7 @@ from paddle_tpu.framework import fluid_interop as jfi
 from paddle_tpu_torch.framework import fluid_interop as tfi
 from test_fluid_interop import ProgramDescM, TensorDescM
 from test_torch_gpt_inference import _program_dict
+from torch_port_common import one_torch_thread  # noqa: F401
 
 
 def _texe():

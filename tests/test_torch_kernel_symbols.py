@@ -12,8 +12,11 @@ import os
 import re
 
 import pytest
+import torch
 
 from paddle_tpu_torch.tools import profile_gpt
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(profile_gpt.__file__)),
                     "ops", "csrc")

@@ -27,6 +27,8 @@ from paddle_tpu import lod_tensor as jlt
 from paddle_tpu_torch import lod_tensor as tlt
 from paddle_tpu_torch.reader import bucketing
 from test_torch_control_flow import check_both
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 TOL = 1e-5
 GRAD_TOL = 5e-3

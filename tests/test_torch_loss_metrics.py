@@ -28,12 +28,15 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as pt
 import paddle_tpu_torch as ptt
 from paddle_tpu.ops import loss_ops as jloss
 from paddle_tpu_torch.ops import loss_ops as tloss
 from test_torch_gpt_inference import _program_dict
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT_TOL = 1e-5

@@ -21,6 +21,8 @@ import pytest
 import paddle_tpu as pt
 import paddle_tpu_torch as ptt
 from test_torch_gpt_inference import _program_dict
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 STEPS = 10
 RTOL = 1e-6

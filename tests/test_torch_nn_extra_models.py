@@ -29,7 +29,6 @@ the same seeded feeds.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 import paddle_tpu as pt
 import paddle_tpu_torch as ptt
@@ -38,17 +37,10 @@ from paddle_tpu_torch.tools.dcn_cases import (NUM_DEFORMABLE,
 from test_torch_core_layers import (  # noqa: F401  (autouse fixture)
     _build, _fast_jax_compile, _programs_equal, _start_both)
 from test_torch_gpt_inference import _program_dict
+from torch_port_common import executor, one_torch_thread  # noqa: F401
 
 OUT_TOL = 1e-5
 GRAD_TOL = 5e-3
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _op_test_rel(a, b):
@@ -57,15 +49,9 @@ def _op_test_rel(a, b):
     return np.abs(a - b).max(initial=0) / den
 
 
-# one executor a package: the JAX executor's compile cache lives in it
-_EXE = {}
-
-
 def _run(jm, tm, jf, tf, feed, jscope, tscope):
-    if not _EXE:
-        _EXE.update(j=pt.Executor(), t=ptt.Executor(ptt.CPUPlace()))
-    j = _EXE["j"].run(jm, feed=feed, fetch_list=jf, scope=jscope)
-    t = _EXE["t"].run(tm, feed=feed, fetch_list=tf, scope=tscope)
+    j = executor(pt).run(jm, feed=feed, fetch_list=jf, scope=jscope)
+    t = executor(ptt).run(tm, feed=feed, fetch_list=tf, scope=tscope)
     return [np.asarray(v) for v in j], [np.asarray(v) for v in t]
 
 

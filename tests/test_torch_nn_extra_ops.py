@@ -41,18 +41,9 @@ from paddle_tpu.framework.selected_rows import SelectedRows as JSR
 from paddle_tpu_torch.framework import registry as treg
 from paddle_tpu_torch.framework.selected_rows import SelectedRows as TSR
 from test_torch_core_ops import OUT_TOL, _case, _check, _family, _torch_run
+from torch_port_common import one_torch_thread  # noqa: F401
 
 _R = np.random.RandomState(22)
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """The tensors here are small: torch's intra-op threads only spin
-    against the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _f(*shape):

@@ -20,6 +20,7 @@ from paddle_tpu_torch.models import gpt_decode as tgd
 from paddle_tpu_torch.models.gpt import GPTConfig, gpt_lm_program
 from paddle_tpu_torch.serving import ServingConfig, ServingEngine
 from paddle_tpu_torch.serving import metrics as tserving_metrics
+from torch_port_common import one_torch_thread  # noqa: F401
 
 
 def _fill(reg):

@@ -17,9 +17,12 @@ logical_and, where, assign) run at the shapes those passes give them.
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as pt
 import paddle_tpu_torch as ptt
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 TOL = 1e-5
 _R = np.random.RandomState(0)

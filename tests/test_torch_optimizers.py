@@ -39,6 +39,8 @@ import paddle_tpu_torch as ptt
 from paddle_tpu_torch.tools.control_flow_cases import (
     GM_K, gradient_merge_micro_batches, gradient_merge_program)
 from test_torch_gpt_inference import _program_dict
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-5

@@ -35,6 +35,8 @@ from paddle_tpu_torch.framework.selected_rows import SelectedRows
 from paddle_tpu_torch.ops import io_dist_ops as tio
 from test_dist_ps import _free_port
 from test_torch_loss_metrics import _rel_l2
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 GRAD_L2 = 5e-3
 

@@ -27,6 +27,8 @@ import pytest
 from paddle_tpu.distributed import pskv as jpskv
 from paddle_tpu_torch import native_loader
 from paddle_tpu_torch.distributed import pskv as tpskv
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 PKGS = {"port": tpskv, "jax": jpskv}
 

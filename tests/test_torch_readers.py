@@ -34,6 +34,8 @@ import paddle_tpu_torch as ptt
 from paddle_tpu import reader as jrd
 from paddle_tpu_torch import reader as trd
 from paddle_tpu_torch.ops import reader_ops
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 THREADS = ("reader.double_buffer", "py_reader.pump", "py_reader.fill")
 

@@ -27,6 +27,8 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 
 from paddle_tpu_torch.tools import spike_residual_ln as srl
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 TOL = 1e-5
 BF16_ULP = 2.0 ** -7

@@ -34,6 +34,8 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 
 from paddle_tpu_torch.tools import spike_residual_ln as srl
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 LN_SUM_RTOL = 1e-4      # chip_smoke.py: dscale, dbias against the plain
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -25,6 +25,7 @@ compare those and never the pool's input gradient.
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as pt
 import paddle_tpu_torch as ptt
@@ -33,6 +34,8 @@ from paddle_tpu_torch.models import resnet as tresnet
 from paddle_tpu_torch.tools import bench_resnet50 as bench
 from test_torch_gpt_inference import _program_dict
 from test_torch_ops import _both, _int32, _run_grad
+from torch_port_common import executor, one_torch_thread  # noqa: F401
+
 
 TOL = 1e-5          # op_test's output tolerance
 GRAD_TOL = 5e-3     # op_test's gradient tolerance
@@ -196,7 +199,7 @@ def test_op_grad_matches_jax(case):
     """The generic vjp on both sides: the same grad-op descs, input
     gradients within op_test's 5e-3."""
     _, op_type, inputs, outputs, attrs, target, wrt = case
-    jg, jdesc = _run_grad(pt, pt.Executor(), op_type, inputs, outputs,
+    jg, jdesc = _run_grad(pt, executor(pt), op_type, inputs, outputs,
                           attrs, target, wrt)
     tg, tdesc = _run_grad(ptt, ptt.Executor(ptt.CPUPlace()), op_type,
                           inputs, outputs, attrs, target, wrt)
@@ -259,7 +262,7 @@ def test_batch_norm_bf16_matches_jax(layout, shape, is_test):
     c = shape[1] if layout == "NCHW" else shape[-1]
     ins = _bn_inputs(_f(*shape) * 2 + 1, c)
     attrs = _bn(is_test=is_test, layout=layout)
-    jv, jg, jdt = _run_bn_bf16(pt, pt.Executor(), ins, attrs)
+    jv, jg, jdt = _run_bn_bf16(pt, executor(pt), ins, attrs)
     tv, tg, tdt = _run_bn_bf16(ptt, ptt.Executor(ptt.CPUPlace()), ins,
                                attrs)
     assert tdt == jdt and tdt[0] == "bfloat16"
@@ -312,11 +315,21 @@ def _resnet50_program(pkg, resnet, amp):
     return main, startup, loss
 
 
+# the JAX package's ResNet-50 train programs, built once for the module
+_JAX_RESNET50 = {}
+
+
+def _jax_resnet50(amp):
+    if amp not in _JAX_RESNET50:
+        _JAX_RESNET50[amp] = _resnet50_program(pt, jresnet, amp)
+    return _JAX_RESNET50[amp]
+
+
 @pytest.mark.parametrize("amp", [False, True], ids=["fp32", "amp"])
 def test_resnet50_train_program_matches_jax(amp):
     """The port's bench_resnet50 program against the program the JAX
     package's tools/bench_resnet50.py builds."""
-    jmain, jstart, _ = _resnet50_program(pt, jresnet, amp)
+    jmain, jstart, _ = _jax_resnet50(amp)
     tmain, tstart, _, _ = bench.build_program(amp=amp)
     types = [op.type for op in tmain.global_block.ops]
     assert types == [op.type for op in jmain.global_block.ops]
@@ -334,7 +347,7 @@ def _carry(jmain, jstart, extra=()):
     """Run the JAX startup program; its values, and a port scope holding
     them."""
     jscope = pt.Scope()
-    jexe = pt.Executor()
+    jexe = executor(pt)
     jexe.run(jstart, scope=jscope)
     init = {v.name: np.asarray(jscope.find_var(v.name))
             for v in jmain.list_vars()
@@ -437,7 +450,7 @@ def test_resnet50_step_matches_jax():
     whole channel. Measured: multiplying the input by 1 + 1e-7 moves the
     port's own gradients by up to 0.027 relative L2 (0.27 of max |g|
     element-wise, conv2d_48.w_0), as far as they lie from JAX's."""
-    jmain, jstart, jloss = _resnet50_program(pt, jresnet, False)
+    jmain, jstart, jloss = _jax_resnet50(False)
     tmain, _, tloss = _resnet50_program(ptt, tresnet, False)
     jexe, jscope, tscope, _ = _carry(jmain, jstart)
     feed = _image_feed(0, 2, 224, 1000)

@@ -24,6 +24,8 @@ import paddle_tpu_torch as ptt
 from test_torch_book import _sgd, build_both, check_step
 from test_torch_control_flow import check_both
 from test_torch_ops import _both, _int32, _run_grad
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 TOL = 1e-5
 GRAD_TOL = 5e-3

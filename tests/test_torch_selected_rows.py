@@ -31,6 +31,8 @@ from paddle_tpu.models import book as jbook
 from paddle_tpu_torch.framework import selected_rows as tsr
 from paddle_tpu_torch.models import book as tbook
 from test_torch_gpt_inference import _program_dict
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 VOCAB, DIM, BATCH = 13, 4, 6
 TOL = 1e-5

@@ -49,6 +49,8 @@ from paddle_tpu_torch.server import (AdapterConfig, DrainingError,
 from paddle_tpu_torch.serving import (EngineOverloadError, FaultPlan,
                                       ServingConfig, ServingEngine)
 from test_torch_serving import _close_engines, _opened  # noqa: F401
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -48,6 +48,8 @@ from paddle_tpu_torch.models.gpt import GPTConfig as TGPTConfig
 from paddle_tpu_torch.serving import (EngineOverloadError, FaultPlan,
                                       ServingConfig, ServingEngine,
                                       SlotKVCache)
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIE = 1e-5

@@ -43,6 +43,8 @@ from paddle_tpu_torch.serving import (FaultPlan, MigrationError,
                                       ServingEngine, SlotKVCache,
                                       TicketError)
 from test_torch_serving import _close_engines, _opened  # noqa: F401
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 TIE = 1e-5
 

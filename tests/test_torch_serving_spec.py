@@ -38,6 +38,8 @@ from paddle_tpu_torch.models.gpt import GPTConfig as TGPTConfig
 from paddle_tpu_torch.serving import (MigrationTicket, ServingConfig,
                                       ServingEngine, TicketError)
 from test_torch_serving import _close_engines, _opened  # noqa: F401
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 TOP_K = 5
 PRESSURE = dict(num_slots=4, max_queue=16, block_size=4, kv_blocks=12,

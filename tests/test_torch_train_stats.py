@@ -24,10 +24,12 @@ import warnings
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import observability as obs
 from paddle_tpu_torch.observability import train_stats as ts
+from torch_port_common import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

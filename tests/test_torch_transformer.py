@@ -47,6 +47,8 @@ from paddle_tpu_torch.models import transformer as ttr
 from test_torch_book import build_both, carry_startup
 from test_torch_gpt_inference import _program_dict
 from test_torch_ops import _both, _int32, _run_grad
+from torch_port_common import one_torch_thread  # noqa: F401
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-5          # op_test's output tolerance
